@@ -1,0 +1,326 @@
+"""PyTorch port vs the JAX package: AR decoders, the fused generation path
+and synthesis.
+
+On the CPU the fused path runs the kernel's plain PyTorch version; it is held
+against the JAX Pallas kernel in interpret mode with f32 weight packs, at the
+tolerances of tests/test_pallas.py: categorical codes exactly equal, scalar
+samples within 1e-4 (f32 rounding differs in summation order between the
+frameworks). Both sides run deterministic mode (argmax / mean feedback):
+sampling uses different random streams in the two packages.
+
+The kernel itself only runs on a GPU; tests/test_torch_kernels.py holds it
+against the plain version there.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from wavenet_vocoder_tpu.config import Config as JaxConfig
+from wavenet_vocoder_tpu.models.wavenet import (
+    WaveNetSpec as JaxSpec,
+    init_wavenet,
+    spec_from_config as jax_spec_from_config,
+)
+from wavenet_vocoder_tpu.ops.generate import generate as jax_generate
+from wavenet_vocoder_tpu.ops.pallas_generate import generate_pallas
+from wavenet_vocoder_tpu.synthesis import (
+    batch_wavegen as jax_batch_wavegen,
+    pad_mel_context,
+)
+
+from wavenet_vocoder_tpu_torch import synthesis
+from wavenet_vocoder_tpu_torch.compat.from_jax import state_dict_from_jax
+from wavenet_vocoder_tpu_torch.config import Config
+from wavenet_vocoder_tpu_torch.models.wavenet import (
+    WaveNet,
+    WaveNetSpec,
+    spec_from_config,
+)
+from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+from wavenet_vocoder_tpu_torch.ops.generate import generate
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL = 1e-4
+
+HEADS = {
+    "categorical": dict(out_channels=256, scalar_input=False),
+    "mol": dict(out_channels=30, scalar_input=True,
+                output_distribution="Logistic"),
+    "gaussian": dict(out_channels=2, scalar_input=True,
+                     output_distribution="Normal"),
+}
+GLOBAL = dict(gin_channels=8, use_speaker_embedding=True, n_speakers=3)
+
+
+def _pair(seed, **kw):
+    base = dict(layers=4, stacks=2, residual_channels=8, gate_channels=16,
+                skip_out_channels=8, cin_channels=4)
+    base.update(kw)
+    jspec, tspec = JaxSpec(**base), WaveNetSpec(**base)
+    params = jax.tree.map(np.asarray, init_wavenet(jax.random.PRNGKey(seed), jspec))
+    model = WaveNet(tspec)
+    model.load_state_dict(state_dict_from_jax(params, tspec))
+    return params, jspec, model.eval()
+
+
+def _inputs(jspec, B=2, T=48):
+    rs = np.random.RandomState(1)
+    c = rs.randn(B, T, jspec.cin_channels).astype(np.float32)
+    g = np.array([0, 2], np.int32) if jspec.has_global_conditioning else None
+    return c, g
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _assert_close(jspec, ours, ref):
+    if jspec.scalar_input:
+        np.testing.assert_allclose(ours, ref, atol=ATOL)
+    else:
+        np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_eager_decoder_matches_jax(head, with_g):
+    kw = dict(HEADS[head], **(GLOBAL if with_g else {}))
+    params, jspec, model = _pair(3, **kw)
+    c, g = _inputs(jspec)
+    ref = np.asarray(jax_generate(params, jspec, jax.random.PRNGKey(2),
+                                  c=_j(c), g=_j(g),
+                                  deterministic=True)["samples"])
+    ours = generate(model, c=_t(c), g=_t(g), deterministic=True)["samples"].numpy()
+    assert ours.shape == ref.shape
+    if jspec.scalar_input:
+        _assert_close(jspec, ours, ref)
+    else:
+        _assert_close(jspec, ours.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("case", sorted(HEADS) + ["categorical_g", "mol_g"])
+def test_fused_plain_matches_jax_pallas(case):
+    kw = dict(HEADS[case.split("_")[0]], **(GLOBAL if case.endswith("_g") else {}))
+    params, jspec, model = _pair(4, **kw)
+    c, g = _inputs(jspec, T=40)
+    ref = np.asarray(generate_pallas(
+        params, jspec, jax.random.PRNGKey(2), c=_j(c), g=_j(g),
+        weight_dtype=jnp.float32, deterministic=True, interpret=True,
+        chunk=16))
+    gen = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=16)
+    launches = cg.generate_steps.launches
+    ours = gen(c=_t(c), g=_t(g), deterministic=True).numpy()
+    assert cg.generate_steps.launches == launches  # CPU: no kernel launched
+    assert ours.shape == ref.shape == (2, 40)
+    assert ours.dtype == (np.float32 if jspec.scalar_input else np.int32)
+    _assert_close(jspec, ours, ref)
+
+
+@pytest.mark.parametrize("head", ["categorical", "mol"])
+def test_fused_plain_matches_eager(head):
+    """Unconditional, T not a multiple of the launch block: padded and
+    trimmed, and equal to the eager decoder."""
+    params, jspec, model = _pair(6, cin_channels=-1, **HEADS[head])
+    gen = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=16)
+    out = gen(T=23, deterministic=True)
+    assert out.shape == (1, 23)
+    ref = generate(model, T=23, deterministic=True)["samples"]
+    if jspec.scalar_input:
+        np.testing.assert_allclose(out.numpy(), ref[..., 0].numpy(), atol=ATOL)
+    else:
+        np.testing.assert_array_equal(out.numpy(), ref.argmax(-1).numpy())
+    # the JAX kernel pads and trims the same way
+    ref_jax = np.asarray(generate_pallas(
+        params, jspec, jax.random.PRNGKey(0), T=23, weight_dtype=jnp.float32,
+        chunk=16, deterministic=True, interpret=True))
+    _assert_close(jspec, out.numpy(), ref_jax)
+
+
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_sampling_seed(head):
+    """Same seed, same samples — whatever the launch block; another seed,
+    other samples."""
+    _, jspec, model = _pair(7, **HEADS[head])
+    c, _ = _inputs(jspec, T=32)
+    a = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=16)
+    b = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=8)
+    s1, s2 = a(c=_t(c), seed=11), b(c=_t(c), seed=11)
+    s3 = a(c=_t(c), seed=12)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+    assert not torch.equal(s1, s3)
+    if jspec.scalar_input:
+        assert float(s1.abs().max()) <= 1.0 and float(s1.std()) > 0.01
+    else:
+        assert len(torch.unique(s1)) > 2
+
+
+def test_bf16_pack_follows_f32():
+    """The bf16 pack rounds weights and product inputs (and uses the exp-form
+    GLU); its deterministic MoL output stays near the f32 pack's."""
+    _, jspec, model = _pair(8, **HEADS["mol"])
+    c, _ = _inputs(jspec, T=32)
+    f32 = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=16)
+    bf16 = cg.FusedGenerator(model, weight_dtype=torch.bfloat16, chunk=16)
+    assert bf16.packed["w_in"].dtype == torch.bfloat16
+    assert bf16.packed["b_in"].dtype == torch.float32
+    a = f32(c=_t(c), deterministic=True)
+    b = bf16(c=_t(c), deterministic=True)
+    assert float((a - b).abs().max()) < 0.1
+
+
+def test_pack_and_layout_shapes():
+    _, jspec, model = _pair(0, **HEADS["categorical"])
+    offs, total = cg.buffer_layout(model.spec)
+    assert offs == (0, 2, 6, 8) and total == 12
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    assert {n: tuple(a.shape) for n, a in packed.items()} == \
+        cg.packed_shapes(model.spec)
+    assert packed["w_in"].shape == (4, 3 * 8 + 4, 16)
+    assert packed["w_og"].shape == (4, 8, 8 + 8)
+    assert packed["b_og"].shape == (4, 16)
+    assert packed["w_h2"].shape == (8, 256)
+
+
+def _mix32_np(x):
+    x = np.asarray(x, np.uint32)
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(0x7FEB352D)
+        x ^= x >> np.uint32(15)
+        x *= np.uint32(0x2C1B3C6D)
+        x ^= x >> np.uint32(16)
+    return x
+
+
+def test_hash_matches_uint32_reference():
+    """The plain version's int64 hash equals wrapping uint32 arithmetic,
+    which is what the kernel computes."""
+    seed, t = 123456789, 70000
+    rows = np.arange(300)
+    key = _mix32_np(_mix32_np(_mix32_np(seed) ^ rows.astype(np.uint32))
+                    ^ np.uint32(t))
+    keys = cg.step_keys(seed, torch.arange(300), t)
+    np.testing.assert_array_equal(keys.numpy(), key.astype(np.int64))
+    draws = np.arange(5)
+    bits = _mix32_np(key[:, None] ^ draws[None].astype(np.uint32)) >> np.uint32(8)
+    u_ref = np.clip(bits.astype(np.float32) * np.float32(2.0 ** -24),
+                    np.float32(1e-5), np.float32(1 - 1e-5))
+    u = cg.uniforms(keys[:, None], torch.arange(5)[None])
+    np.testing.assert_array_equal(u.numpy(), u_ref)
+
+
+def test_wrapper_checks_inputs():
+    _, jspec, model = _pair(0, **HEADS["mol"])
+    packed = cg.pack_weights(model, dtype=torch.float32)
+    _, rows = cg.buffer_layout(model.spec)
+    ring = torch.zeros(rows, 2, 8)
+    x_cur = torch.zeros(2, 1)
+    out = torch.empty(2, 4)
+    cond = torch.zeros(2, 4, 4)
+    with pytest.raises(ValueError, match="shape"):
+        cg.generate_steps(packed, model.spec, ring[:, :1], x_cur, out, cond,
+                          t0=0, seed=0)
+    with pytest.raises(TypeError, match="dtype"):
+        cg.generate_steps(packed, model.spec, ring.bfloat16(), x_cur, out,
+                          cond, t0=0, seed=0)
+    with pytest.raises(ValueError, match="cond"):
+        cg.generate_steps(packed, model.spec, ring, x_cur, out, None,
+                          t0=0, seed=0)
+    other = cg.pack_weights(_pair(0, **HEADS["categorical"])[2],
+                            dtype=torch.float32)
+    with pytest.raises(ValueError, match="w_first"):
+        cg.generate_steps(other, model.spec, ring, x_cur, out, cond,
+                          t0=0, seed=0)
+    cg.generate_steps(packed, model.spec, ring, x_cur, out, cond, t0=0, seed=0)
+    assert torch.isfinite(out).all()
+
+
+def _small_cfg(**kw):
+    over = dict(layers=4, stacks=2, residual_channels=8, gate_channels=16,
+                skip_out_channels=8, cin_channels=4, num_mels=4, hop_size=4,
+                cin_pad=1, upsample_params={"upsample_scales": [2, 2]})
+    over.update(kw)
+    return JaxConfig(**over), Config(**over)
+
+
+@pytest.mark.parametrize("input_type", ["raw", "mulaw-quantize"])
+def test_synthesizer_matches_jax_batch_wavegen(input_type):
+    extra = ({} if input_type == "raw"
+             else dict(input_type=input_type, out_channels=256,
+                       quantize_channels=256))
+    jc, tc = _small_cfg(**extra)
+    jspec, tspec = jax_spec_from_config(jc), spec_from_config(tc)
+    params = jax.tree.map(np.asarray, init_wavenet(jax.random.PRNGKey(9), jspec))
+    model = WaveNet(tspec)
+    model.load_state_dict(state_dict_from_jax(params, tspec))
+    mel = np.random.RandomState(2).randn(2, 6, 4).astype(np.float32)
+    ref = jax_batch_wavegen(params, jc, c=pad_mel_context(mel, jc.cin_pad),
+                            engine="pallas", interpret=True,
+                            deterministic=True, weight_dtype=jnp.float32,
+                            chunk=16)
+    synth = synthesis.Synthesizer(model, tc, engine="cuda", device="cpu",
+                                  weight_dtype=torch.float32, chunk=16)
+    wav = synth(mel, deterministic=True)
+    assert wav.shape == ref.shape == (2, 24) and wav.dtype == np.float32
+    np.testing.assert_allclose(wav, ref, atol=ATOL)
+    # the eager engine agrees too
+    wav_scan = synthesis.Synthesizer(model, tc, engine="scan", device="cpu")(
+        mel, deterministic=True)
+    np.testing.assert_allclose(wav_scan, ref, atol=ATOL)
+
+
+def test_wavegen_single_utterance():
+    _, tc = _small_cfg()
+    model = WaveNet(spec_from_config(tc), generator=torch.Generator().manual_seed(0))
+    mel = np.random.RandomState(3).randn(5, 4).astype(np.float32)
+    wav = synthesis.wavegen(model, tc, c=mel, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    assert wav.shape == (20,) and np.isfinite(wav).all()
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tc = _small_cfg()
+    model = WaveNet(spec_from_config(tc))
+    mel = np.zeros((1, 5, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthesis.Synthesizer(model, tc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthesis.batch_wavegen(model, tc, c=mel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthesis.wavegen(model, tc, c=mel[0])
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports with jax blocked, and none of them
+    loads the JAX package."""
+    code = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import wavenet_vocoder_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
+       or m.startswith("wavenet_vocoder_tpu.") or m == "wavenet_vocoder_tpu"]
+assert not bad, bad
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 14
