@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases (each failure ends the run with a non-zero exit):
-  1. build    — nvcc-compile the generation kernel and print the seconds;
+  1. build    — nvcc-compile the three kernel sources in parallel and print
+                the seconds;
   2. kernel   — at the flagship width (24 layers, 128/256/128, cin=80), hold
                 the generation kernel against its plain PyTorch version for
                 the categorical, MoL and Gaussian heads, f32 and bf16 packs,
@@ -18,7 +19,25 @@ Phases (each failure ends the run with a non-zero exit):
                 decoder through the same entry point;
   4. timing   — the kernel at the serving shape (B=256, one launch of 256
                 steps) beside its plain version and its bound, and a sweep of
-                streams per block.
+                streams per block;
+  5. train-kernel — at the flagship width, the residual-stack training
+                kernels (csrc/train_fwd.cu, csrc/train_bwd.cu) against their
+                plain versions: skips and all eight gradients, at B=2,
+                T=3000 (f32 and bf16, dropout 0 and 0.05, one bf16 row with a
+                global-conditioning bias) and at the training path's shape
+                B=8, T=10240 (f32 and bf16); see TRAIN_TOL;
+  6. training — ``create_train_state(Config(fused_train=True))`` and
+                ``train_step`` at B=8 on bench.py's batch: one step through
+                the kernels and one through the plain versions from the same
+                state agree in loss, gradient norm and every parameter's
+                gradient (see STEP_TOL); then 10 kernel steps, whose launch
+                counts are the kernels' launches on the main path, lower
+                the loss;
+  7. train-timing — median step time and samples/s at B=8 and B=32 (CUDA
+                events), a torch.profiler breakdown of one B=8 step by
+                kernel, and each training kernel's time per step at B=8
+                beside its plain version and its bound; a ``[summary]`` line
+                repeats the training numbers just before the result lines.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -29,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,6 +57,13 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 KERNEL_SOURCE = "wavenet_vocoder_tpu_torch/csrc/generate.cu"
 REPLACES = "wavenet_vocoder_tpu/ops/pallas_generate.py:172"
+TRAIN_KERNELS = {
+    "wn_train_fwd": ("wavenet_vocoder_tpu_torch/csrc/train_fwd.cu",
+                     "wavenet_vocoder_tpu/ops/pallas_train.py:353"),
+    "wn_train_bwd": ("wavenet_vocoder_tpu_torch/csrc/train_bwd.cu",
+                     "wavenet_vocoder_tpu/ops/pallas_train.py:799"),
+}
+SOURCES = ("generate", "train_fwd", "train_bwd")
 
 
 class PhaseError(RuntimeError):
@@ -74,11 +101,18 @@ def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
 # phase 1: build
 # ----------------------------------------------------------------------
 def phase_build(report):
+    """One nvcc per source, all started together, then load each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from wavenet_vocoder_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    build.load("generate")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for _ in pool.map(build._compile, SOURCES):
+            pass
+    for name in SOURCES:
+        build.load(name)
     secs = time.perf_counter() - t0
-    print(f"[build] csrc/generate.cu: nvcc and load {secs:.1f}s")
+    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu: nvcc and load {secs:.1f}s")
     report["build_s"] = secs
 
 
@@ -477,6 +511,438 @@ def phase_timing(report, model):
                 f32_max_abs_err=report["f32_max_abs_err"])
 
 
+# ----------------------------------------------------------------------
+# phase 5: the training kernels against their plain versions
+# ----------------------------------------------------------------------
+# Tolerance per output, relative to its largest value. f32: 1e-4 — the same
+# f32 arithmetic summed in another order (weight gradients by atomics, in an
+# order that changes from run to run). bf16: 2e-2 — a one-ulp f32 difference
+# in z can move gated or dz across a bf16 rounding boundary ("flips": the
+# elements beyond 1e-3 of the largest value, printed).
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_ROWS = [  # (B, T, dtype, dropout, global-conditioning bias)
+    (2, 3000, "float32", 0.0, False), (2, 3000, "float32", 0.05, False),
+    (2, 3000, "bfloat16", 0.0, False), (2, 3000, "bfloat16", 0.05, False),
+    (2, 3000, "bfloat16", 0.0, True),
+    (8, 10240, "float32", 0.0, False), (8, 10240, "bfloat16", 0.0, False)]
+GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og",
+              "db_og")
+
+
+def _stack_case(model, B, T, dtype, glob, seed):
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+    spec = model.spec
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=g)
+    with torch.no_grad():
+        w_in, b_in, w_cond, w_og, b_og = ft.pack_block_weights(
+            model.conv_layers, spec, dtype)
+    x0 = (0.5 * rn(B, T, spec.residual_channels)).to(dtype)
+    c = rn(B, T, spec.cin_channels).to(dtype)
+    gb = 0.2 * rn(spec.layers, B, spec.gate_channels) if glob else None
+    inputs = (x0, c, gb) + tuple(a.contiguous() for a in
+                                 (w_in, b_in, w_cond, w_og, b_og))
+    return inputs, rn(B, T, spec.skip_out_channels)
+
+
+def _compare(name, got, want, tol):
+    import torch
+    scale = float(want.float().abs().max())
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    flips = int((diff > 1e-3 * scale).sum())
+    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+    return dict(name=name, max_abs_err=err, ref_max=scale,
+                rel=err / max(scale, 1e-30), flips=flips, ok=ok)
+
+
+def phase_train_kernel(report):
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+    _, model = _flagship_model("cuda", 11)
+    spec = model.spec
+    kw0 = dict(dils=spec.dilations, k=spec.kernel_size)
+    rows, failures = [], []
+    for i, (B, T, dname, drop, glob) in enumerate(TRAIN_ROWS):
+        dtype = getattr(torch, dname)
+        inputs, dskips = _stack_case(model, B, T, dtype, glob, seed=20 + i)
+        kw = dict(kw0, drop=drop, seed=-777 + i)
+        with torch.no_grad():
+            skips, xs = ct.train_fwd(*inputs, **kw)
+            skips_p, xs_p = ft.fused_res_stack_fwd_plain(*inputs, **kw)
+            torch.cuda.synchronize()
+            outs = [_compare("skips", skips, skips_p, TRAIN_TOL[dname])]
+            del skips, xs, skips_p
+            _, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+            args = (dskips, xs_p, c, gb, w_in, b_in, w_cond, w_og, b_og)
+            got = ct.train_bwd(*args, **kw)
+            want = ft.fused_res_stack_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+        for name, a, b in zip(GRAD_NAMES, got, want):
+            if b is not None:
+                outs.append(_compare(name, a, b, TRAIN_TOL[dname]))
+        del got, want, args, xs_p, inputs
+        torch.cuda.empty_cache()
+        row = dict(B=B, T=T, dtype=dname, dropout=drop, gb=glob,
+                   tol=TRAIN_TOL[dname], outputs=outs)
+        rows.append(row)
+        line = (f"[train-kernel] B={B} T={T} {dname} drop={drop} "
+                f"gb={'yes' if glob else 'no'} tol {TRAIN_TOL[dname]}: "
+                + ", ".join(f"{o['name']} {o['rel']:.2e}"
+                            + (f" ({o['flips']} flips)" if dname == "bfloat16"
+                               else "") for o in outs))
+        print(line, flush=True)
+        failures += [f"{o['name']}: {line}" for o in outs if not o["ok"]]
+    report["train_kernel_vs_plain"] = rows
+    path = {r["dtype"]: r for r in rows if r["B"] == 8}
+    # at the path's shape: the largest error over the kernel's outputs,
+    # absolute and relative to each output's largest value
+    err = {}
+    for dname, tag in (("bfloat16", ""), ("float32", "_f32")):
+        outs = path[dname]["outputs"]
+        for key, sel in (("fwd", outs[:1]), ("bwd", outs[1:])):
+            err[key + tag] = max(o["max_abs_err"] for o in sel)
+            err[key + tag + "_rel"] = max(o["rel"] for o in sel)
+    report["train_path_err"] = err
+    if failures:
+        fail("training kernels disagree with their plain versions:\n"
+             + "\n".join(failures))
+
+
+# ----------------------------------------------------------------------
+# phase 6: the training path through the user entry points
+# ----------------------------------------------------------------------
+TRAIN_STEPS = 10
+# kernel step vs plain step from one state, in f32 and in bf16 (the path):
+# the loss and the global gradient norm, relative; each parameter's
+# gradient, max |diff| relative to its own largest value (leaf_grad_errors),
+# where a gradient that is dropped or sent to another leaf is off by ~1.
+# The leaf limits sit above the upsample net's one-channel filters: weight
+# norm leaves their weight_v only the small part of dW that lies across v,
+# so the kernels' differences in dc (f32 ~1e-6, bf16 ~3e-3) come out there
+# at ~7e-3 in f32 and ~5e-2 in bf16 of the leaf's largest value.
+STEP_TOL = {"float32": {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 2e-2},
+            "bfloat16": {"loss": 1e-4, "grad_norm": 1e-3, "leaf": 0.1}}
+
+
+def train_batch(cfg, B):
+    """bench.py's training batch (bench.py:78-85), made with numpy."""
+    import numpy as np
+    T = cfg.max_time_steps
+    frames = T // cfg.hop_size + 2 * cfg.cin_pad
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-0.5, 0.5, (B, T, 1)).astype(np.float32)
+    return {"x": x, "y": x.copy(),
+            "c": rs.randn(B, frames, cfg.num_mels).astype(np.float32),
+            "input_lengths": np.full(B, T, np.int32)}
+
+
+def _plain_stack():
+    """The fused stack's plain versions in place of the kernels, for a
+    CUDA tensor too (for this comparison only)."""
+    from unittest import mock
+
+    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+    return mock.patch.object(ft, "_impl", lambda device: (
+        ft.fused_res_stack_fwd_plain, ft.fused_res_stack_bwd_plain))
+
+
+def leaf_grad_errors(model, ref_model):
+    """max |grad - ref grad| / max |ref grad| for every parameter of
+    ``model``. No scale is taken below 1e-6 of the largest of all leaves:
+    first_conv.weight_v (one input channel) has a gradient that weight
+    norm's projection makes 0 up to rounding, ~1e-9 of the largest, whose
+    noise differs between any two runs."""
+    ref = {n: p.grad.float() for n, p in ref_model.named_parameters()}
+    scale = {n: float(g.abs().max()) for n, g in ref.items()}
+    floor = 1e-6 * max(scale.values())
+    out = {}
+    for name, p in model.named_parameters():
+        err = float((p.grad.float() - ref[name]).abs().max())
+        out[name] = (err / max(scale[name], floor) if math.isfinite(err)
+                     else float("inf"))
+    return out
+
+
+def _kernel_vs_plain_step(cfg, batch, dname):
+    """One train step through the kernels and one through the plain
+    versions from the same fresh state; returns the kernel's state and step
+    and what they agree on. Fails the phase past STEP_TOL[dname]."""
+    import copy
+
+    import torch
+
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    tol = STEP_TOL[dname]
+    state = create_train_state(cfg)
+    train_step, _ = make_train_step(cfg)
+    plain = create_train_state(cfg, model=copy.deepcopy(state.model))
+    m_k = train_step(state, batch)
+    with _plain_stack():
+        m_p = train_step(plain, batch)
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    norm_k, norm_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    # the step leaves each parameter's gradient in .grad (no clipping in
+    # this config): held leaf by leaf, so a dropped or mis-routed gradient
+    # of a small leaf shows, which the global norm would hide
+    leaves = leaf_grad_errors(state.model, plain.model)
+    top = sorted(leaves.items(), key=lambda kv: -kv[1])[:5]
+    agree = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                 loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                 grad_norm_kernel=norm_k, grad_norm_plain=norm_p,
+                 grad_norm_rel=abs(norm_k - norm_p) / abs(norm_p),
+                 leaf_rel=leaves, worst_leaf=top[0][0], tol=tol)
+    B, T = batch["x"].shape[:2]
+    print(f"[training] B={B} T={T} {dname}, one step from one state: loss "
+          f"kernel {loss_k:.6f} plain {loss_p:.6f} (rel "
+          f"{agree['loss_rel']:.2e}, tol {tol['loss']}); grad norm kernel "
+          f"{norm_k:.6f} plain {norm_p:.6f} (rel {agree['grad_norm_rel']:.2e},"
+          f" tol {tol['grad_norm']}); {len(leaves)} parameter gradients, max "
+          f"|diff| / max |ref|, tol {tol['leaf']}, worst: "
+          + ", ".join(f"{n} {v:.2e}" for n, v in top), flush=True)
+    del plain, m_p
+    torch.cuda.empty_cache()
+    if not (agree["loss_rel"] <= tol["loss"]
+            and agree["grad_norm_rel"] <= tol["grad_norm"]
+            and top[0][1] <= tol["leaf"]):
+        fail(f"kernel and plain training steps disagree ({dname})")
+    return state, train_step, agree
+
+
+def phase_training(report):
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(fused_train=True)
+    B = cfg.batch_size
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(cfg, B).items()}
+    _, _, agree_f32 = _kernel_vs_plain_step(
+        Config(fused_train=True, compute_dtype=""), batch, "float32")
+    torch.cuda.empty_cache()
+    state, train_step, agree = _kernel_vs_plain_step(cfg, batch, "bfloat16")
+
+    ct.train_fwd.launches = ct.train_bwd.launches = 0
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        losses.append(float(train_step(state, batch)["loss"]))
+    launches = {"wn_train_fwd": ct.train_fwd.launches,
+                "wn_train_bwd": ct.train_bwd.launches}
+    L = state.model.spec.layers
+    expected = {"wn_train_fwd": L * TRAIN_STEPS,
+                "wn_train_bwd": 3 * L * TRAIN_STEPS}
+    print(f"[training] {TRAIN_STEPS} kernel steps: losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; launches {launches} (expected {expected})", flush=True)
+    report["training"] = dict(agree=agree, agree_f32=agree_f32,
+                              losses=losses, launches=launches)
+    if launches != expected:
+        fail(f"training launched {launches}, expected {expected}")
+    if not np.isfinite(losses).all():
+        fail("training loss not finite")
+    if not np.mean(losses[5:]) < losses[0]:
+        fail(f"loss did not fall: mean of steps 6-10 {np.mean(losses[5:])}"
+             f" vs step 1 {losses[0]}")
+    return state, train_step, launches
+
+
+# ----------------------------------------------------------------------
+# phase 7: training step and kernel times
+# ----------------------------------------------------------------------
+def train_bounds(spec, B, T, nbytes):
+    """MACs per position of the forward and the backward (with its z
+    recompute) from the spec, and the least time of each at B x T: the
+    larger of its operations at the bf16 tensor-core rate and its bytes
+    (``nbytes``: each input read once, each output written once) at HBM
+    rate."""
+    L, k, R, G, S = (spec.layers, spec.kernel_size, spec.residual_channels,
+                     spec.gate_channels, spec.skip_out_channels)
+    cin, G2 = spec.cin_channels, G // 2
+    z = (k * R + cin) * G
+    fwd = L * (z + G2 * (R + S))
+    bwd = L * (z + (R + S) * G2 + k * R * G + cin * G + G2 * (R + S)
+               + k * G * R + G * cin)
+    out = {}
+    for name, macs in (("wn_train_fwd", fwd), ("wn_train_bwd", bwd)):
+        flops = 2.0 * macs * B * T
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes[name] / PEAK_HBM_BYTES
+        out[name] = dict(macs_per_position=macs, flops=flops,
+                         bytes=nbytes[name],
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes")
+    return out
+
+
+def _step_times(train_step, state, batch, n):
+    import torch
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _profile_step(train_step, state, batch):
+    """Device time of one train step by kernel, from a torch.profiler trace:
+    (groups {name: ms}, busy ms, step ms by CUDA events), or None when the
+    profiler records no device activity. Kernels run on one stream, so the
+    sum of their durations is the device's busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in ("fwd_layer", "bwd_dz", "bwd_wgrad", "bwd_dx")
+                     if k in e.name), e.name[:60])
+        groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not groups:
+        return None
+    return groups, sum(groups.values()), start.elapsed_time(end)
+
+
+def phase_train_timing(report, state, train_step):
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+    cfg = Config(fused_train=True)
+    T = cfg.max_time_steps
+    saved = ct.train_fwd.launches, ct.train_bwd.launches
+    steps = {}
+    for B in (8, 32):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in train_batch(cfg, B).items()}
+        _step_times(train_step, state, batch, 1)          # warm-up
+        t = _step_times(train_step, state, batch, 5)
+        med = float(np.median(t))
+        steps[B] = dict(step_ms=t, median_ms=med,
+                        samples_per_s=B * T / (med / 1e3))
+        print(f"[train-time] B={B} T={T}: step median {med:.1f} ms (min "
+              f"{min(t):.1f}, max {max(t):.1f}), "
+              f"{steps[B]['samples_per_s']:.0f} samples/s", flush=True)
+        if B == cfg.batch_size:
+            prof = _profile_step(train_step, state, batch)
+            if prof is None:
+                print("[train-time] the profiler recorded no device activity")
+            else:
+                groups, busy, wall = prof
+                top = sorted(groups.items(), key=lambda kv: -kv[1])[:12]
+                steps[B]["profile"] = dict(kernels_ms=groups, busy_ms=busy,
+                                           step_ms=wall)
+                print(f"[train-time] B={B} profiled step {wall:.1f} ms: device "
+                      f"busy {busy:.1f} ms (idle {1 - busy / wall:.1%}); "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in top), flush=True)
+        del batch
+        torch.cuda.empty_cache()
+
+    model, spec = state.model, state.model.spec
+    B = cfg.batch_size
+    inputs, dskips = _stack_case(model, B, T, torch.bfloat16, False, seed=40)
+    kw = dict(dils=spec.dilations, k=spec.kernel_size)
+    with torch.no_grad():
+        _, xs = ct.train_fwd(*inputs, **kw)
+        x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+        args = (dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og)
+        ms = {"wn_train_fwd": cuda_time_ms(lambda: ct.train_fwd(*inputs, **kw)),
+              "wn_train_bwd": cuda_time_ms(lambda: ct.train_bwd(*args, **kw))}
+        plain = {"wn_train_fwd": cuda_time_ms(
+                     lambda: ft.fused_res_stack_fwd_plain(*inputs, **kw),
+                     iters=1),
+                 "wn_train_bwd": cuda_time_ms(
+                     lambda: ft.fused_res_stack_bwd_plain(*args, **kw),
+                     iters=1)}
+    nb = lambda a: 0 if a is None else a.numel() * a.element_size()
+    weights = sum(nb(a) for a in inputs[3:])
+    acts = nb(x0) + nb(c)
+    grads = (nb(x0) * 2 + nb(c) * 2        # dx0, dc in f32
+             + sum(nb(a) * (4 // a.element_size()) for a in inputs[3:]))
+    nbytes = {"wn_train_fwd": acts + weights + B * T * spec.skip_out_channels
+              * 4 + nb(xs),
+              "wn_train_bwd": nb(dskips) + nb(xs) + nb(c) + weights + grads}
+    bounds = train_bounds(spec, B, T, nbytes)
+    ct.train_fwd.launches, ct.train_bwd.launches = saved
+    for name in TRAIN_KERNELS:
+        b = bounds[name]
+        print(f"[train-time] {name} B={B} T={T} bf16: {ms[name]:.3f} ms/step"
+              f"; plain {plain[name]:.3f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; {b['flops'] / 1e12:.3f} TFLOP, "
+              f"{b['bytes'] / 1e9:.3f} GB; {b['macs_per_position']} MACs "
+              f"per position)", flush=True)
+    report["train_timing"] = dict(steps=steps, kernel_ms=ms, plain_ms=plain,
+                                  bounds=bounds)
+    return ms, plain, bounds
+
+
+def train_kernel_lines(report, launches, ms, plain, bounds):
+    err = report["train_path_err"]
+    lines = []
+    for name, (source, replaces) in TRAIN_KERNELS.items():
+        key = "fwd" if name == "wn_train_fwd" else "bwd"
+        lines.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=err[key], ms=ms[name],
+            plain_ms=plain[name], bound_ms=bounds[name]["bound_ms"],
+            bound_by=bounds[name]["bound_by"], library_ms=None,
+            max_rel_err=err[key + "_rel"],
+            f32_max_abs_err=err[key + "_f32"],
+            f32_max_rel_err=err[key + "_f32_rel"]))
+    return lines
+
+
+def summary_line(report) -> str:
+    """The training numbers of this run on one line, next to the result."""
+    tr, tt = report["training"], report["train_timing"]
+    parts = []
+    for B, s in tt["steps"].items():
+        parts.append(f"B={B} step median {s['median_ms']:.1f} ms (min "
+                     f"{min(s['step_ms']):.1f}, max {max(s['step_ms']):.1f}),"
+                     f" {s['samples_per_s']:.0f} samples/s")
+        if "profile" in s:
+            p = s["profile"]
+            parts.append(f"B={B} profiled step {p['step_ms']:.1f} ms, device "
+                         f"busy {p['busy_ms']:.1f} ms")
+    for name, ms in tt["kernel_ms"].items():
+        parts.append(f"{name} {ms:.3f} ms (plain {tt['plain_ms'][name]:.3f})")
+    for dname, agree in (("f32", tr["agree_f32"]), ("bf16", tr["agree"])):
+        parts.append(f"kernel vs plain {dname} step: loss rel "
+                     f"{agree['loss_rel']:.2e}, grad norm rel "
+                     f"{agree['grad_norm_rel']:.2e}, worst leaf "
+                     f"{agree['worst_leaf']} "
+                     f"{agree['leaf_rel'][agree['worst_leaf']]:.2e}")
+    parts.append(f"10-step loss {tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}")
+    return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="write the full report as JSON here")
@@ -507,6 +973,15 @@ def main() -> int:
         model = phase_serving(report, batches)
         phase = "timing"
         kernel_line = phase_timing(report, model)
+        del model
+        torch.cuda.empty_cache()
+        phase = "train-kernel"
+        phase_train_kernel(report)
+        phase = "training"
+        state, train_step, launches = phase_training(report)
+        phase = "train-timing"
+        ms, plain, bounds = phase_train_timing(report, state, train_step)
+        train_lines = train_kernel_lines(report, launches, ms, plain, bounds)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
@@ -519,7 +994,8 @@ def main() -> int:
     if "jax" in sys.modules or "wavenet_vocoder_tpu" in sys.modules:
         print("chip_smoke: the port pulled in JAX", file=sys.stderr)
         return 4
-    print(json.dumps({"kernels": [kernel_line]}))
+    print(summary_line(report))
+    print(json.dumps({"kernels": [kernel_line] + train_lines}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

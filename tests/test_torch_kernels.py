@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the generation kernel and the residual-stack training kernels.
 
 These tests need an NVIDIA GPU and nvcc; without a CUDA device they skip.
 They import nothing of JAX, so they run on a machine that has only the port:
@@ -11,6 +12,8 @@ import torch
 
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+from wavenet_vocoder_tpu_torch.ops import fused_train as ft
 
 HEADS = {
     "categorical": dict(out_channels=256, scalar_input=False),
@@ -95,3 +98,137 @@ def test_wrapper_raises_on_bad_block_streams(cuda):
                           torch.empty(2, 4, device=cuda),
                           torch.zeros(2, 4, 4, device=cuda), t0=0, seed=0,
                           _block_streams=4)
+
+
+# ----------------------------------------------------------------------
+# the residual-stack training kernels
+# ----------------------------------------------------------------------
+# (L, dilations, R, G, S, cin): the parity width, and a wider one whose G,
+# R+S and k*R span several 128-column tiles and end on ragged ones
+TRAIN_WIDTHS = {"small": (4, (1, 2, 1, 2), 16, 32, 24, 8),
+                "wide": (3, (1, 2, 4), 64, 288, 80, 20)}
+GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og",
+              "db_og")
+
+
+def _stack_inputs(width, dtype, glob, cond, B=2, T=130, seed=0):
+    L, dils, R, G, S, cin = TRAIN_WIDTHS[width]
+    rs = np.random.RandomState(seed)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (rs.randn(*s) * sc).astype(np.float32)).cuda()
+    x0 = t(B, T, R, sc=0.5).to(dtype)
+    c = t(B, T, cin).to(dtype) if cond else None
+    gb = t(L, B, G, sc=0.2) if glob else None
+    w_in = t(L, 3 * R, G, sc=(3 * R) ** -0.5).to(dtype)
+    w_cond = t(L, cin, G, sc=cin ** -0.5).to(dtype) if cond else None
+    w_og = t(L, G // 2, R + S, sc=(G // 2) ** -0.5).to(dtype)
+    b_in, b_og = t(L, G, sc=0.1), t(L, R + S, sc=0.1)
+    dskips = t(B, T, S)
+    return (x0, c, gb, w_in, b_in, w_cond, w_og, b_og), dskips, dils
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cond", [True, False], ids=["c", "no-c"])
+@pytest.mark.parametrize("glob", [False, True], ids=["no-g", "g"])
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", sorted(TRAIN_WIDTHS))
+def test_train_kernels_match_plain(cuda, width, dtype, drop, glob, cond):
+    """Forward (skips, x_l stash) and backward (all eight gradients) against
+    the plain versions on the same inputs; T=130 ends on a ragged tile. The
+    backward gets the plain forward's stash on both sides. Tolerance per
+    output, relative to its largest value: f32 1e-4 (sums in another order,
+    weight gradients by atomics); bf16 2e-2 (a one-ulp f32 difference in z
+    can flip a bf16 rounding of gated or dz)."""
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    inputs, dskips, dils = _stack_inputs(width, dt, glob, cond)
+    kw = dict(dils=dils, k=3, drop=drop, seed=-12345)
+    before = ct.train_fwd.launches
+    skips, xs = ct.train_fwd(*inputs, **kw)
+    assert ct.train_fwd.launches == before + len(dils)
+    skips_p, xs_p = ft.fused_res_stack_fwd_plain(*inputs, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(skips, skips_p) <= tol
+    assert _rel_err(xs, xs_p) <= tol
+    x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+    args = (dskips, xs_p, c, gb, w_in, b_in, w_cond, w_og, b_og)
+    before = ct.train_bwd.launches
+    got = ct.train_bwd(*args, **kw)
+    assert ct.train_bwd.launches == before + 3 * len(dils)
+    want = ft.fused_res_stack_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_fused_stack_on_cuda_launches_kernels(cuda, monkeypatch):
+    """FusedResStack on CUDA tensors goes through the kernels, never the
+    plain versions."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    monkeypatch.setattr(ft, "fused_res_stack_fwd_plain", refuse)
+    monkeypatch.setattr(ft, "fused_res_stack_bwd_plain", refuse)
+    model = _model(4, **HEADS["mol"]).to(cuda)
+    spec = model.spec
+    x0 = torch.randn(2, 70, 8, device=cuda, requires_grad=True)
+    c = torch.randn(2, 70, 4, device=cuda)
+    g = torch.randn(2, 8, device=cuda)
+    f0, b0 = ct.train_fwd.launches, ct.train_bwd.launches
+    skips = ft.fused_res_stack(x0, c, model.conv_layers, spec, g=g,
+                               dtype=torch.bfloat16, dropout=0.1, seed=5)
+    skips.sum().backward()
+    torch.cuda.synchronize()
+    assert ct.train_fwd.launches == f0 + spec.layers
+    assert ct.train_bwd.launches == b0 + 3 * spec.layers
+    assert x0.grad is not None and torch.isfinite(x0.grad).all()
+    assert model.conv_layers[0].conv.weight_v.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_stack_leaf_grads_match_plain(cuda, monkeypatch, dtype):
+    """Through FusedResStack, the weight packing, the global bias and the
+    dtype casts on the way back: every leaf's gradient (x0, c, g and each
+    parameter of the blocks) from the kernels against the same step with
+    the plain versions on the card. Per leaf, max |diff| <= tol * max |ref|
+    with the kernel tests' tolerances."""
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    model = _model(4, **HEADS["mol"]).to(cuda)
+    rs = np.random.RandomState(1)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+    x0_, c_, g_, w = t(2, 70, 8), t(2, 70, 4), t(2, 8), t(2, 70, 8)
+    grads = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(ft, "_impl", lambda device: (
+                ft.fused_res_stack_fwd_plain, ft.fused_res_stack_bwd_plain))
+        model.zero_grad(set_to_none=True)
+        x0, c, g = (a.clone().requires_grad_() for a in (x0_, c_, g_))
+        before = ct.train_fwd.launches, ct.train_bwd.launches
+        skips = ft.fused_res_stack(x0, c, model.conv_layers, model.spec, g=g,
+                                   dtype=dt, dropout=0.1, seed=9)
+        (skips * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (ct.train_fwd.launches, ct.train_bwd.launches) != before
+        assert launched != plain
+        leaves = {"x0": x0.grad, "c": c.grad, "g": g.grad}
+        leaves.update((n, p.grad) for n, p in
+                      model.conv_layers.named_parameters())
+        grads.append(leaves)
+    got, want = grads
+    for name, ref in want.items():
+        assert ref is not None and got[name] is not None, name
+        assert torch.isfinite(got[name]).all(), name
+        assert _rel_err(got[name], ref) <= tol, (name, _rel_err(got[name], ref))

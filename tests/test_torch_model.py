@@ -71,9 +71,9 @@ def test_spec_and_config_parity(preset):
     ct = tcfg.load_config(preset)
     assert cj.values() == ct.values()
     sj, st = jax_spec_from_config(cj), spec_from_config(ct)
-    # the port's spec drops the JAX package's training knobs
+    # the port's spec drops the JAX package's remat knobs
     jax_fields = dataclasses.asdict(sj)
-    for knob in ("remat", "remat_policy", "fused_train"):
+    for knob in ("remat", "remat_policy"):
         del jax_fields[knob]
     assert jax_fields == dataclasses.asdict(st)
     assert sj.dilations == st.dilations

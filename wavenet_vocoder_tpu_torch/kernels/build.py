@@ -6,8 +6,9 @@ use in a process, into a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and flags, so an edited source
-never loads a stale build. Libraries go to ``build/kernels/`` at the
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+build. Libraries go to ``build/kernels/`` at the
 repository root (listed in .gitignore); nvcc is taken from
 ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
 Importing this module builds nothing.
@@ -47,6 +48,8 @@ def find_nvcc() -> str:
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -63,18 +63,22 @@ class WNConv1d(_WeightNormMixin, nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        """x: (B, C, T) torch layout. ``causal`` left-pads (K-1)*dilation."""
+        """x: (B, C, T) torch layout. ``causal`` left-pads (K-1)*dilation.
+        The weight and bias follow x's dtype (f32 masters, cast on the fly
+        for bf16 compute, as the JAX package's ``causal_conv``)."""
         if causal:
             x = F.pad(x, ((self.kernel_size - 1) * self.dilation, 0))
-        return F.conv1d(x, self.effective_weight(), self.bias,
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv1d(x, self.effective_weight().to(x.dtype), bias,
                         dilation=self.dilation)
 
 
 def conv1x1(conv: WNConv1d, x: torch.Tensor) -> torch.Tensor:
-    """1x1 conv as a product over the last axis: (..., In) -> (..., Out)."""
-    w = conv.effective_weight()[:, :, 0]          # (Out, In)
+    """1x1 conv as a product over the last axis: (..., In) -> (..., Out).
+    The weight and bias follow x's dtype."""
+    w = conv.effective_weight()[:, :, 0].to(x.dtype)   # (Out, In)
     y = x @ w.t()
-    return y if conv.bias is None else y + conv.bias
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)
 
 
 def causal_conv(conv: WNConv1d, x: torch.Tensor) -> torch.Tensor:
@@ -142,10 +146,20 @@ class ResidualConv1dGLU(nn.Module):
         return torch.tanh(a) * torch.sigmoid(b)
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
-                g: Optional[torch.Tensor] = None):
-        """Batch mode. x: (B, T, R) -> (residual_out, skip), channels-last."""
+                g: Optional[torch.Tensor] = None, *, dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        """Batch mode. x: (B, T, R) -> (residual_out, skip), channels-last.
+
+        ``dropout > 0`` drops the conv input (not the residual passthrough)
+        with a Bernoulli mask drawn from ``generator``, scaling kept values
+        by 1/keep (reference: modules.py:126-128)."""
         g_proj = None if g is None else conv1x1(self.conv1x1g, g)
-        h = self.gated(causal_conv(self.conv, x), c, g_proj)
+        x_in = x
+        if dropout > 0.0:
+            keep = 1.0 - dropout
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+            x_in = torch.where(u < keep, x / keep, torch.zeros_like(x))
+        h = self.gated(causal_conv(self.conv, x_in), c, g_proj)
         s = conv1x1(self.conv1x1_skip, h)
         out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF
         return out, s

@@ -30,6 +30,7 @@ from wavenet_vocoder_tpu_torch.models.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
 )
+from wavenet_vocoder_tpu_torch.ops.fused_train import fused_res_stack
 
 
 def receptive_field_size(total_layers: int, num_cycles: int, kernel_size: int,
@@ -46,8 +47,10 @@ def receptive_field_size(total_layers: int, num_cycles: int, kernel_size: int,
 
 @dataclass(frozen=True)
 class WaveNetSpec:
-    """Static model structure: the JAX package's spec without its training
-    knobs (remat, remat_policy, fused_train), which the port does not read."""
+    """Static model structure: the JAX package's spec without its remat
+    knobs (remat, remat_policy), which the port does not read.
+    ``fused_train`` runs the residual stack of the batch forward through
+    the fused training stack (``ops/fused_train.py``)."""
     out_channels: int = 256
     layers: int = 20
     stacks: int = 2
@@ -68,6 +71,7 @@ class WaveNetSpec:
     scalar_input: bool = False
     use_speaker_embedding: bool = False
     output_distribution: str = "Logistic"
+    fused_train: bool = False
 
     def __post_init__(self):
         assert self.layers % self.stacks == 0
@@ -127,6 +131,7 @@ def spec_from_config(cfg: Config) -> WaveNetSpec:
         scalar_input=cfg.is_scalar_input,
         use_speaker_embedding=cfg.use_speaker_embedding,
         output_distribution=cfg.output_distribution,
+        fused_train=cfg.fused_train,
     )
 
 
@@ -202,11 +207,20 @@ class WaveNet(nn.Module):
         return conv1x1(self.last_conv_layers[3], out)
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Batch forward (reference: wavenet.py:164-213), non-fused.
+                g: Optional[torch.Tensor] = None, *, train: bool = False,
+                dtype: Optional[torch.dtype] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """Batch forward (reference: wavenet.py:164-213; the JAX package's
+        ``apply_wavenet``).
 
         x: (B, T, 1) scalar or (B, T, out_channels) one-hot; c: (B, T_mel, C)
         with an upsample net, else (B, T, C); g: ids or (B, gin) floats.
+        dtype: compute dtype of the network below the head's output (e.g.
+        torch.bfloat16); parameters stay f32 masters. train/seed: conv-input
+        dropout of ``spec.dropout`` when ``train`` and a seed is given (an
+        int32 per step: the fused stack's mask key, else the seed of the
+        blocks' torch.Generator). With ``spec.fused_train`` the residual
+        stack runs through ``ops.fused_train.fused_res_stack``.
         Returns (B, T, out_channels) float32.
         """
         T = x.shape[1]
@@ -216,12 +230,32 @@ class WaveNet(nn.Module):
         if c is not None and c.shape[1] != T:
             raise ValueError(f"conditioning covers {c.shape[1]} steps, "
                              f"input has {T}")
+        drop = self.spec.dropout if (train and seed is not None) else 0.0
+        if dtype is not None:
+            x = x.to(dtype)
+            c = None if c is None else c.to(dtype)
+            g_exp = None if g_exp is None else g_exp.to(dtype)
         x = conv1x1(self.first_conv, x)
+
+        if self.spec.fused_train:
+            skips = fused_res_stack(
+                x, c, self.conv_layers, self.spec,
+                g=None if g_vec is None else g_vec.float(),
+                dtype=dtype or torch.float32, dropout=drop,
+                seed=seed if drop > 0 else None)
+            out = skips * math.sqrt(1.0 / self.spec.layers)
+            out = torch.relu(out if dtype is None else out.to(dtype))
+            out = torch.relu(conv1x1(self.last_conv_layers[1], out))
+            return conv1x1(self.last_conv_layers[3], out).float()
+
+        gen = None
+        if drop > 0:
+            gen = torch.Generator(device=x.device).manual_seed(int(seed))
         skips = None
         for blk in self.conv_layers:
-            x, h = blk(x, c, g_exp)
+            x, h = blk(x, c, g_exp, dropout=drop, generator=gen)
             skips = h if skips is None else skips + h
-        return self.head(skips)
+        return self.head(skips).float()
 
 
 def make_generation_fast(model: WaveNet) -> WaveNet:
