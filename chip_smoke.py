@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases (each failure ends the run with a non-zero exit):
-  1. build    — nvcc-compile the three kernel sources in parallel and print
+  1. build    — nvcc-compile the four kernel sources in parallel and print
                 the seconds;
   2. kernel   — at the flagship width (24 layers, 128/256/128, cin=80), hold
                 the generation kernel against its plain PyTorch version for
@@ -37,7 +37,30 @@ Phases (each failure ends the run with a non-zero exit):
                 events), a torch.profiler breakdown of one B=8 step by
                 kernel, and each training kernel's time per step at B=8
                 beside its plain version and its bound; a ``[summary]`` line
-                repeats the training numbers just before the result lines.
+                repeats the training numbers just before the result lines;
+  8. mel-kernel — at the flagship transform (n_fft 1024, hop 256, 80 mel
+                bins), the log-mel kernel (csrc/mel.cu) against its plain
+                version and the host f64 pipeline, for a 30 s waveform, 3,000
+                samples, batches of 32 x 1 s and 8 x 1 s, and win_length 800
+                (see MEL_TOL); its time on the 30 s waveform, on both batches
+                and on the 3,000 samples (one block) beside the plain version
+                and the bound. The kernels line gives the 8 x 1 s batch, the
+                shape phase 9 launches;
+  9. evaluation — in a temporary directory: 8 wav files of 1 s,
+                ``cli.preprocess`` makes the dump dir, a flagship model's
+                state is saved with ``save_checkpoint`` and ``hparams.json``,
+                ``cli.evaluate`` and ``cli.synthesis`` read both and write
+                audio; then the analysis-synthesis loop: the same waveforms
+                through ``logmelspectrogram_cuda`` on the card and its
+                features through ``Synthesizer(engine="cuda")``. The launch
+                counts of this phase are the mel kernel's launches on the
+                main path;
+ 10. streaming — ``StreamingSynthesizer(engine="cuda")`` on the flagship
+                model (bf16 pack, sampling, B=4, 1 s of mel in chunks of 8
+                frames) equals the offline ``Synthesizer`` from the same seed
+                exactly; decoder segments with carried state equal one call;
+                a small f32 model streamed through "cuda" agrees with the
+                "scan" engine.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -54,6 +77,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 KERNEL_SOURCE = "wavenet_vocoder_tpu_torch/csrc/generate.cu"
 REPLACES = "wavenet_vocoder_tpu/ops/pallas_generate.py:172"
@@ -63,7 +87,9 @@ TRAIN_KERNELS = {
     "wn_train_bwd": ("wavenet_vocoder_tpu_torch/csrc/train_bwd.cu",
                      "wavenet_vocoder_tpu/ops/pallas_train.py:799"),
 }
-SOURCES = ("generate", "train_fwd", "train_bwd")
+MEL_KERNEL = ("wavenet_vocoder_tpu_torch/csrc/mel.cu",
+              "wavenet_vocoder_tpu/dsp/mel_jax.py:134")
+SOURCES = ("generate", "train_fwd", "train_bwd", "mel")
 
 
 class PhaseError(RuntimeError):
@@ -919,6 +945,366 @@ def train_kernel_lines(report, launches, ms, plain, bounds):
     return lines
 
 
+# ----------------------------------------------------------------------
+# phase 8: the log-mel kernel against its plain version and the host path
+# ----------------------------------------------------------------------
+# Kernel and plain version do the same f32 products in another summation
+# order. The mel sums S are held relative to the largest (1e-5); log10 turns
+# a relative difference in S into an absolute one, so the log values of
+# signals with a noise floor are held at 1e-3. Both are held against the host
+# f64 pipeline at 2e-3, the limit of the JAX package's own tests.
+MEL_TOL = {"log": 1e-3, "S": 1e-5, "host": 2e-3}
+MEL_CASES = [  # (name, config overrides, batch or None, samples)
+    ("30 s", {}, None, 661500), ("3000 samples", {}, None, 3000),
+    ("32 x 1 s", {}, 32, 22050), ("8 x 1 s", {}, 8, 22050),
+    ("win_length 800", {"win_length": 800}, None, 12000)]
+# timed: the bench shape, the serving request's shape, the shape the
+# evaluation phase launches (the one on the kernels line), one block alone
+MEL_MAIN = "8 x 1 s"
+MEL_TIMED = ("30 s", "32 x 1 s", MEL_MAIN, "3000 samples")
+
+
+def mel_signal(T, seed):
+    """Two sines plus a 0.05 noise floor, made with numpy from a seed."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(T) / 22050.0
+    x = (0.5 * np.sin(2 * np.pi * 440 * t)
+         + 0.2 * np.sin(2 * np.pi * 1330 * t) + 0.05 * rng.randn(T))
+    return x.astype(np.float32)
+
+
+def mel_bound(cfg, B, T):
+    """Least time for the log-mel of (B, T) samples: its MACs (two DFT
+    products and the mel product per frame) at the FP32 rate, against the
+    signal, the three matrices and the output moved once at HBM rate."""
+    n_fft, n_mels = cfg.fft_size, cfg.num_mels
+    n_bins = 1 + n_fft // 2
+    frames = B * (1 + T // cfg.hop_size)
+    macs = frames * (2 * n_fft * n_bins + n_bins * n_mels)
+    nbytes = 4 * (B * T + 2 * n_fft * n_bins + n_bins * n_mels
+                  + frames * n_mels)
+    t_ops, t_bytes = 2.0 * macs / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=2.0 * macs, bytes=nbytes, frames=frames)
+
+
+def phase_mel_kernel(report):
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.dsp import audio
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
+    rows, failures, timing = [], [], {}
+    for i, (name, over, batch, T) in enumerate(MEL_CASES):
+        cfg = Config(**over)
+        x = np.stack([mel_signal(T, 100 * i + j) for j in range(batch or 1)])
+        y = torch.from_numpy(x if batch else x[0]).cuda()
+        got = mt.logmelspectrogram_cuda(y, cfg)
+        torch.cuda.synchronize()
+        want = mt.logmelspectrogram_torch(y, cfg)
+        S = mt.mel_power_torch(y, cfg).double()
+        host = np.stack([audio.logmelspectrogram(r, cfg) for r in x])
+        S_c = S.clamp(min=1e-10)
+        row = dict(
+            name=name, shape=list(got.shape), clamped=int((S < 1e-10).sum()),
+            log_err=float((got - want).abs().max()),
+            S_rel=float((10.0 ** got.double() - S_c).abs().max() / S_c.max()),
+            host_err=float(np.abs(got.cpu().numpy().reshape(host.shape)
+                                  - host).max()),
+            plain_host_err=float(np.abs(want.cpu().numpy().reshape(host.shape)
+                                        - host).max()))
+        ok = (bool(torch.isfinite(got).all()) and got.shape == want.shape
+              and row["log_err"] <= MEL_TOL["log"]
+              and row["S_rel"] <= MEL_TOL["S"]
+              and row["host_err"] <= MEL_TOL["host"]
+              and row["plain_host_err"] <= MEL_TOL["host"])
+        line = (f"[mel-kernel] {name}: {row['shape']} log |kernel - plain| "
+                f"{row['log_err']:.3g} (tol {MEL_TOL['log']}), S rel "
+                f"{row['S_rel']:.3g} (tol {MEL_TOL['S']}), vs host f64: "
+                f"kernel {row['host_err']:.3g} plain "
+                f"{row['plain_host_err']:.3g} (tol {MEL_TOL['host']}), "
+                f"{row['clamped']} elements at the 1e-10 clamp")
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+        if name in MEL_TIMED:
+            t = dict(ms=cuda_time_ms(
+                         lambda: mt.logmelspectrogram_cuda(y, cfg), iters=20),
+                     plain_ms=cuda_time_ms(
+                         lambda: mt.logmelspectrogram_torch(y, cfg), iters=20),
+                     **mel_bound(cfg, batch or 1, T))
+            timing[name] = t
+            print(f"[mel-time] {name} ({t['frames']} frames): kernel "
+                  f"{t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+                  f"{t['flops'] / 1e9:.2f} GFLOP at the FP32 rate, "
+                  f"{t['bytes'] / 1e6:.1f} MB)", flush=True)
+        rows.append(row)
+    report["mel_kernel_vs_plain"] = rows
+    report["mel_timing"] = timing
+    if failures:
+        fail("log-mel kernel disagrees:\n" + "\n".join(failures))
+
+
+# ----------------------------------------------------------------------
+# phase 9: the evaluation leg through the CLIs
+# ----------------------------------------------------------------------
+EVAL_UTTS = 8
+
+
+def _read_wav(path):
+    from scipy.io import wavfile
+    return wavfile.read(path)[1].astype("float32") / 32768.0
+
+
+def phase_evaluation(report):
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from wavenet_vocoder_tpu_torch.cli import evaluate, preprocess, synthesis
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.dsp import audio
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.synthesis import Synthesizer
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state)
+    cfg = Config()
+    sr, hop = cfg.sample_rate, cfg.hop_size
+    cg.generate_steps.launches = 0
+    mt.logmelspectrogram_cuda.launches = 0
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir, dump = os.path.join(tmp, "wavs"), os.path.join(tmp, "dump")
+        exp, out = os.path.join(tmp, "exp"), os.path.join(tmp, "eval")
+        os.makedirs(wav_dir)
+        for i in range(EVAL_UTTS):
+            # at half scale: save_wav would normalise the peak to 1.0, and
+            # preprocessing rejects what its high-pass filter lifts above 1
+            wavfile.write(os.path.join(wav_dir, f"utt{i}.wav"), sr,
+                          (mel_signal(sr, 900 + i) * 16384).astype(np.int16))
+        preprocess.main(["wavallin", wav_dir, dump, "--num-workers", "1"])
+        state = create_train_state(cfg)
+        path = ckpt.save_checkpoint(exp, state, global_step=0)
+        with open(os.path.join(exp, "hparams.json"), "w") as f:
+            f.write(cfg.to_json())
+        del state
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        evaluate.main([dump, path, out, "--batch-size", str(EVAL_UTTS)])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        feats = [np.load(os.path.join(dump, f"utt{i}-feats.npy"))
+                 for i in range(EVAL_UTTS)]
+        stds = []
+        for i in range(EVAL_UTTS):
+            for kind in ("gen", "ref"):
+                w = _read_wav(os.path.join(out, f"utt{i}_{kind}.wav"))
+                if len(w) != feats[i].shape[0] * hop or not np.isfinite(w).all():
+                    fail(f"utt{i}_{kind}.wav: {len(w)} samples, expected "
+                         f"{feats[i].shape[0] * hop}, or not finite")
+                if kind == "gen":
+                    stds.append(float(w.std()))
+        names = open(os.path.join(out, "eval_manifest.txt")).read().split()
+        if len(names) != EVAL_UTTS or min(stds) <= 0.01:
+            fail(f"cli.evaluate: manifest {names}, gen std {stds}")
+        launches_eval = cg.generate_steps.launches
+        print(f"[evaluation] cli.evaluate: {EVAL_UTTS} utterances of "
+              f"{feats[0].shape[0]} frames in one batch, {eval_s:.2f} s, "
+              f"{launches_eval} generation launches, gen std min "
+              f"{min(stds):.3f}", flush=True)
+
+        dst = os.path.join(tmp, "one.wav")
+        t0 = time.perf_counter()
+        synthesis.main([path, dst, "--conditional",
+                        os.path.join(dump, "utt0-feats.npy")])
+        synth_s = time.perf_counter() - t0
+        w = _read_wav(dst)
+        if (len(w) != feats[0].shape[0] * hop or not np.isfinite(w).all()
+                or float(w.std()) <= 0.01):
+            fail(f"cli.synthesis: {len(w)} samples, std {w.std()}")
+        print(f"[evaluation] cli.synthesis: {len(w)} samples in "
+              f"{synth_s:.2f} s, std {w.std():.3f}", flush=True)
+
+        # analysis-synthesis: waveform -> log-mel on the card -> waveform.
+        # The waveforms as preprocessing saw them (read, high-pass filtered;
+        # the silence trim leaves these stationary signals whole).
+        x = np.stack([audio.low_cut_filter(
+            audio.load_wav(os.path.join(wav_dir, f"utt{i}.wav"), sr), sr,
+            cfg.highpass_cutoff).astype(np.float32)
+            for i in range(EVAL_UTTS)])
+        model, _, _ = synthesis.load_params_and_config(path, None, "")
+        synth = Synthesizer(model, cfg, engine="cuda")
+        y = torch.from_numpy(x).cuda()
+        if tuple(y.shape) != (EVAL_UTTS, sr):
+            fail(f"preprocessing changed the waveforms' length: {y.shape}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        mel = mt.logmelspectrogram_cuda(y, cfg)
+        ev[1].record()
+        wav = synth(mel, generator=torch.Generator().manual_seed(5))
+        ev[2].record()
+        torch.cuda.synchronize()
+        mel_ms, gen_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        launches = dict(wn_logmel=mt.logmelspectrogram_cuda.launches,
+                        wn_generate=cg.generate_steps.launches)
+        mel_np = mel.cpu().numpy()
+        plain_err = float((mel - mt.logmelspectrogram_torch(y, cfg)
+                           ).abs().max())
+        dump_err = max(float(np.abs(mel_np[i] - feats[i]).max())
+                       if mel_np[i].shape == feats[i].shape else float("inf")
+                       for i in range(EVAL_UTTS))
+        host_err = max(float(np.abs(
+            mel_np[i] - audio.logmelspectrogram(x[i], cfg)).max())
+            for i in range(EVAL_UTTS))
+        print(f"[evaluation] analysis-synthesis, {EVAL_UTTS} x {x.shape[1]} "
+              f"samples: log-mel kernel {mel_ms:.3f} ms, generation "
+              f"{gen_ms / 1e3:.2f} s; features vs the dump dir's "
+              f"{dump_err:.3g}, vs host f64 {host_err:.3g} (tol "
+              f"{MEL_TOL['host']}), vs plain {plain_err:.3g} (tol "
+              f"{MEL_TOL['log']}); audio {wav.shape} std {wav.std():.3f}; "
+              f"launches over the phase {launches}", flush=True)
+        if not (dump_err <= MEL_TOL["host"] and host_err <= MEL_TOL["host"]
+                and plain_err <= MEL_TOL["log"]):
+            fail("log-mel on the card disagrees with the dump dir's features")
+        if not (wav.shape == (EVAL_UTTS, mel_np.shape[1] * hop)
+                and np.isfinite(wav).all() and float(wav.std()) > 0.01):
+            fail(f"analysis-synthesis audio {wav.shape} std {wav.std()}")
+    if launches["wn_logmel"] <= 0 or launches_eval <= 0 \
+            or launches["wn_generate"] <= launches_eval:
+        fail(f"the evaluation leg did not launch its kernels: {launches}")
+    report["evaluation"] = dict(
+        evaluate_s=eval_s, synthesis_s=synth_s, mel_ms=mel_ms, gen_ms=gen_ms,
+        launches=launches, dump_err=dump_err, host_err=host_err,
+        plain_err=plain_err, total_s=time.perf_counter() - t_phase)
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 10: streaming through the kernel with carried state
+# ----------------------------------------------------------------------
+STREAM_B, STREAM_FEED = 4, 8
+
+
+def _feed_all(stream, mel, n):
+    import numpy as np
+    outs = [stream.feed(mel[:, i:i + n]) for i in range(0, mel.shape[1], n)]
+    return np.concatenate(outs + [stream.flush()], axis=1)
+
+
+def phase_streaming(report):
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.streaming import StreamingSynthesizer
+    from wavenet_vocoder_tpu_torch.synthesis import Synthesizer, pad_mel_context
+    cfg, model = _flagship_model("cuda", 0)
+    hop = cfg.hop_size
+    frames = cfg.sample_rate // hop
+    T = frames * hop
+    mel = np.random.RandomState(21).randn(
+        STREAM_B, frames, cfg.num_mels).astype(np.float32)
+    gen = lambda: torch.Generator().manual_seed(33)
+    offline = Synthesizer(model, cfg, engine="cuda")(mel, generator=gen())
+
+    stream = StreamingSynthesizer(model, cfg, generator=gen(), batch=STREAM_B,
+                                  engine="cuda")
+    before = cg.generate_steps.launches
+    t0 = time.perf_counter()
+    streamed = _feed_all(stream, mel, STREAM_FEED)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = cg.generate_steps.launches - before
+
+    # Same kernel, same carried state, random numbers keyed on the absolute
+    # step: the streamed audio must equal the offline audio exactly.
+    exact = np.array_equal(streamed, offline)
+    differing = (int((streamed != offline).sum())
+                 if streamed.shape == offline.shape else -1)
+    print(f"[streaming] flagship bf16 sampling B={STREAM_B}, {frames} frames "
+          f"fed {STREAM_FEED} at a time (lookahead "
+          f"{stream.lookahead_frames} frames): {streamed.shape} in "
+          f"{stream_s:.2f} s, {launches} launches of {hop} steps; equal to "
+          f"the offline audio exactly: {exact} ({differing} of "
+          f"{STREAM_B * T} samples differ)", flush=True)
+    if not exact:
+        fail("streamed audio differs from the offline audio")
+    if not (np.isfinite(streamed).all() and float(streamed.std()) > 0.01):
+        fail("streamed audio not finite or silent")
+
+    # decoder segments with carried state equal one call, on one conditioning
+    fg = stream._gen
+    with torch.no_grad():
+        c_up = model.upsample_conditioning(torch.as_tensor(
+            pad_mel_context(mel[:, :16], cfg.cin_pad), device="cuda")).float()
+    whole = fg(c_up=c_up, seed=9)
+    a, st = fg(c_up=c_up[:, :5 * hop], seed=9, return_state=True)
+    b, st = fg(c_up=c_up[:, 5 * hop:], seed=9, state=st, return_state=True)
+    torch.cuda.synchronize()
+    carry_exact = bool(torch.equal(torch.cat([a, b], dim=1), whole))
+    print(f"[streaming] FusedGenerator, {5 * hop} + {11 * hop} steps with "
+          f"carried state equal one call of {16 * hop}: {carry_exact}",
+          flush=True)
+    if not carry_exact or st[2] != 16 * hop:
+        fail("carried decoder state does not reproduce one long call")
+
+    # a small f32 model: the kernel's stream against the eager decoder's
+    small = Config(layers=4, stacks=2, residual_channels=16, gate_channels=32,
+                   skip_out_channels=16, hop_size=16,
+                   upsample_params={"upsample_scales": [4, 4]})
+    sm = WaveNet(spec_from_config(small),
+                 generator=torch.Generator().manual_seed(3))
+    mel_s = np.random.RandomState(4).randn(2, 12, small.num_mels
+                                           ).astype(np.float32)
+    outs = {}
+    for engine, kw in (("cuda", dict(weight_dtype=torch.float32)),
+                       ("scan", {})):
+        s = StreamingSynthesizer(sm, small, batch=2, engine=engine,
+                                 deterministic=True, **kw)
+        outs[engine] = _feed_all(s, mel_s, 3)
+    err = float(np.abs(outs["cuda"] - outs["scan"]).max())
+    print(f"[streaming] small f32 model, deterministic, 12 frames fed 3 at a "
+          f"time: cuda engine vs scan engine max|diff| {err:.3g} over "
+          f"{outs['cuda'].shape} (tol 1e-3)", flush=True)
+    if not (outs["cuda"].shape == (2, 12 * 16) and err <= 1e-3):
+        fail("streamed cuda engine disagrees with the streamed eager decoder")
+    report["streaming"] = dict(
+        exact=bool(exact), samples=STREAM_B * T, stream_s=stream_s,
+        launches=launches, carry_exact=carry_exact, small_err=err)
+
+
+def mel_kernel_line(report, launches):
+    # time, plain time and bound at the shape the main path launched
+    t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
+    rows = report["mel_kernel_vs_plain"]
+    return dict(
+        name="wn_logmel", route="cuda", source=MEL_KERNEL[0],
+        replaces=MEL_KERNEL[1], launches=launches["wn_logmel"],
+        max_abs_err=max(r["log_err"] for r in rows), ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None,
+        max_S_rel_err=max(r["S_rel"] for r in rows),
+        max_host_err=max(r["host_err"] for r in rows),
+        shape=MEL_MAIN, bench30s_ms=long["ms"],
+        bench30s_plain_ms=long["plain_ms"], bench30s_bound_ms=long["bound_ms"],
+        batch32_ms=report["mel_timing"]["32 x 1 s"]["ms"],
+        batch32_plain_ms=report["mel_timing"]["32 x 1 s"]["plain_ms"],
+        batch32_bound_ms=report["mel_timing"]["32 x 1 s"]["bound_ms"])
+
+
 def summary_line(report) -> str:
     """The training numbers of this run on one line, next to the result."""
     tr, tt = report["training"], report["train_timing"]
@@ -940,6 +1326,16 @@ def summary_line(report) -> str:
                      f"{agree['worst_leaf']} "
                      f"{agree['leaf_rel'][agree['worst_leaf']]:.2e}")
     parts.append(f"10-step loss {tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}")
+    for name, t in report["mel_timing"].items():
+        parts.append(f"log-mel {name}: kernel {t['ms']:.4f} ms (plain "
+                     f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f})")
+    ev, st = report["evaluation"], report["streaming"]
+    parts.append(f"evaluation leg {ev['total_s']:.1f} s (cli.evaluate "
+                 f"{ev['evaluate_s']:.2f} s, analysis-synthesis log-mel "
+                 f"{ev['mel_ms']:.3f} ms + generation {ev['gen_ms'] / 1e3:.2f}"
+                 f" s), launches {ev['launches']}")
+    parts.append(f"stream equals offline exactly: {st['exact']} "
+                 f"({st['samples']} samples)")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -982,6 +1378,15 @@ def main() -> int:
         phase = "train-timing"
         ms, plain, bounds = phase_train_timing(report, state, train_step)
         train_lines = train_kernel_lines(report, launches, ms, plain, bounds)
+        del state, train_step
+        torch.cuda.empty_cache()
+        phase = "mel-kernel"
+        phase_mel_kernel(report)
+        phase = "evaluation"
+        eval_launches = phase_evaluation(report)
+        phase = "streaming"
+        phase_streaming(report)
+        mel_line = mel_kernel_line(report, eval_launches)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
@@ -995,7 +1400,7 @@ def main() -> int:
         print("chip_smoke: the port pulled in JAX", file=sys.stderr)
         return 4
     print(summary_line(report))
-    print(json.dumps({"kernels": [kernel_line] + train_lines}))
+    print(json.dumps({"kernels": [kernel_line] + train_lines + [mel_line]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the generation kernel and the residual-stack training kernels.
+the generation kernel, the residual-stack training kernels and the log-mel
+kernel.
 
 These tests need an NVIDIA GPU and nvcc; without a CUDA device they skip.
 They import nothing of JAX, so they run on a machine that has only the port:
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from wavenet_vocoder_tpu_torch.config import Config
+from wavenet_vocoder_tpu_torch.dsp import audio, mel_torch
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
 from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
@@ -232,3 +235,96 @@ def test_fused_stack_leaf_grads_match_plain(cuda, monkeypatch, dtype):
         assert ref is not None and got[name] is not None, name
         assert torch.isfinite(got[name]).all(), name
         assert _rel_err(got[name], ref) <= tol, (name, _rel_err(got[name], ref))
+
+
+# ----------------------------------------------------------------------
+# the log-mel kernel
+# ----------------------------------------------------------------------
+def _sig(T, seed=0, sr=22050.0):
+    rng = np.random.RandomState(seed)
+    t = np.arange(T) / sr
+    x = (0.5 * np.sin(2 * np.pi * 440 * t)
+         + 0.2 * np.sin(2 * np.pi * 1330 * t) + 0.05 * rng.randn(T))
+    return x.astype(np.float32)
+
+
+MEL_CASES = {
+    # flagship transform: ragged last block (47 frames), one short of a
+    # block (12 frames), the fewest samples reflect padding takes, a batch
+    "flagship_12000": (dict(), (12000,)),
+    "flagship_3000": (dict(), (3000,)),
+    "flagship_513": (dict(), (513,)),
+    "flagship_batch": (dict(), (3, 22050)),
+    "win_800": (dict(win_length=800), (12000,)),
+    # other sizes: 4 hops per frame at a small n_fft, 2 hops per frame, and
+    # mel bins that do not divide the threads
+    "fft256_hop64": (dict(fft_size=256, hop_size=64, win_length=256,
+                          num_mels=40), (2, 5000)),
+    "fft512_hop256_mels100": (dict(fft_size=512, hop_size=256,
+                                   win_length=512, num_mels=100), (9000,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MEL_CASES))
+def test_mel_kernel_matches_plain_and_host(cuda, case):
+    """Log values within 1e-3 of the plain version and 2e-3 of the host f64
+    path; the mel sums within 1e-5 of the largest (same f32 products, summed
+    in another order)."""
+    over, shape = MEL_CASES[case]
+    cfg = Config(**over)
+    x = np.stack([_sig(shape[-1], seed=i) for i in range(
+        shape[0] if len(shape) == 2 else 1)])
+    x = x if len(shape) == 2 else x[0]
+    y = torch.from_numpy(x).to(cuda)
+    before = mel_torch.logmelspectrogram_cuda.launches
+    got = mel_torch.logmelspectrogram_cuda(y, cfg)
+    torch.cuda.synchronize()
+    assert mel_torch.logmelspectrogram_cuda.launches == before + 1
+    want = mel_torch.logmelspectrogram_torch(y, cfg)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+    S = mel_torch.mel_power_torch(y, cfg).double().clamp(min=1e-10)
+    assert float((10.0 ** got.double() - S).abs().max()) <= 1e-5 * float(S.max())
+    rows = x if x.ndim == 2 else x[None]
+    host = np.stack([audio.logmelspectrogram(r, cfg) for r in rows])
+    assert np.abs(got.cpu().numpy().reshape(host.shape) - host).max() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_mel_kernel_silence_hits_the_clamp(cuda):
+    """Digital silence ahead of a tone: the silent frames sit at the 1e-10
+    floor in both versions."""
+    cfg = Config()
+    x = np.concatenate([np.zeros(8000, np.float32), _sig(8000, 7)])
+    y = torch.from_numpy(x).to(cuda)
+    got = mel_torch.logmelspectrogram_cuda(y, cfg)
+    want = mel_torch.logmelspectrogram_torch(y, cfg)
+    assert int((got == -10.0).sum()) == int((want == -10.0).sum()) > 0
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_mel_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    cfg = Config()
+    with pytest.raises(ValueError, match="reflect padding"):
+        mel_torch.logmelspectrogram_cuda(torch.zeros(512, device=cuda), cfg)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mel_torch.logmelspectrogram_cuda(
+            torch.zeros(4096, device=cuda),
+            Config(fft_size=1000, hop_size=250, win_length=1000))
+    with pytest.raises(ValueError, match="mel bins"):
+        mel_torch.logmelspectrogram_cuda(torch.zeros(4096, device=cuda),
+                                         Config(num_mels=160))
+    with pytest.raises(ValueError, match=r"\(T,\) or \(B, T\)"):
+        mel_torch.logmelspectrogram_cuda(torch.zeros(1, 2, 4096, device=cuda),
+                                         cfg)
+    # a hop that does not divide the frame: the kernel does not define it,
+    # and on the card only the plain function itself computes it
+    with pytest.raises(ValueError, match="multiple of hop_size"):
+        mel_torch.logmelspectrogram_cuda(
+            torch.from_numpy(_sig(9000)).to(cuda), Config(hop_size=300))
+    assert mel_torch.logmelspectrogram_torch(
+        torch.from_numpy(_sig(9000)).to(cuda),
+        Config(hop_size=300)).shape == (31, 80)

@@ -399,24 +399,42 @@ class FusedGenerator:
     @torch.no_grad()
     def __call__(self, *, T: Optional[int] = None,
                  c: Optional[torch.Tensor] = None,
+                 c_up: Optional[torch.Tensor] = None,
                  g: Optional[torch.Tensor] = None,
                  initial_input: Optional[torch.Tensor] = None,
                  log_scale_min: float = -50.0,
                  deterministic: bool = False,
-                 seed: int = 0) -> torch.Tensor:
+                 seed: int = 0,
+                 state: Optional[Tuple] = None,
+                 return_state: bool = False):
         """(B, T) f32 samples (scalar heads) or int32 codes (categorical).
 
-        c: (B, T_mel, C) mel with an upsample net, else (B, T, C);
+        c: (B, T_mel, C) mel with an upsample net, else (B, T, C); c_up,
+        instead of c: (B, T, C) conditioning already at the sample rate;
         log_scale_min is accepted and not applied, as in the JAX kernel.
         T is padded to a multiple of ``chunk`` (conditioning repeats its last
         frame) and the output trimmed.
+
+        state: (x_cur, ring, t) from an earlier call's returned state —
+        resumes generation at absolute step t with the same ``seed``, so
+        segment after segment equals one long call. The kernel updates
+        ``x_cur`` and ``ring`` in place: a state that was passed in is used
+        up, and the returned state holds the same tensors. With
+        ``return_state`` the result is (samples, state). Carried segments
+        must be multiples of ``chunk``: padding steps would advance the
+        state past the segment's end.
         """
         del log_scale_min
         spec, dev, dtype, chunk = self.spec, self.device, self.weight_dtype, self.chunk
         model = self.model
         as_dev = lambda a: None if a is None else torch.as_tensor(a, device=dev)
+        if c is not None and c_up is not None:
+            raise ValueError("give c or c_up, not both")
         c, g = as_dev(c), as_dev(g)
-        c_up = model.upsample_conditioning(None if c is None else c.float())
+        if c_up is not None:
+            c_up = as_dev(c_up).float()
+        else:
+            c_up = model.upsample_conditioning(None if c is None else c.float())
         if c_up is not None:
             T = c_up.shape[1] if T is None else T
             if c_up.shape[1] != T:
@@ -424,8 +442,14 @@ class FusedGenerator:
                                  f"samples, T is {T}")
         if T is None:
             raise ValueError("T required without conditioning")
+        if (state is not None or return_state) and T % chunk:
+            raise ValueError(
+                f"streaming segments must be multiples of the kernel chunk "
+                f"({chunk}); got T={T}")
         if c_up is not None:
             B = c_up.shape[0]
+        elif state is not None:
+            B = state[0].shape[0]
         elif initial_input is not None:
             B = initial_input.shape[0]
         elif g is not None:
@@ -444,19 +468,25 @@ class FusedGenerator:
         if g_vec is not None:
             g_gate = torch.stack([conv1x1(blk.conv1x1g, g_vec.float())
                                   for blk in model.conv_layers]).float().contiguous()
-        if initial_input is None:
-            x_cur = default_initial_input(spec, B, device=dev)
+        t_off = 0
+        if state is not None:
+            x_cur, ring, t_off = state
         else:
-            x_cur = as_dev(initial_input).reshape(B, -1).float().clone()
-        _, rows = buffer_layout(spec)
-        ring = torch.zeros(rows, B, spec.residual_channels, dtype=dtype,
-                           device=dev)
+            if initial_input is None:
+                x_cur = default_initial_input(spec, B, device=dev)
+            else:
+                x_cur = as_dev(initial_input).reshape(B, -1).float().clone()
+            _, rows = buffer_layout(spec)
+            ring = torch.zeros(rows, B, spec.residual_channels, dtype=dtype,
+                               device=dev)
         out = torch.empty(B, T_pad, device=dev, dtype=(
             torch.float32 if spec.scalar_input else torch.int32))
         for t0 in range(0, T_pad, chunk):
             generate_steps(self.packed, spec, ring, x_cur,
                            out[:, t0:t0 + chunk],
                            None if cond is None else cond[:, t0:t0 + chunk],
-                           g_gate, t0=t0, seed=seed,
+                           g_gate, t0=t_off + t0, seed=seed,
                            deterministic=deterministic)
+        if return_state:
+            return out[:, :T], (x_cur, ring, t_off + T)
         return out[:, :T]

@@ -13,7 +13,7 @@ evicts x[t-L]). Unwritten slots are zero, i.e. causal left-padding.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,36 +88,58 @@ def _sample_next(spec: WaveNetSpec, out: torch.Tensor, *,
 @torch.no_grad()
 def generate(model: WaveNet, *, T: Optional[int] = None,
              c: Optional[torch.Tensor] = None,
+             c_up: Optional[torch.Tensor] = None,
              g: Optional[torch.Tensor] = None,
              initial_input: Optional[torch.Tensor] = None,
              test_inputs: Optional[torch.Tensor] = None,
              log_scale_min: float = -50.0,
              output: str = "samples",
              deterministic: bool = False,
-             generator: Optional[torch.Generator] = None
-             ) -> Dict[str, torch.Tensor]:
+             generator: Optional[torch.Generator] = None,
+             state: Optional[Tuple] = None,
+             return_state: bool = False) -> Dict[str, torch.Tensor]:
     """Autoregressive generation on the model's device
     (reference: wavenet.py:215-343).
 
-    c: (B, T_mel, C) with an upsample net, else (B, T, C); g: ids or
+    c: (B, T_mel, C) with an upsample net, else (B, T, C); c_up, instead
+    of c: (B, T, C) conditioning already at the sample rate (the upsample
+    net is not applied); g: ids or
     (B, gin) floats; test_inputs: (B, T_test, C_in) teacher-forcing inputs
-    seen while t < T_test. Returns {"samples": (B, T, C_emit)} and/or
-    {"logits": (B, T, out_channels)}.
+    seen while t < T_test. state: (x_in, buffers, t_offset) from an earlier
+    call's returned state — resumes generation mid-stream: the ring indices
+    key off the absolute step and ``generator`` carries on where it stood,
+    so chunked calls equal one long call (see
+    ``streaming.StreamingSynthesizer``). The given state is not modified;
+    a resumed call takes no test_inputs.
+    Returns {"samples": (B, T, C_emit)} and/or {"logits": (B, T,
+    out_channels)}, and with ``return_state`` {"state": (x_in, buffers,
+    t_offset + T)}.
     """
     spec = model.spec
     device = model.first_conv.effective_weight().device
     to_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
+    if c is not None and c_up is not None:
+        raise ValueError("give c or c_up, not both")
     c, g, test_inputs = to_dev(c), to_dev(g), to_dev(test_inputs)
+    t_off = 0
+    if state is not None:
+        if test_inputs is not None:
+            raise ValueError("test_inputs are indexed from the first step; "
+                             "they cannot be combined with a resumed state")
+        initial_input, buffers0, t_off = state
     if test_inputs is not None:
         B = test_inputs.shape[0]
         T = test_inputs.shape[1] if T is None else max(T, test_inputs.shape[1])
-    elif c is not None:
-        B = c.shape[0]
+    elif c is not None or c_up is not None:
+        B = (c if c is not None else c_up).shape[0]
     elif initial_input is not None:
         B = initial_input.shape[0]
     else:
         B = 1
-    c_up = model.upsample_conditioning(None if c is None else c.float())
+    if c_up is not None:
+        c_up = to_dev(c_up).float()
+    else:
+        c_up = model.upsample_conditioning(None if c is None else c.float())
     if c_up is not None:
         T = c_up.shape[1] if T is None else T
         if c_up.shape[1] != T:
@@ -136,12 +158,16 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
         x_in = to_dev(initial_input).reshape(B, -1).float()
 
     k = spec.kernel_size
-    buffers = init_buffers(spec, B, device=device)
+    if state is None:
+        buffers = init_buffers(spec, B, device=device)
+    else:
+        buffers = [to_dev(b).float().clone() for b in buffers0]
     samples, logits = [], []
-    for t in range(T):
-        if test_inputs is not None and t < test_inputs.shape[1]:
-            x_in = test_inputs[:, t].float()
-        ct = None if c_up is None else c_up[:, t]
+    for i in range(T):
+        t = t_off + i                       # absolute step
+        if test_inputs is not None and i < test_inputs.shape[1]:
+            x_in = test_inputs[:, i].float()
+        ct = None if c_up is None else c_up[:, i]
         x = conv1x1(model.first_conv, x_in)
         skips = 0.0
         for li, (blk, d) in enumerate(zip(model.conv_layers, spec.dilations)):
@@ -163,5 +189,7 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
         res["samples"] = torch.stack(samples, dim=1)
     if output in ("logits", "both"):
         res["logits"] = torch.stack(logits, dim=1)
+    if return_state:
+        res["state"] = (x_in.float(), buffers, t_off + T)
     return res
 

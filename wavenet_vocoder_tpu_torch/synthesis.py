@@ -98,22 +98,25 @@ class Synthesizer:
                             f"got {sorted(engine_kwargs)}")
 
     @torch.no_grad()
-    def __call__(self, c: Optional[np.ndarray] = None, *,
+    def __call__(self, c=None, *,
                  g: Optional[np.ndarray] = None, T: Optional[int] = None,
                  initial_input: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  deterministic: bool = False,
                  pad_context: bool = True) -> np.ndarray:
         """mel (B, T_mel, D) [without cin_pad context when pad_context]
-        -> (B, T) float32 waveforms."""
+        -> (B, T) float32 waveforms. The mel is an array or a tensor; a
+        tensor already on the synthesizer's device is used where it lies."""
         cfg = self.cfg
         if c is not None:
-            c = np.asarray(c, np.float32)
-            if pad_context:
-                c = pad_mel_context(c, cfg.cin_pad)
+            if not isinstance(c, torch.Tensor):
+                c = np.asarray(c, np.float32)
+            c = torch.as_tensor(c, dtype=torch.float32, device=self.device)
+            if pad_context and cfg.cin_pad > 0:
+                c = torch.cat([c[:, :1].expand(-1, cfg.cin_pad, -1), c,
+                               c[:, -1:].expand(-1, cfg.cin_pad, -1)], dim=1)
             if T is None and cfg.upsample_conditional_features:
                 T = (c.shape[1] - 2 * cfg.cin_pad) * audio.get_hop_size(cfg)
-            c = torch.as_tensor(c, device=self.device)
         if g is not None:
             g = torch.as_tensor(np.asarray(g), device=self.device)
         if self.engine == "cuda":
