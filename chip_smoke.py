@@ -3,14 +3,15 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases (each failure ends the run with a non-zero exit):
-  1. build    — nvcc-compile the four kernel sources in parallel and print
-                the seconds;
+  1. build    — nvcc-compile the four kernel sources, and the two variant
+                builds of the generation kernel that phase 4 times, all in
+                parallel, and print the seconds;
   2. kernel   — at the flagship width (24 layers, 128/256/128, cin=80), hold
                 the generation kernel against its plain PyTorch version for
                 the categorical, MoL and Gaussian heads, f32 and bf16 packs,
                 deterministic and sampling mode (same hash): at B=4 over
                 512 steps, and at the serving batches B=32 and B=256 through
-                the build serving picks for each (see TOL below);
+                the cluster shape serving picks for each (see TOL below);
   3. serving  — the flagship MoL ``Synthesizer(engine="cuda")`` with random
                 weights from a seed serves 1 s mel requests (B=32 three times,
                 then B=256) in bf16 sampling mode; the launch counter must
@@ -18,8 +19,11 @@ Phases (each failure ends the run with a non-zero exit):
                 model's deterministic output is held against the eager
                 decoder through the same entry point;
   4. timing   — the kernel at the serving shape (B=256, one launch of 256
-                steps) beside its plain version and its bound, and a sweep of
-                streams per block;
+                steps) beside its plain version and its bound; a sweep of
+                cluster size x streams per cluster at B=1, 32 and 256; the
+                served shapes again with the products compiled out (barriers,
+                gathers, prefetches and sampler only; results not checked),
+                and the clock stamps of one step, phase by phase;
   5. train-kernel — at the flagship width, the residual-stack training
                 kernels (csrc/train_fwd.cu, csrc/train_bwd.cu) against their
                 plain versions: skips and all eight gradients, at B=2,
@@ -127,18 +131,22 @@ def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
 # phase 1: build
 # ----------------------------------------------------------------------
 def phase_build(report):
-    """One nvcc per source, all started together, then load each."""
+    """One nvcc per source and variant, all started together, then load each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from wavenet_vocoder_tpu_torch.kernels import build
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    jobs = [(name, ()) for name in SOURCES]
+    jobs += [("generate", cg.NO_PRODUCTS), ("generate", cg.TRACE)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for _ in pool.map(build._compile, SOURCES):
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for _ in pool.map(lambda job: build._compile(*job), jobs):
             pass
-    for name in SOURCES:
-        build.load(name)
+    for job in jobs:
+        build.load(*job)
     secs = time.perf_counter() - t0
-    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu: nvcc and load {secs:.1f}s")
+    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu and two variants of "
+          f"generate.cu: nvcc and load {secs:.1f}s")
     report["build_s"] = secs
 
 
@@ -147,10 +155,11 @@ def phase_build(report):
 # ----------------------------------------------------------------------
 KERNEL_B, KERNEL_T = 4, 512
 SERVE_BATCHES = (32, 32, 32, 256)
-# The serving batches, each run by the build the serving path picks for it
-# (1 stream per block at B=32, 2 at B=256), for one launch of DEFAULT_CHUNK
-# steps; bf16 packs are held over CHECK_STEPS single steps and then over one
-# CHECK_STEPS-step launch from the same state.
+# The serving batches, each run by the cluster shape the serving path picks
+# for it (``pick_cluster``: 16 streams a cluster, of 8 CTAs at B=32 and of 4
+# at B=256), for one launch of DEFAULT_CHUNK steps; bf16 packs are held over
+# CHECK_STEPS single steps and then over one CHECK_STEPS-step launch from
+# the same state.
 CHECK_BATCHES = (32, 256)
 CHECK_STEPS = 32
 # Tolerances. Kernel and plain version do the same arithmetic in another
@@ -270,7 +279,7 @@ def _check(packed, spec, cond, x0, dtype, dname, T, det, serving):
     tol = TOL[dname] if spec.scalar_input else 0.0
     B = x0.shape[0]
     row = dict(B=B, dtype=dname, deterministic=det, tol=tol,
-               block_streams=cg.default_block_streams(B, x0.device))
+               cluster=cg.pick_cluster(spec, B))
     bad = []
     if dname == "float32" or not serving:
         a = _trajectory(cg.generate_steps, packed, spec, cond, x0, dtype, T,
@@ -305,7 +314,8 @@ def _check(packed, spec, cond, x0, dtype, dname, T, det, serving):
 def _describe(row):
     parts = [f"B={row['B']:<3d} {row['dtype']:8s} "
              f"{'det' if row['deterministic'] else 'sample':6s} "
-             f"bt={row['block_streams']} tol {row['tol']}:"]
+             f"cluster {row['cluster'][0]}x{row['cluster'][1]} "
+             f"tol {row['tol']}:"]
     if "run_steps" in row:
         parts.append(f"{row['run_steps']}-step run max|diff| "
                      f"{row['run_err']:.3g}, {row['run_parted']}/{row['B']} "
@@ -490,44 +500,80 @@ def phase_timing(report, model):
                        device="cuda")
     out = torch.empty(B, n, device="cuda")
 
-    def launch(fn, bt=None):
-        x_cur = x0.clone()
-        kw = {} if bt is None else dict(_block_streams=bt)
-        fn(packed, spec, ring, x_cur, out, cond, None, t0=0, seed=1,
-           deterministic=False, **kw)
+    def launch(fn):
+        fn(packed, spec, ring, x0.clone(), out, cond, None, t0=0, seed=1,
+           deterministic=False)
 
     saved = cg.generate_steps.launches
     ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=5)
     plain_ms = cuda_time_ms(lambda: launch(cg.generate_steps_plain),
                             iters=1, warmup=1)
     b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, PEAK_BF16_FLOPS)
-    print(f"[time] kernel B={B} n={n} bf16: {ms:.3f} ms/launch "
-          f"({ms * 1e3 / n:.1f} us/step); plain {plain_ms:.1f} ms; bound "
-          f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)")
+    picked = cg.pick_cluster(spec, B)
+    print(f"[time] kernel B={B} n={n} bf16 cluster {picked[0]}x{picked[1]}: "
+          f"{ms:.3f} ms/launch ({ms * 1e3 / n:.1f} us/step); plain "
+          f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+
+    def timed(Bs, **kw):
+        ring_b = ring if Bs == B else ring[:, :Bs].contiguous()
+        info = []
+
+        def go():
+            cg.generate_steps(packed, spec, ring_b, x0[:Bs].clone(), out[:Bs],
+                              cond[:Bs], None, t0=0, seed=1, _info=info, **kw)
+        return cuda_time_ms(go, iters=3), info
+
+    # cluster size x streams per cluster
     sweep = []
     for Bs in (1, 32, 256):
-        for bt in cg.BLOCK_STREAMS:
-            if bt > Bs:
-                continue
-            xb = x0[:Bs]
-            ring_b = ring if Bs == B else ring[:, :Bs].contiguous()
-
-            def go(bt=bt, Bs=Bs, xb=xb, ring_b=ring_b):
-                cg.generate_steps(packed, spec, ring_b, xb.clone(), out[:Bs],
-                                  cond[:Bs], None, t0=0, seed=1,
-                                  _block_streams=bt)
-            t = cuda_time_ms(go, iters=3)
-            sweep.append(dict(B=Bs, block_streams=bt, ms=t,
-                              us_per_step=t * 1e3 / n))
-            print(f"[time] sweep B={Bs} streams/block={bt}: {t:.3f} ms/launch"
-                  f" ({t * 1e3 / n:.1f} us/step)")
+        for cs in (2, 4, 8):
+            for streams in (8, 16):
+                if streams > max(Bs, 8) or (Bs == 256 and streams == 8):
+                    continue
+                t, info = timed(Bs, _cluster=(cs, streams))
+                sweep.append(dict(B=Bs, cluster_size=cs, streams=streams,
+                                  ms=t, us_per_step=t * 1e3 / n,
+                                  stages=info[0], resident_clusters=info[3]))
+                print(f"[time] sweep B={Bs} cluster {cs}x{streams}: {t:.3f} "
+                      f"ms/launch ({t * 1e3 / n:.1f} us/step); {info[0]} "
+                      f"layers' weights in shared memory, the card holds "
+                      f"{info[3]} such clusters at once")
+    # what a step's time is made of: the served shapes with the products
+    # compiled out, and one step's clock stamps
+    no_products = {}
+    for Bs in (32, 256):
+        full, _ = timed(Bs)
+        bare, _ = timed(Bs, _defines=cg.NO_PRODUCTS)
+        no_products[Bs] = dict(ms=full, no_products_ms=bare)
+        print(f"[time] B={Bs} served shape: {full * 1e3 / n:.1f} us/step; "
+              f"with the products compiled out {bare * 1e3 / n:.1f} us/step "
+              f"(barriers, gathers, prefetches, sampler)")
+    L = spec.layers
+    stamps = torch.zeros(4 * L + 5, dtype=torch.int64, device="cuda")
+    cg.generate_steps(packed, spec, ring[:, :32].contiguous(), x0[:32].clone(),
+                      out[:32, :64], cond[:32, :64].contiguous(), None, t0=0,
+                      seed=1, _defines=cg.TRACE, _trace=stamps)
+    torch.cuda.synchronize()
+    st = stamps.tolist()
+    gaps = [b - a for a, b in zip(st, st[1:])]
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    names = ("wait for the newest tap", "w_in product + GLU + send",
+             "wait for gated", "w_og product + residual, skip + send")
+    per_layer = [med([gaps[1 + 4 * l + i] for l in range(1, L)])
+                 for i in range(4)]
+    trace = dict(step_start=gaps[0], per_layer=dict(zip(names, per_layer)),
+                 head=gaps[1 + 4 * L:], total=st[-1] - st[0])
+    print(f"[time] one step of B=32 in clock cycles (CTA 0, thread 0): start "
+          f"{gaps[0]}; per layer (median of {L - 1}): "
+          + ", ".join(f"{n} {c}" for n, c in zip(names, per_layer))
+          + f"; head {gaps[1 + 4 * L]} + {gaps[2 + 4 * L]}, sampler "
+          f"{gaps[3 + 4 * L]}; step {trace['total']}")
     cg.generate_steps.launches = saved   # timing launches are not the path's
     report["timing"] = dict(B=B, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, flops=flops, bytes=nbytes,
-                            default_block_streams=cg.default_block_streams(
-                                B, torch.device("cuda")),
-                            sweep=sweep)
+                            cluster=picked, sweep=sweep,
+                            no_products=no_products, trace=trace)
     return dict(name="wn_generate", route="cuda", source=KERNEL_SOURCE,
                 replaces=REPLACES, launches=report["launches"],
                 max_abs_err=report["max_abs_err"], ms=ms, plain_ms=plain_ms,

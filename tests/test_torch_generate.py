@@ -248,6 +248,192 @@ def test_wrapper_checks_inputs():
     assert torch.isfinite(out).all()
 
 
+# ----------------------------------------------------------------------
+# the kernel-side pack and the cluster picker (what the CUDA kernel reads)
+# ----------------------------------------------------------------------
+WIDTHS = {
+    # the parity width (R=8, G=16, S=8, cin=4: K_in=28) and the flagship's
+    "small": dict(layers=4, stacks=2, residual_channels=8, gate_channels=16,
+                  skip_out_channels=8, cin_channels=4),
+    "flagship": dict(layers=4, stacks=2, residual_channels=128,
+                     gate_channels=256, skip_out_channels=128,
+                     cin_channels=80),
+    # nothing divides: every slice is padded
+    "ragged": dict(layers=2, stacks=1, residual_channels=24, gate_channels=40,
+                   skip_out_channels=16, cin_channels=5),
+}
+
+
+def _packed(width, dtype, seed=5):
+    spec = WaveNetSpec(out_channels=30, scalar_input=True, **WIDTHS[width])
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(seed))
+    packed = cg.pack_weights(model, dtype=dtype)
+    return spec, {n: a.detach().clone() for n, a in packed.items()}
+
+
+def _public_from_slices(kp, spec):
+    """The kernel-side slices, unpadded and put back in the public order."""
+    sl, d, CS = kp.slices(), kp.dims, kp.cluster_size
+    L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
+    G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
+    cin = spec.cin_channels
+    Gq, Rq, Sq = d["Gq"], d["Rq"], d["Sq"]
+    Rp = CS * Rq
+    cat = lambda parts: torch.cat(list(parts), dim=-1)
+    # columns: CTA r holds [a-half | b-half] of gate channels r*Gq ...
+    a = cat(sl["w_in"][r][..., :Gq] for r in range(CS))[..., :G2]
+    b = cat(sl["w_in"][r][..., Gq:] for r in range(CS))[..., :G2]
+    cols = torch.cat([a, b], dim=-1)                       # (L, Kin, G)
+    rows = [cols[:, t * Rp:t * Rp + R] for t in range(k)]
+    rows.append(cols[:, k * Rp:k * Rp + cin])
+    res = cat(sl["w_og"][r][..., :Rq] for r in range(CS))[..., :R]
+    skip = cat(sl["w_og"][r][..., Rq:] for r in range(CS))[..., :S]
+    b_a = cat(sl["b_in"][r][..., :Gq] for r in range(CS))[..., :G2]
+    b_b = cat(sl["b_in"][r][..., Gq:] for r in range(CS))[..., :G2]
+    b_res = cat(sl["b_og"][r][..., :Rq] for r in range(CS))[..., :R]
+    b_skip = cat(sl["b_og"][r][..., Rq:] for r in range(CS))[..., :S]
+    return {
+        "w_in": torch.cat(rows, dim=1),
+        "b_in": torch.cat([b_a, b_b], dim=-1),
+        "w_og": torch.cat([res, skip], dim=-1)[:, :G2],
+        "b_og": torch.cat([b_res, b_skip], dim=-1),
+        "w_h1": cat(sl["w_h1"][r] for r in range(CS))[:S, :S],
+        "b_h1": cat(sl["b_h1"][r] for r in range(CS))[:S],
+        "w_h2": sl["w_h2"][0][:S, :C], "b_h2": sl["b_h2"][0][:C],
+    }
+
+
+@pytest.mark.parametrize("cs", cg.CLUSTER_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_kernel_pack_slices_restore_packed(width, dtype, cs):
+    """(a) Every CTA's slice, unpadded and put back in the public column
+    order, equals ``packed`` exactly; everything else in the blocks is zero
+    (bf16 blocks go through the mma fragment order and back)."""
+    spec, packed = _packed(width, getattr(torch, dtype))
+    kp = cg.kernel_pack(packed, spec, cs)
+    back = _public_from_slices(kp, spec)
+    for name, a in back.items():
+        assert torch.equal(a, packed[name]), name
+    # what is not a weight is padding: the blocks hold no other mass
+    sl = kp.slices()
+    for name in ("w_in", "w_og", "w_h1", "b_in", "b_og", "b_h1"):
+        assert float(sl[name].float().abs().sum()) == pytest.approx(
+            float(packed[name].float().abs().sum()), rel=1e-6), name
+    d = kp.dims
+    assert d["Kin"] % 16 == 0 and d["Kog"] % 16 == 0 and d["Ksk"] % 16 == 0
+    assert all(d[n] % 8 == 0 for n in ("Gq", "Rq", "Sq", "Cp"))
+    assert all(d[n] % 64 == 8 for n in ("xs", "gs", "ss"))
+    assert kp.wl.shape[2] % 16 == 0 and kp.wh.shape[1] % 16 == 0
+
+
+def test_fragment_order_is_the_mma_b_operand():
+    """Lane (g, t) of n-tile nt and k-step ks holds rows 16 ks + 2t + {0, 1,
+    8, 9} of column 8 nt + g, and the inverse restores the matrix."""
+    m = torch.arange(48 * 24, dtype=torch.float32).reshape(48, 24)
+    f = cg._fragment_order(m)
+    assert torch.equal(cg._from_fragment_order(f, 48, 24), m)
+    NT = 24 // 8
+    for ks, nt, lane in ((0, 0, 0), (1, 2, 5), (2, 1, 31)):
+        g, t = lane // 4, lane % 4
+        at = ((ks * NT + nt) * 32 + lane) * 4
+        want = [m[16 * ks + 2 * t + o, 8 * nt + g] for o in (0, 1, 8, 9)]
+        assert f[at:at + 4].tolist() == [float(w) for w in want]
+
+
+@pytest.mark.parametrize("cs", cg.CLUSTER_SIZES)
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_split_product_matches_plain(width, cs):
+    """(b) The kernel's decomposition in plain torch (per-CTA column
+    slices, zero padding, the gate reorder, then GLU, then the w_og slices)
+    gives the plain version's z, gated and y, to 1e-6 in f32."""
+    spec, packed = _packed(width, torch.float32)
+    kp = cg.kernel_pack(packed, spec, cs)
+    sl, d = kp.slices(), kp.dims
+    k, R, G = spec.kernel_size, spec.residual_channels, spec.gate_channels
+    G2, S, cin = G // 2, spec.skip_out_channels, spec.cin_channels
+    Gq, Rq, Sq, Rp = d["Gq"], d["Rq"], d["Sq"], cs * d["Rq"]
+    rs = np.random.RandomState(11)
+    B, li = 5, spec.layers - 1
+    inp = torch.from_numpy(rs.randn(B, k * R + cin).astype(np.float32))
+    g_gate = torch.from_numpy(rs.randn(B, G).astype(np.float32))
+    # the plain version's arithmetic
+    z = inp @ packed["w_in"][li] + packed["b_in"][li] + g_gate
+    gated = torch.tanh(z[:, :G2]) * torch.sigmoid(z[:, G2:])
+    y = gated @ packed["w_og"][li] + packed["b_og"][li]
+    # the kernel's buffers: [taps of CS*Rq channels | cond | zeros]
+    xin = torch.zeros(B, d["Kin"])
+    for tap in range(k):
+        xin[:, tap * Rp:tap * Rp + R] = inp[:, tap * R:(tap + 1) * R]
+    xin[:, k * Rp:k * Rp + cin] = inp[:, k * R:]
+    gt = torch.zeros(B, d["Kog"])
+    z_a, z_b = torch.zeros(B, cs * Gq), torch.zeros(B, cs * Gq)
+    for r in range(cs):
+        zr = xin @ sl["w_in"][r, li] + sl["b_in"][r, li]
+        ch = torch.arange(r * Gq, (r + 1) * Gq)
+        real = ch < G2                       # the global gate skips padding
+        zr[:, :Gq][:, real] += g_gate[:, ch[real]]
+        zr[:, Gq:][:, real] += g_gate[:, G2 + ch[real]]
+        z_a[:, ch], z_b[:, ch] = zr[:, :Gq], zr[:, Gq:]
+        gt[:, ch] = torch.tanh(zr[:, :Gq]) * torch.sigmoid(zr[:, Gq:])
+    assert float(gt[:, G2:].abs().sum()) == 0.0   # GLU(0, 0) = 0
+    torch.testing.assert_close(torch.cat([z_a[:, :G2], z_b[:, :G2]], 1), z,
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(gt[:, :G2], gated, rtol=0, atol=1e-6)
+    res, skip = torch.zeros(B, cs * Rq), torch.zeros(B, cs * Sq)
+    for r in range(cs):
+        yr = gt @ sl["w_og"][r, li] + sl["b_og"][r, li]
+        res[:, r * Rq:(r + 1) * Rq] = yr[:, :Rq]
+        skip[:, r * Sq:(r + 1) * Sq] = yr[:, Rq:]
+    torch.testing.assert_close(torch.cat([res[:, :R], skip[:, :S]], 1), y,
+                               rtol=0, atol=1e-6)
+    assert float(res[:, R:].abs().sum()) == 0.0
+    assert float(skip[:, S:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 256, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_picker_covers_every_stream(width, dtype, B):
+    """(c) The picker's cluster shape puts every stream into exactly one
+    cluster, stays within what the kernel is built for, and leaves room in
+    shared memory for the activation buffers."""
+    spec = WaveNetSpec(out_channels=30, scalar_input=True, **WIDTHS[width])
+    dt = getattr(torch, dtype)
+    cs, streams = cg.pick_cluster(spec, B)
+    assert cs in cg.CLUSTER_SIZES and 1 <= streams <= cg.CLUSTER_STREAMS
+    assert 8 * cs <= max(8, min(spec.gate_channels // 2,
+                                spec.residual_channels,
+                                spec.skip_out_channels))
+    groups = cg.stream_groups(B, streams)
+    seen = np.zeros(B, int)
+    for lo, hi in groups:
+        assert 0 < hi - lo <= streams
+        seen[lo:hi] += 1
+    assert (seen == 1).all() and len(groups) == -(-B // streams)
+    fixed, block = cg.kernel_smem_bytes(spec, cs, dt)
+    assert fixed <= cg.SMEM_BYTES and block > 0
+    if width == "flagship":
+        # 15 clusters of 8 CTAs fit an H100 at once; past that, clusters of 4
+        assert (cs, streams) == (8 if B <= 240 else 4, min(B, 16))
+        if dtype == "bfloat16":     # and two layers' weights fit beside them
+            assert fixed + 2 * block <= cg.SMEM_BYTES
+
+
+def test_kernel_pack_is_made_once_per_pack():
+    spec, packed = _packed("small", torch.float32)
+    kp = cg.kernel_pack(packed, spec, 2)
+    assert cg.kernel_pack(packed, spec, 2) is kp
+    assert cg.kernel_pack(packed, spec, 1) is not kp
+    packed["b_in"].add_(1.0)            # a weight changed: the pack is remade
+    kp2 = cg.kernel_pack(packed, spec, 2)
+    assert kp2 is not kp
+    assert torch.equal(_public_from_slices(kp2, spec)["b_in"], packed["b_in"])
+    plan = list(kp2.plan(16, 256, -1))
+    assert plan[:4] == [2, 16, 256, -1] and len(plan) == 16
+    assert plan[14:] == [kp2.wl.shape[2], kp2.wh.shape[1]]
+
+
 def _small_cfg(**kw):
     over = dict(layers=4, stacks=2, residual_channels=8, gate_channels=16,
                 skip_out_channels=8, cin_channels=4, num_mels=4, hop_size=4,

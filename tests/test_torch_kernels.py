@@ -42,21 +42,29 @@ def _model(seed, **kw):
     return WaveNet(spec, generator=torch.Generator().manual_seed(seed))
 
 
+# (CTAs per cluster, streams per cluster): what the picker returns at this
+# width for B=3 and B=17, clusters whose CTAs own only padding (2, 8), and
+# small groups that leave most of a tile empty
+CLUSTERS = {"picked": None, "1x2": (1, 2), "2x16": (2, 16), "8x5": (8, 5)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_streams", [1, 2])
+@pytest.mark.parametrize("B", [3, 17])
+@pytest.mark.parametrize("cluster", sorted(CLUSTERS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sample"])
 @pytest.mark.parametrize("head", sorted(HEADS))
-def test_kernel_matches_plain(cuda, head, deterministic, dtype, block_streams):
+def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
     """Same inputs, state and seed: codes equal, scalars within 1e-3 (the
     summation order differs; 32 steps keep AR feedback from amplifying
-    rounding). B=3 leaves a ragged last block for 2 streams per block;
-    t0=5 checks the ring indexing past the start."""
+    rounding). B=3 is one ragged group of streams, B=17 two groups with the
+    second ragged (several ragged ones for the small clusters); t0=5 checks
+    the ring indexing past the start."""
     model = _model(10, **HEADS[head]).to(cuda)
     spec = model.spec
     dt = getattr(torch, dtype)
     packed = cg.pack_weights(model, dtype=dt)
-    B, n = 3, 32
+    n = 32
     rs = np.random.RandomState(0)
     cond = torch.from_numpy(rs.randn(B, n, 4).astype(np.float32)).to(cuda, dt)
     g_gate = torch.from_numpy(rs.randn(4, B, 16).astype(np.float32)).to(cuda)
@@ -72,7 +80,7 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, block_streams):
         if kernel:
             cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate,
                               t0=5, seed=3, deterministic=deterministic,
-                              _block_streams=block_streams)
+                              _cluster=CLUSTERS[cluster])
             assert cg.generate_steps.launches == before + 1
         else:
             cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond,
@@ -91,16 +99,75 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, block_streams):
 
 
 @pytest.mark.cuda
-def test_wrapper_raises_on_bad_block_streams(cuda):
+@pytest.mark.parametrize("stages", [0, 2])
+def test_kernel_weight_paths_agree(cuda, stages):
+    """Weights read from global memory (0 stages) and through a two-stage
+    ring in shared memory give what the resident slices give, bit for bit."""
+    model = _model(11, **HEADS["mol"]).to(cuda)
+    spec = model.spec
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    B, n = 5, 24
+    rs = np.random.RandomState(1)
+    cond = torch.from_numpy(rs.randn(B, n, 4).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    _, rows = cg.buffer_layout(spec)
+    outs = []
+    for cap in (-1, stages):
+        ring = torch.zeros(rows, B, 8, device=cuda, dtype=torch.bfloat16)
+        x_cur = cg.default_initial_input(spec, B, device=cuda)
+        out = torch.empty(B, n, device=cuda)
+        info = []
+        cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=0, seed=9,
+                          _cluster=(2, 16), _max_stages=cap, _info=info)
+        torch.cuda.synchronize()
+        assert info[0] == (spec.layers if cap < 0 else stages)
+        outs.append((out.cpu(), ring.float().cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+def test_stream_alone_equals_stream_in_batch(cuda):
+    """Stream 0 generated alone (B=1) equals stream 0 inside B=32, bit for
+    bit, in bf16 sampling mode over 64 steps: a stream's output does not
+    depend on which streams share its cluster."""
+    model = _model(12, **HEADS["mol"]).to(cuda)
+    spec = model.spec
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    n = 64
+    rs = np.random.RandomState(2)
+    cond = torch.from_numpy(rs.randn(32, n, 4).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    _, rows = cg.buffer_layout(spec)
+    outs = {}
+    for B, cluster in ((1, None), (32, None), (32, (2, 8))):
+        ring = torch.zeros(rows, B, 8, device=cuda, dtype=torch.bfloat16)
+        x_cur = cg.default_initial_input(spec, B, device=cuda)
+        out = torch.empty(B, n, device=cuda)
+        cg.generate_steps(packed, spec, ring, x_cur, out,
+                          cond[:B].contiguous(), t0=0, seed=4,
+                          _cluster=cluster)
+        torch.cuda.synchronize()
+        outs[(B, cluster)] = out[0].cpu()
+    assert float(outs[(1, None)].std()) > 0.01
+    assert torch.equal(outs[(1, None)], outs[(32, None)])
+    assert torch.equal(outs[(1, None)], outs[(32, (2, 8))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [(3, 16), (8, 17), (8, 0)])
+def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
+    """The override of the picker takes a cluster of 1, 2, 4 or 8 CTAs
+    and 1 to 16 streams per cluster, and nothing else."""
     model = _model(0, **HEADS["mol"]).to(cuda)
     packed = cg.pack_weights(model, dtype=torch.float32)
     _, rows = cg.buffer_layout(model.spec)
     ring = torch.zeros(rows, 2, 8, device=cuda)
-    with pytest.raises(ValueError, match="_block_streams"):
+    with pytest.raises(ValueError, match="_cluster"):
         cg.generate_steps(packed, model.spec, ring, torch.zeros(2, 1, device=cuda),
                           torch.empty(2, 4, device=cuda),
                           torch.zeros(2, 4, 4, device=cuda), t0=0, seed=0,
-                          _block_streams=4)
+                          _cluster=cluster)
 
 
 # ----------------------------------------------------------------------

@@ -14,10 +14,15 @@ place, so a generation can be continued launch after launch:
     read-before-write modular indexing;
   * ``x_cur (B, C_in)`` f32: the next step's input.
 
+The kernel reads a second, kernel-side pack (``kernel_pack``): every
+product's columns cut into one slice per CTA of a thread-block cluster,
+zero padded to the tensor-core tiles and laid out in mma fragment order.
+``pack_weights`` keeps the public layout that the plain version uses.
+
 Sampling is keyed by a counter-based hash of (seed, stream row, absolute
 step, draw index), so kernel and plain version draw the same numbers, and
-outputs do not depend on how streams are blocked or steps are split into
-launches. The draws of a step: categorical — one per class (Gumbel-max);
+outputs do not depend on how streams are grouped into clusters or steps are
+split into launches. The draws of a step: categorical — one per class (Gumbel-max);
 mixtures — one per component (Gumbel-max), then one for the logistic
 inverse CDF or two for Box–Muller; single Gaussian — two (Box–Muller).
 Uniforms are clipped to (1e-5, 1-1e-5), samples to [-1, 1].
@@ -40,7 +45,6 @@ from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.ops.generate import default_initial_input
 
 DEFAULT_CHUNK = 256          # steps per kernel launch
-BLOCK_STREAMS = (1, 2)     # streams per CUDA block the kernel is built for
 _M32 = 0xFFFFFFFF
 
 
@@ -253,31 +257,243 @@ def generate_steps_plain(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
 
 
 # ----------------------------------------------------------------------
+# the kernel-side pack: each CTA's column slices, padded, in mma order
+# ----------------------------------------------------------------------
+CLUSTER_SIZES = (1, 2, 4, 8)   # CTAs per cluster the picker chooses from
+CLUSTER_STREAMS = 16           # streams a cluster owns at most (one mma row tile)
+KERNEL_THREADS = 256           # threads per CTA
+SPLIT_IN = 2                   # parts the kernel cuts the w_in product's depth into
+RESIDENT_CTAS = 120            # CTAs an H100 holds at once in clusters of 4 or 8
+SMEM_BYTES = 232448            # shared memory a CTA can have on an H100
+
+
+def _up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def _row_stride(K: int) -> int:
+    """Row stride (elements) of a shared-memory activation buffer of K
+    columns: congruent to 8 modulo 64, so that the 8 rows an mma fragment
+    load touches fall into different banks, and rows stay 16-byte aligned."""
+    return K + (8 - K) % 64
+
+
+def _kernel_dims(spec: WaveNetSpec, cluster_size: int) -> Dict[str, int]:
+    """Widths, depths and strides of the kernel-side pack (see KernelPack)."""
+    CS, k = cluster_size, spec.kernel_size
+    cin = spec.cin_channels if spec.has_local_conditioning else 0
+    Gq, Rq, Sq = (_up(-(-w // CS), 8) for w in (
+        spec.gate_channels // 2, spec.residual_channels, spec.skip_out_channels))
+    Kin, Kog, Ksk = _up(k * CS * Rq + cin, 16), _up(CS * Gq, 16), _up(CS * Sq, 16)
+    return dict(Gq=Gq, Rq=Rq, Sq=Sq, Kin=Kin, Kog=Kog, Ksk=Ksk,
+                Cp=_up(spec.out_channels, 8), xs=_row_stride(Kin),
+                gs=_row_stride(Kog), ss=_row_stride(Ksk))
+
+
+def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype
+                      ) -> Tuple[int, int]:
+    """(bytes of shared memory a CTA's activation buffers take, bytes of one
+    layer's block of weights and biases): what ``csrc/generate.cu`` lays out
+    (``make_layout``) before it gives the rest to the weights."""
+    d = _kernel_dims(spec, cluster_size)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    M = CLUSTER_STREAMS
+    NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
+    sizes = [2 * M * d["xs"] * elt, M * d["gs"] * elt, M * d["ss"] * elt,
+             M * d["ss"] * elt, SPLIT_IN * NA * M * 4 if elt == 2 else 0,
+             M * d["Rq"] * 4, M * d["Sq"] * 4,
+             M * d["Cp"] * 4, M * spec.in_channels * 4,
+             2 * cluster_size * d["Rq"] * 4, M * 4,
+             spec.layers * 16, 5 * 8]
+    block = (d["Kin"] * NA + d["Kog"] * NB) * elt + (NA + NB) * 4
+    return sum(_up(b, 128) for b in sizes), block
+
+
+def pick_cluster(spec: WaveNetSpec, B: int) -> Tuple[int, int]:
+    """(CTAs per cluster, streams per cluster) for B streams. 16 streams (one
+    mma row tile) per cluster, fewer when B is. The cluster is the largest
+    in which every CTA still owns 8 gate, residual and skip channels, halved
+    (down to 4) while the clusters do not all fit the card at once: a
+    smaller cluster pulls more weights per CTA but more of them are
+    resident, and a second wave doubles the time."""
+    width = min(spec.gate_channels // 2, spec.residual_channels,
+                spec.skip_out_channels)
+    cs = max([c for c in CLUSTER_SIZES if 8 * c <= width], default=1)
+    clusters = -(-B // CLUSTER_STREAMS)
+    while cs > 4 and clusters * cs > RESIDENT_CTAS:
+        cs //= 2
+    return cs, min(CLUSTER_STREAMS, B)
+
+
+def stream_groups(B: int, streams: int) -> Tuple[Tuple[int, int], ...]:
+    """[start, end) of the streams each cluster owns, in grid order."""
+    return tuple((s, min(B, s + streams)) for s in range(0, B, streams))
+
+
+def _fragment_order(m: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) row-major, K % 16 == 0 and N % 8 == 0 -> (..., K*N) in
+    the B-operand order of mma.m16n8k16: [k-step][n-tile][lane][4], lane
+    (g = lane // 4, t = lane % 4) holding m[16 ks + 2t + {0, 1, 8, 9}, 8 nt + g]."""
+    *lead, K, N = m.shape
+    n = len(lead)
+    f = m.reshape(*lead, K // 16, 2, 4, 2, N // 8, 8)   # ks, h, t, lo, nt, g
+    f = f.permute(*range(n), n, n + 4, n + 5, n + 2, n + 1, n + 3)
+    return f.reshape(*lead, K * N)
+
+
+def _from_fragment_order(f: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of ``_fragment_order``: (..., K*N) -> (..., K, N)."""
+    *lead, _ = f.shape
+    n = len(lead)
+    m = f.reshape(*lead, K // 16, N // 8, 8, 4, 2, 2)   # ks, nt, g, t, h, lo
+    m = m.permute(*range(n), n, n + 4, n + 3, n + 5, n + 1, n + 2)
+    return m.reshape(*lead, K, N)
+
+
+class KernelPack:
+    """What ``csrc/generate.cu`` reads for one cluster size, as bytes: per CTA
+    ``r`` of the cluster and per layer, one contiguous block [w_in slice |
+    w_og slice | b_in | b_og] (``wl``), and per CTA [w_h1 slice | w_h2 |
+    b_h1 slice | b_h2] (``wh``); weights in the pack dtype, biases f32 in
+    the same column order. Every width is cut into ``cluster_size`` blocks of ``Gq``
+    gate, ``Rq`` residual and ``Sq`` skip channels (multiples of 8, zero
+    padded past the real width); a w_in slice holds both GLU halves of its
+    gate channels, [a | b]. Depths are padded with zero rows to multiples of
+    16: ``Kin`` = k taps of ``CS*Rq`` channels, then cond; ``Kog`` and
+    ``Ksk`` the padded gate and skip widths. bf16 slices are in mma fragment
+    order, f32 slices row-major."""
+
+    def __init__(self, packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
+                 cluster_size: int):
+        dtype, dev = packed["w_first"].dtype, packed["w_first"].device
+        CS = self.cluster_size = int(cluster_size)
+        L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
+        G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
+        cin = spec.cin_channels if spec.has_local_conditioning else 0
+        d = self.dims = _kernel_dims(spec, CS)
+        Gq, Rq, Sq, Kin, Kog, Ksk, Cp = (d[n] for n in (
+            "Gq", "Rq", "Sq", "Kin", "Kog", "Ksk", "Cp"))
+        Gp, Rp, Sp = CS * Gq, CS * Rq, CS * Sq
+        self.dtype, self.bf16 = dtype, dtype == torch.bfloat16
+        zeros = lambda *shape: torch.zeros(*shape, dtype=dtype, device=dev)
+
+        w_in = zeros(L, Kin, 2, Gp)
+        for tap in range(k):
+            rows = packed["w_in"][:, tap * R:(tap + 1) * R]
+            w_in[:, tap * Rp:tap * Rp + R, 0, :G2] = rows[..., :G2]
+            w_in[:, tap * Rp:tap * Rp + R, 1, :G2] = rows[..., G2:]
+        if cin:
+            rows = packed["w_in"][:, k * R:]
+            w_in[:, k * Rp:k * Rp + cin, 0, :G2] = rows[..., :G2]
+            w_in[:, k * Rp:k * Rp + cin, 1, :G2] = rows[..., G2:]
+        w_in = w_in.reshape(L, Kin, 2, CS, Gq).permute(3, 0, 1, 2, 4) \
+            .reshape(CS, L, Kin, 2 * Gq)
+        res, skip = zeros(L, Kog, Rp), zeros(L, Kog, Sp)
+        res[:, :G2, :R] = packed["w_og"][..., :R]
+        skip[:, :G2, :S] = packed["w_og"][..., R:]
+        w_og = torch.cat([res.reshape(L, Kog, CS, Rq),
+                          skip.reshape(L, Kog, CS, Sq)], dim=3).permute(2, 0, 1, 3)
+        w_h1 = zeros(Ksk, Sp)
+        w_h1[:S, :S] = packed["w_h1"]
+        w_h1 = w_h1.reshape(Ksk, CS, Sq).permute(1, 0, 2)
+        w_h2 = zeros(Ksk, Cp)
+        w_h2[:S, :C] = packed["w_h2"]
+        w_h2 = w_h2.expand(CS, Ksk, Cp)
+        lay = _fragment_order if self.bf16 else (lambda m: m.flatten(-2))
+        raw = lambda a: a.contiguous().view(torch.uint8)
+        fz = lambda *shape: torch.zeros(*shape, device=dev)
+        b_in = fz(L, 2, Gp)
+        b_in[:, 0, :G2], b_in[:, 1, :G2] = packed["b_in"][:, :G2], packed["b_in"][:, G2:]
+        b_in = b_in.reshape(L, 2, CS, Gq).permute(2, 0, 1, 3).reshape(CS, L, 2 * Gq)
+        b_res, b_skip = fz(L, Rp), fz(L, Sp)
+        b_res[:, :R], b_skip[:, :S] = packed["b_og"][:, :R], packed["b_og"][:, R:]
+        b_og = torch.cat([b_res.reshape(L, CS, Rq), b_skip.reshape(L, CS, Sq)],
+                         dim=2).permute(1, 0, 2)
+        b_h1, b_h2 = fz(Sp), fz(Cp)
+        b_h1[:S], b_h2[:C] = packed["b_h1"], packed["b_h2"]
+        self.wl = torch.cat([raw(lay(w_in.contiguous())),
+                             raw(lay(w_og.contiguous())),
+                             raw(b_in), raw(b_og)], dim=2).contiguous()
+        self.wh = torch.cat([raw(lay(w_h1.contiguous())),
+                             raw(lay(w_h2.contiguous())),
+                             raw(b_h1.reshape(CS, Sq)),
+                             raw(b_h2.expand(CS, Cp))], dim=1).contiguous()
+        self.w_first, self.b_first = packed["w_first"], packed["b_first"]
+
+    def slices(self) -> Dict[str, torch.Tensor]:
+        """The per-CTA slices as row-major matrices and their biases: w_in
+        (CS, L, Kin, 2 Gq), w_og (CS, L, Kog, Rq + Sq), w_h1 (CS, Ksk, Sq),
+        w_h2 (CS, Ksk, Cp); b_in (CS, L, 2 Gq), b_og (CS, L, Rq + Sq), b_h1
+        (CS, Sq), b_h2 (CS, Cp)."""
+        d, width = self.dims, 2 if self.bf16 else 4
+        NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
+        out = {}
+        for blob, parts in ((self.wl, (("w_in", d["Kin"], NA), ("w_og", d["Kog"], NB),
+                                       ("b_in", 0, NA), ("b_og", 0, NB))),
+                            (self.wh, (("w_h1", d["Ksk"], d["Sq"]),
+                                       ("w_h2", d["Ksk"], d["Cp"]),
+                                       ("b_h1", 0, d["Sq"]), ("b_h2", 0, d["Cp"])))):
+            at = 0
+            for name, K, N in parts:
+                if K == 0:   # a bias
+                    out[name] = blob[..., at:at + 4 * N].contiguous().view(torch.float32)
+                    at += 4 * N
+                    continue
+                flat = blob[..., at:at + width * K * N].contiguous().view(self.dtype)
+                at += width * K * N
+                out[name] = (_from_fragment_order(flat, K, N) if self.bf16
+                             else flat.reshape(*flat.shape[:-1], K, N))
+        return out
+
+    def plan(self, streams: int, threads: int, max_stages: int):
+        """The host int array ``wn_generate`` takes as ``plan``."""
+        d = self.dims
+        vals = [self.cluster_size, streams, threads, max_stages,
+                d["Gq"], d["Rq"], d["Sq"], d["Kin"], d["Kog"], d["Ksk"],
+                d["Cp"], d["xs"], d["gs"], d["ss"],
+                self.wl.shape[2], self.wh.shape[1]]
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+_KERNEL_PACKS: Dict[Tuple[int, int], Tuple[tuple, KernelPack]] = {}
+
+
+@torch.no_grad()
+def kernel_pack(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
+                cluster_size: int) -> KernelPack:
+    """The kernel-side pack of ``packed`` for one cluster size, made once:
+    kept for the last few ``packed`` dicts seen, and remade when one of a
+    dict's tensors was replaced or written to."""
+    key = (id(packed), int(cluster_size))
+    stamp = tuple((a.data_ptr(), a._version) for a in packed.values())
+    hit = _KERNEL_PACKS.get(key)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    kp = KernelPack(packed, spec, cluster_size)
+    _KERNEL_PACKS.pop(key, None)
+    while len(_KERNEL_PACKS) >= 8:
+        _KERNEL_PACKS.pop(next(iter(_KERNEL_PACKS)))
+    _KERNEL_PACKS[key] = (stamp, kp)
+    return kp
+
+
+# ----------------------------------------------------------------------
 # the kernel's wrapper
 # ----------------------------------------------------------------------
 _PTR = ctypes.c_void_p
-_ARGTYPES = ([_PTR] * 11 + [ctypes.c_longlong] + [_PTR] * 4
+_ARGTYPES = ([_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 4
              + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_uint]
-             + [ctypes.c_int] * 13 + [_PTR])
+             + [ctypes.c_int] * 12 + [_PTR] * 4)
+NO_PRODUCTS, TRACE = ("WN_NO_PRODUCTS",), ("WN_TRACE",)   # variant builds
 
 
-def _kernel_fn():
+def _kernel_fn(defines=()):
     from wavenet_vocoder_tpu_torch.kernels.build import load
-    fn = load("generate").wn_generate
+    fn = load("generate", defines).wn_generate
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
-
-
-def default_block_streams(B: int, device) -> int:
-    """Streams per block: the fewest that keep the grid within one wave of
-    the card's SMs (more streams per block means fewer L2 weight rereads)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for bt in BLOCK_STREAMS:
-        if -(-B // bt) <= sms:
-            return bt
-    return BLOCK_STREAMS[-1]
 
 
 def _check(name: str, a: torch.Tensor, shape, dtype, device) -> None:
@@ -294,7 +510,12 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
                    cond: Optional[torch.Tensor] = None,
                    g_gate: Optional[torch.Tensor] = None, *, t0: int,
                    seed: int, deterministic: bool = False,
-                   _block_streams: Optional[int] = None) -> None:
+                   kpack: Optional[KernelPack] = None,
+                   _cluster: Optional[Tuple[int, int]] = None,
+                   _max_stages: int = -1,
+                   _defines: Tuple[str, ...] = (),
+                   _info: Optional[list] = None,
+                   _trace: Optional[torch.Tensor] = None) -> None:
     """Run steps [t0, t0 + out.shape[1]) of the fused decoder in place.
 
     ring (total_rows, B, R) pack dtype; x_cur (B, C_in) f32; out (B, n) f32
@@ -302,7 +523,16 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     pack dtype or None; g_gate (L, B, G) f32 or None. CUDA tensors launch
     the kernel (``generate_steps.launches`` counts the launches); CPU
     tensors run the plain version. There is no fallback between the two.
-    ``_block_streams`` overrides ``default_block_streams`` (sweeps, tests).
+
+    ``kpack`` is the kernel-side pack of ``packed`` (``kernel_pack``); it is
+    made and cached here when not given. For sweeps and tests: ``_cluster``
+    = (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
+    ``_max_stages`` caps the layer blocks held in shared memory (0: weights
+    read from global memory); ``_defines`` launches a variant build
+    (``NO_PRODUCTS``: a timing aid, outputs mean nothing; ``TRACE``: clock
+    stamps of the last step of cluster 0 go to ``_trace``, an int64 tensor
+    of 4 L + 5 values); ``_info`` receives [stages, head weights resident,
+    shared bytes, clusters the card holds at once].
     """
     B, n = out.shape
     dev, dtype = ring.device, packed["w_first"].dtype
@@ -346,33 +576,48 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         raise ValueError(f"no generation kernel for device {dev}")
     RS = R + spec.skip_out_channels
     if any(m % 8 or m > 4096 for m in (G, RS, spec.skip_out_channels)) \
-            or spec.out_channels > 512:
+            or spec.out_channels > 512 or spec.kernel_size < 2:
         raise ValueError("the generation kernel needs gate, residual+skip and "
-                         "skip widths that are multiples of 8 up to 4096 and "
-                         "at most 512 output channels; got "
+                         "skip widths that are multiples of 8 up to 4096, at "
+                         "most 512 output channels and at least 2 taps; got "
                          f"{G}, {RS}, {spec.skip_out_channels}, "
-                         f"{spec.out_channels}")
-    bt = _block_streams or default_block_streams(B, dev)
-    if bt not in BLOCK_STREAMS:
-        raise ValueError(f"_block_streams must be one of {BLOCK_STREAMS}")
+                         f"{spec.out_channels}, {spec.kernel_size}")
+    cs, streams = _cluster or pick_cluster(spec, B)
+    if cs not in CLUSTER_SIZES or not 1 <= streams <= CLUSTER_STREAMS:
+        raise ValueError(f"_cluster must be (one of {CLUSTER_SIZES}, "
+                         f"1..{CLUSTER_STREAMS}); got {(cs, streams)}")
+    fixed, _ = kernel_smem_bytes(spec, cs, dtype)
+    if fixed > SMEM_BYTES:
+        raise ValueError(
+            f"the generation kernel's buffers for 16 streams of this model "
+            f"take {fixed} bytes of shared memory at cluster size {cs}; a "
+            f"block has {SMEM_BYTES}")
+    if kpack is None:
+        kpack = kernel_pack(packed, spec, cs)
+    if (kpack.cluster_size != cs or kpack.dtype != dtype
+            or kpack.w_first is not packed["w_first"]):
+        raise ValueError("kpack was not made from this packed dict for "
+                         f"cluster size {cs}")
+    info = (ctypes.c_int * 4)() if _info is not None else None
+    plan = kpack.plan(streams, KERNEL_THREADS, int(_max_stages))
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn()(
+        err = _kernel_fn(tuple(_defines))(
             ptr(packed["w_first"]), ptr(packed["b_first"]),
-            ptr(packed["w_in"]), ptr(packed["b_in"]),
-            ptr(packed["w_og"]), ptr(packed["b_og"]),
-            ptr(packed["w_h1"]), ptr(packed["b_h1"]),
-            ptr(packed["w_h2"]), ptr(packed["b_h2"]),
-            ptr(cond), 0 if cond is None else cond.stride(0),
+            ptr(kpack.wl), ptr(kpack.wh), ptr(cond), 0 if cond is None else cond.stride(0),
             ptr(g_gate), ptr(ring), ptr(x_cur), ptr(out), out.stride(0),
             B, n, int(t0), int(seed) & _M32, L, spec.layers_per_stack,
             spec.kernel_size, R, G, spec.skip_out_channels,
             spec.in_channels, spec.out_channels, cin, head_code(spec),
-            int(bool(deterministic)), int(dtype == torch.bfloat16), bt,
-            stream)
+            int(bool(deterministic)), int(dtype == torch.bfloat16),
+            plan, info, ptr(_trace), stream)
     if err != 0:
-        raise RuntimeError(f"generation kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"generation kernel launch failed: CUDA error {err} (cluster "
+            f"{cs} x {streams} streams)")
+    if _info is not None:
+        _info[:] = list(info)
     generate_steps.launches += 1
 
 
@@ -395,6 +640,13 @@ class FusedGenerator:
         self.weight_dtype = weight_dtype
         self.packed = pack_weights(model, dtype=weight_dtype)
         self.device = self.packed["w_first"].device
+        # the kernel-side packs, made once for each cluster size the picker
+        # chooses between; the plain version on the CPU needs none
+        self.kpacks = {}
+        if self.device.type == "cuda":
+            for B in (1, 1 << 20):
+                cs = pick_cluster(self.spec, B)[0]
+                self.kpacks[cs] = kernel_pack(self.packed, self.spec, cs)
 
     @torch.no_grad()
     def __call__(self, *, T: Optional[int] = None,
@@ -486,7 +738,8 @@ class FusedGenerator:
                            out[:, t0:t0 + chunk],
                            None if cond is None else cond[:, t0:t0 + chunk],
                            g_gate, t0=t_off + t0, seed=seed,
-                           deterministic=deterministic)
+                           deterministic=deterministic,
+                           kpack=self.kpacks.get(pick_cluster(spec, B)[0]))
         if return_state:
             return out[:, :T], (x_cur, ring, t_off + T)
         return out[:, :T]
