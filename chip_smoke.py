@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases (each failure ends the run with a non-zero exit):
-  1. build    — nvcc-compile the four kernel sources, and the two variant
-                builds of the generation kernel that phase 4 times, all in
-                parallel, and print the seconds;
+  1. build    — nvcc-compile the four kernel sources, the two variant
+                builds of the generation kernel that phase 4 times and the
+                training kernels with their products compiled out (phase 7),
+                all in parallel, and print the seconds;
   2. kernel   — at the flagship width (24 layers, 128/256/128, cin=80), hold
                 the generation kernel against its plain PyTorch version for
                 the categorical, MoL and Gaussian heads, f32 and bf16 packs,
@@ -29,19 +30,25 @@ Phases (each failure ends the run with a non-zero exit):
                 plain versions: skips and all eight gradients, at B=2,
                 T=3000 (f32 and bf16, dropout 0 and 0.05, one bf16 row with a
                 global-conditioning bias) and at the training path's shape
-                B=8, T=10240 (f32 and bf16); see TRAIN_TOL;
+                B=8, T=10240 (f32 and bf16); see TRAIN_TOL. bf16 runs the
+                tensor-core kernels, f32 the FMA-tile kernels;
   6. training — ``create_train_state(Config(fused_train=True))`` and
                 ``train_step`` at B=8 on bench.py's batch: one step through
                 the kernels and one through the plain versions from the same
                 state agree in loss, gradient norm and every parameter's
                 gradient (see STEP_TOL); then 10 kernel steps, whose launch
                 counts are the kernels' launches on the main path, lower
-                the loss;
+                the loss; every one of their launches must be a tensor-core
+                launch (``.tc_launches``);
   7. train-timing — median step time and samples/s at B=8 and B=32 (CUDA
                 events), a torch.profiler breakdown of one B=8 step by
                 kernel, and each training kernel's time per step at B=8
-                beside its plain version and its bound; a ``[summary]`` line
-                repeats the training numbers just before the result lines;
+                (bf16) beside its plain version, its bound and share of
+                bound, its time with the products compiled out, and a cuBLAS
+                yardstick (the same products as bf16 ``torch.matmul`` calls,
+                each timed alone, summed; the port never calls them); a
+                ``[summary]`` line repeats the training numbers just before
+                the result lines;
   8. mel-kernel — at the flagship transform (n_fft 1024, hop 256, 80 mel
                 bins), the log-mel kernel (csrc/mel.cu) against its plain
                 version and the host f64 pipeline, for a 30 s waveform, 3,000
@@ -136,8 +143,10 @@ def phase_build(report):
 
     from wavenet_vocoder_tpu_torch.kernels import build
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     jobs = [(name, ()) for name in SOURCES]
-    jobs += [("generate", cg.NO_PRODUCTS), ("generate", cg.TRACE)]
+    jobs += [("generate", cg.NO_PRODUCTS), ("generate", cg.TRACE),
+             ("train_fwd", ct.NO_PRODUCTS), ("train_bwd", ct.NO_PRODUCTS)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for _ in pool.map(lambda job: build._compile(*job), jobs):
@@ -145,8 +154,9 @@ def phase_build(report):
     for job in jobs:
         build.load(*job)
     secs = time.perf_counter() - t0
-    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu and two variants of "
-          f"generate.cu: nvcc and load {secs:.1f}s")
+    print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, two variants of "
+          f"generate.cu and the no-products train_fwd.cu, train_bwd.cu: nvcc "
+          f"and load {secs:.1f}s")
     report["build_s"] = secs
 
 
@@ -804,22 +814,29 @@ def phase_training(report):
     torch.cuda.empty_cache()
     state, train_step, agree = _kernel_vs_plain_step(cfg, batch, "bfloat16")
 
-    ct.train_fwd.launches = ct.train_bwd.launches = 0
+    wrappers = {"wn_train_fwd": ct.train_fwd, "wn_train_bwd": ct.train_bwd}
+    for w in wrappers.values():
+        w.launches = w.tc_launches = w.fma_launches = 0
     losses = []
     for _ in range(TRAIN_STEPS):
         losses.append(float(train_step(state, batch)["loss"]))
-    launches = {"wn_train_fwd": ct.train_fwd.launches,
-                "wn_train_bwd": ct.train_bwd.launches}
+    launches = {n: w.launches for n, w in wrappers.items()}
+    tc_launches = {n: w.tc_launches for n, w in wrappers.items()}
     L = state.model.spec.layers
     expected = {"wn_train_fwd": L * TRAIN_STEPS,
                 "wn_train_bwd": 3 * L * TRAIN_STEPS}
     print(f"[training] {TRAIN_STEPS} kernel steps: losses "
           + " ".join(f"{v:.4f}" for v in losses)
-          + f"; launches {launches} (expected {expected})", flush=True)
+          + f"; launches {launches} (expected {expected}), of them on the "
+          f"tensor cores {tc_launches}", flush=True)
     report["training"] = dict(agree=agree, agree_f32=agree_f32,
-                              losses=losses, launches=launches)
+                              losses=losses, launches=launches,
+                              tc_launches=tc_launches)
     if launches != expected:
         fail(f"training launched {launches}, expected {expected}")
+    if tc_launches != expected:
+        fail(f"bf16 training launches not all on the tensor-core kernels: "
+             f"{tc_launches} of {expected}")
     if not np.isfinite(losses).all():
         fail("training loss not finite")
     if not np.mean(losses[5:]) < losses[0]:
@@ -871,6 +888,45 @@ def _step_times(train_step, state, batch, n):
     return times
 
 
+# the training kernels' names, tensor-core kernels first (each FMA kernel's
+# name is a prefix of its counterpart's)
+TRAIN_KERNEL_NAMES = ("fwd_tc", "bwd_dz_tc", "bwd_wgrad_tc", "bwd_dx_tc",
+                      "fwd_layer", "bwd_dz", "bwd_wgrad", "bwd_dx")
+
+
+def cublas_yardstick_ms(spec, B, T):
+    """The training kernels' products as bf16 ``torch.matmul`` calls at the
+    same shapes, each timed alone (CUDA events), times the layers, summed per
+    kernel. A mark of what the card's library reaches on these shapes; the
+    port never calls it (no one call computes the stack)."""
+    import torch
+    L, k, R, G, S = (spec.layers, spec.kernel_size, spec.residual_channels,
+                     spec.gate_channels, spec.skip_out_channels)
+    cin, G2, P = spec.cin_channels, G // 2, B * T
+    # (M, K, N, transposed A): A (M x K) @ B (K x N); a transposed A is the
+    # transpose of a position-major (K x M) tensor, as the weight gradients
+    # read their inputs
+    shapes = {"wn_train_fwd": [(P, k * R + cin, G, False),
+                               (P, G2, R + S, False)],
+              "wn_train_bwd": [(P, k * R + cin, G, False),
+                               (P, R + S, G2, False), (k * R, P, G, True),
+                               (cin, P, G, True), (G2, P, R + S, True),
+                               (P, k * G, R, False), (P, G, cin, False)]}
+    out = {}
+    for name, prods in shapes.items():
+        total = 0.0
+        for M, K, N, trans in prods:
+            bf = dict(device="cuda", dtype=torch.bfloat16)
+            a = (torch.randn(K, M, **bf).t() if trans
+                 else torch.randn(M, K, **bf))
+            b = torch.randn(K, N, **bf)
+            total += L * cuda_time_ms(lambda: torch.matmul(a, b), iters=10)
+            del a, b
+        out[name] = total
+    torch.cuda.empty_cache()
+    return out
+
+
 def _profile_step(train_step, state, batch):
     """Device time of one train step by kernel, from a torch.profiler trace:
     (groups {name: ms}, busy ms, step ms by CUDA events), or None when the
@@ -892,8 +948,8 @@ def _profile_step(train_step, state, batch):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = next((k for k in ("fwd_layer", "bwd_dz", "bwd_wgrad", "bwd_dx")
-                     if k in e.name), e.name[:60])
+        name = next((k for k in TRAIN_KERNEL_NAMES if k in e.name),
+                    e.name[:60])
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not groups:
         return None
@@ -909,7 +965,8 @@ def phase_train_timing(report, state, train_step):
     from wavenet_vocoder_tpu_torch.ops import fused_train as ft
     cfg = Config(fused_train=True)
     T = cfg.max_time_steps
-    saved = ct.train_fwd.launches, ct.train_bwd.launches
+    wrappers = (ct.train_fwd, ct.train_bwd)
+    saved = [(w.launches, w.tc_launches, w.fma_launches) for w in wrappers]
     steps = {}
     for B in (8, 32):
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -945,8 +1002,13 @@ def phase_train_timing(report, state, train_step):
         _, xs = ct.train_fwd(*inputs, **kw)
         x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
         args = (dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og)
-        ms = {"wn_train_fwd": cuda_time_ms(lambda: ct.train_fwd(*inputs, **kw)),
-              "wn_train_bwd": cuda_time_ms(lambda: ct.train_bwd(*args, **kw))}
+        timed = lambda fn: cuda_time_ms(fn, iters=10)
+        ms = {"wn_train_fwd": timed(lambda: ct.train_fwd(*inputs, **kw)),
+              "wn_train_bwd": timed(lambda: ct.train_bwd(*args, **kw))}
+        nop = dict(kw, _defines=ct.NO_PRODUCTS)
+        no_products = {
+            "wn_train_fwd": timed(lambda: ct.train_fwd(*inputs, **nop)),
+            "wn_train_bwd": timed(lambda: ct.train_bwd(*args, **nop))}
         plain = {"wn_train_fwd": cuda_time_ms(
                      lambda: ft.fused_res_stack_fwd_plain(*inputs, **kw),
                      iters=1),
@@ -962,21 +1024,29 @@ def phase_train_timing(report, state, train_step):
               * 4 + nb(xs),
               "wn_train_bwd": nb(dskips) + nb(xs) + nb(c) + weights + grads}
     bounds = train_bounds(spec, B, T, nbytes)
-    ct.train_fwd.launches, ct.train_bwd.launches = saved
+    del inputs, dskips, args, xs
+    torch.cuda.empty_cache()
+    yard = cublas_yardstick_ms(spec, B, T)
+    for w, counts in zip(wrappers, saved):
+        w.launches, w.tc_launches, w.fma_launches = counts
     for name in TRAIN_KERNELS:
         b = bounds[name]
         print(f"[train-time] {name} B={B} T={T} bf16: {ms[name]:.3f} ms/step"
-              f"; plain {plain[name]:.3f} ms; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}; {b['flops'] / 1e12:.3f} TFLOP, "
-              f"{b['bytes'] / 1e9:.3f} GB; {b['macs_per_position']} MACs "
-              f"per position)", flush=True)
+              f" ({b['bound_ms'] / ms[name]:.1%} of bound, "
+              f"{b['flops'] / ms[name] / 1e9:.1f} TFLOP/s); products "
+              f"compiled out {no_products[name]:.3f} ms; cuBLAS yardstick "
+              f"{yard[name]:.3f} ms; plain {plain[name]:.3f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{b['flops'] / 1e12:.3f} TFLOP, {b['bytes'] / 1e9:.3f} GB; "
+              f"{b['macs_per_position']} MACs per position)", flush=True)
     report["train_timing"] = dict(steps=steps, kernel_ms=ms, plain_ms=plain,
-                                  bounds=bounds)
+                                  no_products_ms=no_products,
+                                  cublas_yardstick_ms=yard, bounds=bounds)
     return ms, plain, bounds
 
 
 def train_kernel_lines(report, launches, ms, plain, bounds):
-    err = report["train_path_err"]
+    err, tt = report["train_path_err"], report["train_timing"]
     lines = []
     for name, (source, replaces) in TRAIN_KERNELS.items():
         key = "fwd" if name == "wn_train_fwd" else "bwd"
@@ -987,7 +1057,10 @@ def train_kernel_lines(report, launches, ms, plain, bounds):
             bound_by=bounds[name]["bound_by"], library_ms=None,
             max_rel_err=err[key + "_rel"],
             f32_max_abs_err=err[key + "_f32"],
-            f32_max_rel_err=err[key + "_f32_rel"]))
+            f32_max_rel_err=err[key + "_f32_rel"],
+            tc_launches=report["training"]["tc_launches"][name],
+            no_products_ms=tt["no_products_ms"][name],
+            cublas_yardstick_ms=tt["cublas_yardstick_ms"][name]))
     return lines
 
 
@@ -1364,7 +1437,11 @@ def summary_line(report) -> str:
             parts.append(f"B={B} profiled step {p['step_ms']:.1f} ms, device "
                          f"busy {p['busy_ms']:.1f} ms")
     for name, ms in tt["kernel_ms"].items():
-        parts.append(f"{name} {ms:.3f} ms (plain {tt['plain_ms'][name]:.3f})")
+        share = tt["bounds"][name]["bound_ms"] / ms
+        parts.append(f"{name} {ms:.3f} ms ({share:.1%} of bound; products "
+                     f"out {tt['no_products_ms'][name]:.3f}, cuBLAS yardstick "
+                     f"{tt['cublas_yardstick_ms'][name]:.3f}, plain "
+                     f"{tt['plain_ms'][name]:.3f})")
     for dname, agree in (("f32", tr["agree_f32"]), ("bf16", tr["agree"])):
         parts.append(f"kernel vs plain {dname} step: loss rel "
                      f"{agree['loss_rel']:.2e}, grad norm rel "

@@ -173,10 +173,14 @@ def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
 # ----------------------------------------------------------------------
 # the residual-stack training kernels
 # ----------------------------------------------------------------------
-# (L, dilations, R, G, S, cin): the parity width, and a wider one whose G,
-# R+S and k*R span several 128-column tiles and end on ragged ones
+# (L, dilations, R, G, S, cin): the parity width, a wider one whose G,
+# R+S and k*R span several 128-column tiles and end on ragged ones (G/2=144
+# takes two passes of the bf16 z product, cin=20 rows are not 16-byte
+# aligned), and the flagship's widths (128/256/128, cin 80) with three of
+# its dilations
 TRAIN_WIDTHS = {"small": (4, (1, 2, 1, 2), 16, 32, 24, 8),
-                "wide": (3, (1, 2, 4), 64, 288, 80, 20)}
+                "wide": (3, (1, 2, 4), 64, 288, 80, 20),
+                "flagship": (3, (1, 8, 32), 128, 256, 128, 80)}
 GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og",
               "db_og")
 
@@ -202,35 +206,43 @@ def _rel_err(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cond", [True, False], ids=["c", "no-c"])
-@pytest.mark.parametrize("glob", [False, True], ids=["no-g", "g"])
-@pytest.mark.parametrize("drop", [0.0, 0.2])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("width", sorted(TRAIN_WIDTHS))
-def test_train_kernels_match_plain(cuda, width, dtype, drop, glob, cond):
+def _launch_counts():
+    return {name: (w.launches, w.tc_launches, w.fma_launches)
+            for name, w in (("fwd", ct.train_fwd), ("bwd", ct.train_bwd))}
+
+
+def _assert_launched(before, n_fwd, n_bwd, dtype):
+    """n launches of each wrapper since `before`, every bf16 one counted as
+    a tensor-core launch and every f32 one as an FMA launch."""
+    after = _launch_counts()
+    for name, n in (("fwd", n_fwd), ("bwd", n_bwd)):
+        d = [a - b for a, b in zip(after[name], before[name])]
+        want = [n, n, 0] if dtype == torch.bfloat16 else [n, 0, n]
+        assert d == want, (name, d, want)
+
+
+def _check_train_kernels(width, dt, drop, glob, cond, B, T):
     """Forward (skips, x_l stash) and backward (all eight gradients) against
-    the plain versions on the same inputs; T=130 ends on a ragged tile. The
-    backward gets the plain forward's stash on both sides. Tolerance per
-    output, relative to its largest value: f32 1e-4 (sums in another order,
-    weight gradients by atomics); bf16 2e-2 (a one-ulp f32 difference in z
-    can flip a bf16 rounding of gated or dz)."""
-    dt = getattr(torch, dtype)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    inputs, dskips, dils = _stack_inputs(width, dt, glob, cond)
+    the plain versions on the same inputs. The backward gets the plain
+    forward's stash on both sides. Tolerance per output, relative to its
+    largest value: f32 1e-4 (sums in another order, weight gradients by
+    atomics); bf16 2e-2 (a one-ulp f32 difference in z can flip a bf16
+    rounding of gated or dz)."""
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    inputs, dskips, dils = _stack_inputs(width, dt, glob, cond, B=B, T=T)
     kw = dict(dils=dils, k=3, drop=drop, seed=-12345)
-    before = ct.train_fwd.launches
+    before = _launch_counts()
     skips, xs = ct.train_fwd(*inputs, **kw)
-    assert ct.train_fwd.launches == before + len(dils)
+    _assert_launched(before, len(dils), 0, dt)
     skips_p, xs_p = ft.fused_res_stack_fwd_plain(*inputs, **kw)
     torch.cuda.synchronize()
     assert _rel_err(skips, skips_p) <= tol
     assert _rel_err(xs, xs_p) <= tol
     x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
     args = (dskips, xs_p, c, gb, w_in, b_in, w_cond, w_og, b_og)
-    before = ct.train_bwd.launches
+    before = _launch_counts()
     got = ct.train_bwd(*args, **kw)
-    assert ct.train_bwd.launches == before + 3 * len(dils)
+    _assert_launched(before, 0, 3 * len(dils), dt)
     want = ft.fused_res_stack_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
     for name, g, w in zip(GRAD_NAMES, got, want):
@@ -239,6 +251,37 @@ def test_train_kernels_match_plain(cuda, width, dtype, drop, glob, cond):
             continue
         assert torch.isfinite(g).all(), name
         assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cond", [True, False], ids=["c", "no-c"])
+@pytest.mark.parametrize("glob", [False, True], ids=["no-g", "g"])
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", sorted(TRAIN_WIDTHS))
+def test_train_kernels_match_plain(cuda, width, dtype, drop, glob, cond):
+    """B=2, T=130: the last position tile is ragged, and so is the last
+    position chunk of the weight gradients (260 positions in chunks of a
+    multiple of 32)."""
+    _check_train_kernels(width, getattr(torch, dtype), drop, glob, cond,
+                         B=2, T=130)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.05])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_kernels_match_plain_flagship_chunks(cuda, dtype, drop):
+    """The flagship width at B=3, T=1001: tiles cross no batch row but the
+    weight gradients' position chunks do, and 3003 positions leave a last
+    chunk that is not a whole stage of 32."""
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, _, R, G, S, cin = TRAIN_WIDTHS["flagship"]
+    bf16 = dt == torch.bfloat16
+    chunk = ct.wgrad_chunk(3 * 1001, len(ct.wgrad_tiles(3, R, G, S, cin, bf16)),
+                           sms, bf16)
+    assert 3003 % chunk % 32 != 0 and 1001 % chunk != 0
+    _check_train_kernels("flagship", dt, drop, True, True, B=3, T=1001)
 
 
 @pytest.mark.cuda
@@ -254,13 +297,12 @@ def test_fused_stack_on_cuda_launches_kernels(cuda, monkeypatch):
     x0 = torch.randn(2, 70, 8, device=cuda, requires_grad=True)
     c = torch.randn(2, 70, 4, device=cuda)
     g = torch.randn(2, 8, device=cuda)
-    f0, b0 = ct.train_fwd.launches, ct.train_bwd.launches
+    before = _launch_counts()
     skips = ft.fused_res_stack(x0, c, model.conv_layers, spec, g=g,
                                dtype=torch.bfloat16, dropout=0.1, seed=5)
     skips.sum().backward()
     torch.cuda.synchronize()
-    assert ct.train_fwd.launches == f0 + spec.layers
-    assert ct.train_bwd.launches == b0 + 3 * spec.layers
+    _assert_launched(before, spec.layers, 3 * spec.layers, torch.bfloat16)
     assert x0.grad is not None and torch.isfinite(x0.grad).all()
     assert model.conv_layers[0].conv.weight_v.grad is not None
 

@@ -1,6 +1,8 @@
 // Shared pieces of the residual-stack training kernels (train_fwd.cu,
 // train_bwd.cu): the argument block both sides fill, storage-type helpers,
-// the counter-hash dropout mask, and a shared-memory tiled FP32 product.
+// the counter-hash dropout mask, and the shared-memory tiled FP32 product of
+// the f32 storage path (the bf16 path's tensor-core pieces are in
+// train_mma.cuh).
 //
 // Layouts are channels-last and row-major: activations (B, T, C), stacked
 // weights (L, In, Out). "storage" is the compute dtype of the stack (float
@@ -33,9 +35,7 @@ struct TrainArgs {
   float* dx_out;          // bwd: (B, T, R) f32 gradient of x_l
   void* dz;               // bwd: (B, T, G) storage, rounded dz of layer l
   void* gated;            // bwd: (B, T, G/2) storage, recomputed gate output
-  const void* w_in_t;     // bwd: (L, k, G, R) storage, w_in transposed per tap
-  const void* w_og_t;     // bwd: (L, R+S, G/2) storage
-  const void* w_cond_t;   // bwd: (L, G, cin) storage, or null
+  void* dyr;              // bwd, bf16 path: (B, T, R+S) storage, round(dy) of layer l
   float* dc;              // bwd: (B, T, cin) f32, accumulated over layers, or null
   float* dgb;             // bwd: (L, B, G) f32, or null
   float* dw_in;           // bwd: (L, k*R, G) f32 (atomic sums)
@@ -62,19 +62,8 @@ constexpr int AS_STRIDE = BM + 1;      // padded: column-wise stores hit distinc
 constexpr int kTileSmemFloats = BK * AS_STRIDE + BK * BN;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename W> __device__ __forceinline__ W from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// round to the storage type and back
-template <typename W> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<W>(x)); }
-
-template <typename W> __device__ __forceinline__ float ld(const void* p, long long i) {
-  return to_f(static_cast<const W*>(p)[i]);
+__device__ __forceinline__ float ldf(const void* p, long long i) {
+  return static_cast<const float*>(p)[i];
 }
 
 // _mix_bits of the JAX kernel (pallas_train.py): int32 wrapping multiplies
@@ -98,15 +87,12 @@ __device__ __forceinline__ bool keep_bit(const TrainArgs& a, int b, int t, int r
   return (mix_bits(bkey ^ idx) >> 8) < a.thresh;
 }
 
-// The conv input of layer l at (b, t, r): the stashed x_l (already in the
-// storage type), dropped and rescaled, then rounded again, as the JAX forward
-// does (round, mask * 1/keep, round). Zero for t < 0 (causal padding).
-template <typename W>
+// The conv input of layer l at (b, t, r) on the f32 path: the stashed x_l,
+// dropped and rescaled. Zero for t < 0 (causal padding).
 __device__ __forceinline__ float conv_input(const TrainArgs& a, int b, int t, int r) {
   if (t < 0) return 0.0f;
-  float v = ld<W>(a.xs_l, ((long long)b * a.T + t) * a.R + r);
-  if (a.has_drop) v = keep_bit(a, b, t, r) ? rnd<W>(v * a.inv_keep) : 0.0f;
-  return v;
+  const float v = ldf(a.xs_l, ((long long)b * a.T + t) * a.R + r);
+  return a.has_drop ? (keep_bit(a, b, t, r) ? v * a.inv_keep : 0.0f) : v;
 }
 
 // acc[TM][TN] = sum_kk A(m, kk) * B(kk, n) for the block's BM x BN tile,
@@ -173,7 +159,6 @@ __device__ __forceinline__ void tile_store(const float (&acc)[TM][TN], Epi epi) 
 // [t0, t0+BM) of batch row b, into zs (BM x G, f32, shared memory). The same
 // function feeds the forward and the backward's recompute, so both see
 // identical z.
-template <typename W>
 __device__ void compute_z(const TrainArgs& a, int b, int t0, float* zs, float* tile) {
   const int kR = a.k * a.R, K = kR + (a.c ? a.cin : 0), G = a.G;
   const long long wofs = (long long)a.l * kR * G, cofs = (long long)a.l * a.cin * G;
@@ -186,15 +171,15 @@ __device__ void compute_z(const TrainArgs& a, int b, int t0, float* zs, float* t
           if (t >= a.T) return 0.0f;
           if (kk < kR) {
             const int j = kk / a.R, r = kk - j * a.R;
-            return conv_input<W>(a, b, t - (a.k - 1 - j) * a.d, r);
+            return conv_input(a, b, t - (a.k - 1 - j) * a.d, r);
           }
-          return ld<W>(a.c, ((long long)b * a.T + t) * a.cin + (kk - kR));
+          return ldf(a.c, ((long long)b * a.T + t) * a.cin + (kk - kR));
         },
         [&](int kk, int n) -> float {
           const int col = n0 + n;
           if (col >= G) return 0.0f;
-          return kk < kR ? ld<W>(a.w_in, wofs + (long long)kk * G + col)
-                         : ld<W>(a.w_cond, cofs + (long long)(kk - kR) * G + col);
+          return kk < kR ? ldf(a.w_in, wofs + (long long)kk * G + col)
+                         : ldf(a.w_cond, cofs + (long long)(kk - kR) * G + col);
         });
     tile_store(acc, [&](int m, int n, float v) {
       const int col = n0 + n;

@@ -6,8 +6,13 @@ top layer first. Both take CUDA tensors only and have the signatures of
 their plain versions in ``ops/fused_train.py``, which ``FusedResStack``
 uses for CPU tensors. Outputs and scratch are allocated here with
 ``torch.empty`` (accumulated outputs with ``torch.zeros``); the kernels run
-on the current stream and do not synchronise. Each wrapper counts its
-kernel launches in ``.launches``.
+on the current stream and do not synchronise. The weights go to the kernels
+as stored: no transposed or padded copies.
+
+The kernels dispatch by storage dtype: bf16 (the training path) runs the
+tensor-core kernels, f32 the FMA-tile kernels. Each wrapper counts its
+kernel launches in ``.launches`` and, split by design, in ``.tc_launches``
+(bf16) and ``.fma_launches`` (f32).
 
 Importing this module builds nothing: the sources compile with nvcc at the
 first launch (``kernels/build.py``).
@@ -26,6 +31,8 @@ from wavenet_vocoder_tpu_torch.ops.fused_train import (
 
 _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
+# variant build: the products compiled out (a timing aid; outputs mean nothing)
+NO_PRODUCTS = ("WN_NO_PRODUCTS",)
 
 
 class TrainArgs(ctypes.Structure):
@@ -33,7 +40,7 @@ class TrainArgs(ctypes.Structure):
     _fields_ = ([(n, _P) for n in (
         "xs_l", "xres", "xnext", "xs_next", "c", "gb", "w_in", "b_in",
         "w_cond", "w_og", "b_og", "skips", "dskips", "dx_next", "dx_out",
-        "dz", "gated", "w_in_t", "w_og_t", "w_cond_t", "dc", "dgb", "dw_in",
+        "dz", "gated", "dyr", "dc", "dgb", "dw_in",
         "db_in", "dw_cond", "dw_og", "db_og")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "R", "G", "S", "cin", "k", "d", "L", "l", "H",
@@ -43,9 +50,9 @@ class TrainArgs(ctypes.Structure):
            ("chunk", ctypes.c_int)])
 
 
-def _fn(source: str, name: str):
+def _fn(source: str, name: str, defines: Tuple[str, ...] = ()):
     from wavenet_vocoder_tpu_torch.kernels.build import load
-    fn = getattr(load(source), name)
+    fn = getattr(load(source, defines), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(TrainArgs), _P]
         fn.restype = ctypes.c_int
@@ -91,6 +98,9 @@ def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
     if len(dils) != L or kR != k * R or G % 2:
         raise ValueError("w_in must be (L, k*R, G) with one dilation per "
                          "layer and G even")
+    if dtype == torch.bfloat16 and (R % 8 or G % 16 or S % 2):
+        raise ValueError(f"the bf16 training kernels need R % 8 == 0, "
+                         f"G % 16 == 0 and S even, got R={R}, G={G}, S={S}")
     _check("w_in", w_in, (L, kR, G), dtype, device)
     _check("b_in", b_in, (L, G), torch.float32, device)
     _check("w_og", w_og, (L, G2, R + S), dtype, device)
@@ -116,11 +126,13 @@ def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
               gb: Optional[torch.Tensor], w_in: torch.Tensor,
               b_in: torch.Tensor, w_cond: Optional[torch.Tensor],
               w_og: torch.Tensor, b_og: torch.Tensor, *, dils: Sequence[int],
-              k: int, drop: float = 0.0, seed: int = 0
+              k: int, drop: float = 0.0, seed: int = 0,
+              _defines: Tuple[str, ...] = ()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of the stack: (skips (B, T, S) f32, xs (L, B, T, R)), where
     xs[l] is layer l's input in the storage dtype (the backward's stash).
-    x0, c and the weights are in the storage dtype, b_in, b_og, gb f32."""
+    x0, c and the weights are in the storage dtype, b_in, b_og, gb f32.
+    ``_defines`` launches a variant build (``NO_PRODUCTS``)."""
     B, T, R = x0.shape
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
                    dils=dils, k=k, drop=drop, seed=seed)
@@ -132,7 +144,7 @@ def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
     skips = torch.zeros(B, T, args.S, dtype=torch.float32, device=dev)
     carry = [torch.empty(B, T, R, dtype=torch.float32, device=dev)
              for _ in range(2 if L > 1 else 0)]
-    fn = _fn("train_fwd", "wn_train_fwd_layer")
+    fn = _fn("train_fwd", "wn_train_fwd_layer", tuple(_defines))
     args.skips = _ptr(skips)
     for l, d in enumerate(dils):
         last = l == L - 1
@@ -142,18 +154,46 @@ def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
         args.xnext = None if last else _ptr(carry[l % 2])
         args.xs_next = None if last else _ptr(xs[l + 1])
         _launch(fn, args, dev, "train_fwd")
-        train_fwd.launches += 1
+        _count(train_fwd, args)
     return skips, xs
 
 
-train_fwd.launches = 0
+def _count(wrapper, args: TrainArgs) -> None:
+    wrapper.launches += 1
+    if args.bf16:
+        wrapper.tc_launches += 1
+    else:
+        wrapper.fma_launches += 1
 
 
-def _wgrad_chunk(B: int, T: int, tiles: int, device) -> int:
-    """Positions per weight-gradient block: about four blocks per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, (4 * sms) // max(tiles, 1))
-    return max(16, -(-(B * T) // chunks))
+train_fwd.launches = train_fwd.tc_launches = train_fwd.fma_launches = 0
+
+# Output tiles of the weight-gradient kernel (rows x columns) and the blocks
+# it keeps in flight per SM: the tensor-core kernel (bf16) and the FMA tiles
+# (f32).
+WGRAD_TILE = {True: (64, 256), False: (64, 128)}
+WGRAD_BLOCKS_PER_SM = {True: 2, False: 4}
+WGRAD_STAGE = 32          # positions a stage of bwd_wgrad_tc holds
+
+
+def wgrad_tiles(k: int, R: int, G: int, S: int, cin: int, bf16: bool):
+    """The output tiles of dW_in (k*R x G), dW_cond (cin x G) and dW_og
+    (G/2 x (R+S)) in the order blockIdx.x enumerates them: a list of
+    (which, row0, col0), which 0, 1, 2 for dW_in, dW_cond, dW_og."""
+    rows, cols = WGRAD_TILE[bf16]
+    tiles = []
+    for which, (M, N) in enumerate(((k * R, G), (cin, G), (G // 2, R + S))):
+        tiles += [(which, m0, n0) for m0 in range(0, M, rows)
+                  for n0 in range(0, N, cols)]
+    return tiles
+
+
+def wgrad_chunk(P: int, n_tiles: int, sms: int, bf16: bool) -> int:
+    """Positions per weight-gradient block: enough chunks of the P = B*T
+    positions for the kernel's blocks per SM, rounded up to a whole stage."""
+    chunks = max(1, (WGRAD_BLOCKS_PER_SM[bf16] * sms) // max(n_tiles, 1))
+    per = -(-P // chunks)
+    return -(-per // WGRAD_STAGE) * WGRAD_STAGE
 
 
 def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
@@ -161,11 +201,13 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
               w_in: torch.Tensor, b_in: torch.Tensor,
               w_cond: Optional[torch.Tensor], w_og: torch.Tensor,
               b_og: torch.Tensor, *, dils: Sequence[int], k: int,
-              drop: float = 0.0, seed: int = 0):
+              drop: float = 0.0, seed: int = 0,
+              _defines: Tuple[str, ...] = ()):
     """Backward of the stack from dskips (B, T, S) f32 and the forward's
     stash xs. Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
     all f32; dc, dgb and dw_cond are None where c, gb are absent. The
-    weight and bias gradients are f32 atomic sums."""
+    weight and bias gradients are f32 atomic sums. ``_defines`` launches a
+    variant build (``NO_PRODUCTS``)."""
     L, B, T, R = xs.shape
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
                    dils=dils, k=k, drop=drop, seed=seed)
@@ -178,6 +220,8 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
     dx = [torch.empty(B, T, R, **f32) for _ in range(2)]
     dz = torch.empty(B, T, G, dtype=dtype, device=dev)
     gated = torch.empty(B, T, G2, dtype=dtype, device=dev)
+    dyr = (torch.empty(B, T, R + S, dtype=dtype, device=dev) if args.bf16
+           else None)
     dc = torch.zeros(B, T, cin, **f32) if c is not None else None
     dgb = torch.zeros(L, B, G, **f32) if gb is not None else None
     dw_in = torch.zeros(L, k * R, G, **f32)
@@ -185,22 +229,16 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
     dw_cond = torch.zeros(L, cin, G, **f32) if c is not None else None
     dw_og = torch.zeros(L, G2, R + S, **f32)
     db_og = torch.zeros(L, R + S, **f32)
-    # the products that read a weight transposed get a transposed copy
-    w_in_t = w_in.view(L, k, R, G).transpose(2, 3).contiguous()
-    w_og_t = w_og.transpose(1, 2).contiguous()
-    w_cond_t = None if w_cond is None else w_cond.transpose(1, 2).contiguous()
-    up = lambda n, m: -(-n // m)
-    # output tiles (64 rows x 128 columns) of dW_in, dW_cond and dW_og
-    tiles = ((up(k * R, 64) + up(cin, 64)) * up(G, 128)
-             + up(G2, 64) * up(R + S, 128))
-    args.chunk = _wgrad_chunk(B, T, tiles, dev)
+    bf16 = bool(args.bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args.chunk = wgrad_chunk(B * T, len(wgrad_tiles(k, R, G, S, cin, bf16)),
+                             sms, bf16)
     for name, a in (("dskips", dskips), ("dz", dz), ("gated", gated),
-                    ("w_in_t", w_in_t), ("w_og_t", w_og_t),
-                    ("w_cond_t", w_cond_t), ("dc", dc), ("dgb", dgb),
+                    ("dyr", dyr), ("dc", dc), ("dgb", dgb),
                     ("dw_in", dw_in), ("db_in", db_in), ("dw_cond", dw_cond),
                     ("dw_og", dw_og), ("db_og", db_og)):
         setattr(args, name, _ptr(a))
-    kernels = [_fn("train_bwd", n) for n in
+    kernels = [_fn("train_bwd", n, tuple(_defines)) for n in
                ("wn_train_bwd_dz", "wn_train_bwd_wgrad", "wn_train_bwd_dx")]
     for l in range(L - 1, -1, -1):
         args.l, args.d = l, dils[l]
@@ -209,8 +247,8 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
         args.dx_out = _ptr(dx[l % 2])
         for fn in kernels:
             _launch(fn, args, dev, "train_bwd")
-            train_bwd.launches += 1
+            _count(train_bwd, args)
     return dx[0], dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og
 
 
-train_bwd.launches = 0
+train_bwd.launches = train_bwd.tc_launches = train_bwd.fma_launches = 0
