@@ -52,10 +52,17 @@ Phases (each failure ends the run with a non-zero exit):
   8. mel-kernel — at the flagship transform (n_fft 1024, hop 256, 80 mel
                 bins), the log-mel kernel (csrc/mel.cu) against its plain
                 version and the host f64 pipeline, for a 30 s waveform, 3,000
-                samples, batches of 32 x 1 s and 8 x 1 s, and win_length 800
-                (see MEL_TOL); its time on the 30 s waveform, on both batches
-                and on the 3,000 samples (one block) beside the plain version
-                and the bound. The kernels line gives the 8 x 1 s batch, the
+                samples, batches of 32 x 1 s and 8 x 1 s, win_length 800, hop
+                300, the full band (fmin 0, fmax 11025) and a batch with one
+                NaN sample (equal NaN masks) (see MEL_TOL); its time on the
+                30 s waveform, on both batches and on the 3,000 samples
+                (device time from torch.profiler, and per call with the
+                host's time) beside the plain version, a cuFFT yardstick
+                (torch.stft -> mel -> log10; the port never calls it) and
+                the bound of what the function needs (a real FFT a frame
+                and the mel weights in FP32, against the bytes it moves),
+                with the bounds of its matrix-product DFT beside it. The
+                kernels line gives the 8 x 1 s batch, the
                 shape phase 9 launches;
   9. evaluation — in a temporary directory: 8 wav files of 1 s,
                 ``cli.preprocess`` makes the dump dir, a flagship model's
@@ -141,12 +148,14 @@ def phase_build(report):
     """One nvcc per source and variant, all started together, then load each."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
     from wavenet_vocoder_tpu_torch.kernels import build
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     jobs = [(name, ()) for name in SOURCES]
     jobs += [("generate", cg.NO_PRODUCTS), ("generate", cg.TRACE),
-             ("train_fwd", ct.NO_PRODUCTS), ("train_bwd", ct.NO_PRODUCTS)]
+             ("train_fwd", ct.NO_PRODUCTS), ("train_bwd", ct.NO_PRODUCTS),
+             ("mel", mt.NO_PRODUCTS)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for _ in pool.map(lambda job: build._compile(*job), jobs):
@@ -155,8 +164,8 @@ def phase_build(report):
         build.load(*job)
     secs = time.perf_counter() - t0
     print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, two variants of "
-          f"generate.cu and the no-products train_fwd.cu, train_bwd.cu: nvcc "
-          f"and load {secs:.1f}s")
+          f"generate.cu and the no-products train_fwd.cu, train_bwd.cu and "
+          f"mel.cu: nvcc and load {secs:.1f}s")
     report["build_s"] = secs
 
 
@@ -1067,20 +1076,30 @@ def train_kernel_lines(report, launches, ms, plain, bounds):
 # ----------------------------------------------------------------------
 # phase 8: the log-mel kernel against its plain version and the host path
 # ----------------------------------------------------------------------
-# Kernel and plain version do the same f32 products in another summation
+# Kernel and plain version compute the same sums, the kernel's DFT in split
+# TF32 (three tensor-core passes, f32 accuracy) and in another summation
 # order. The mel sums S are held relative to the largest (1e-5); log10 turns
 # a relative difference in S into an absolute one, so the log values of
 # signals with a noise floor are held at 1e-3. Both are held against the host
-# f64 pipeline at 2e-3, the limit of the JAX package's own tests.
+# f64 pipeline at 2e-3, the limit of the JAX package's own tests. The NaN
+# case is held by equal NaN masks (kernel, plain, host) and by the limits
+# everywhere else.
 MEL_TOL = {"log": 1e-3, "S": 1e-5, "host": 2e-3}
 MEL_CASES = [  # (name, config overrides, batch or None, samples)
     ("30 s", {}, None, 661500), ("3000 samples", {}, None, 3000),
     ("32 x 1 s", {}, 32, 22050), ("8 x 1 s", {}, 8, 22050),
-    ("win_length 800", {"win_length": 800}, None, 12000)]
+    ("win_length 800", {"win_length": 800}, None, 12000),
+    ("hop 300", {"hop_size": 300}, 2, 22050),
+    ("full band", {"fmin": 0, "fmax": 11025}, 2, 22050),
+    ("NaN sample", {}, 2, 22050)]
+NAN_AT = (1, 9000)   # (row, sample) set to NaN in the NaN case
 # timed: the bench shape, the serving request's shape, the shape the
-# evaluation phase launches (the one on the kernels line), one block alone
+# evaluation phase launches (the one on the kernels line), one frame tile;
+# the build with the products compiled out at the first two
 MEL_MAIN = "8 x 1 s"
 MEL_TIMED = ("30 s", "32 x 1 s", MEL_MAIN, "3000 samples")
+MEL_VARIANTS_AT = ("30 s", MEL_MAIN)
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 
 
 def mel_signal(T, seed):
@@ -1094,19 +1113,83 @@ def mel_signal(T, seed):
 
 
 def mel_bound(cfg, B, T):
-    """Least time for the log-mel of (B, T) samples: its MACs (two DFT
-    products and the mel product per frame) at the FP32 rate, against the
-    signal, the three matrices and the output moved once at HBM rate."""
+    """Least time for the log-mel of (B, T) samples on this card, from what
+    the function needs: a real-input FFT of each frame (2.5 n_fft log2
+    n_fft operations, half a complex FFT's 5 N log2 N) and the mel
+    matrix's non-zero weights (a multiply and an add each), at the FP32
+    rate, against the signal, the used bins' mel rows and the output moved
+    once at HBM rate. Beside it, labelled, the bounds of the work a
+    matrix-product DFT does: all bins in FP32 (the bound PRs 1-5 reported)
+    and the used bins in three TF32 passes with the dense mel product in
+    FP32 (the work of csrc/mel.cu)."""
+    import math
+
+    import numpy as np
+
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
     n_fft, n_mels = cfg.fft_size, cfg.num_mels
     n_bins = 1 + n_fft // 2
+    mel_m = mt._mel_mat(cfg.sample_rate, n_fft, n_mels, float(cfg.fmin),
+                        float(cfg.fmax))
+    k0, k1 = mt.used_bins(mel_m)
+    used = k1 - k0
     frames = B * (1 + T // cfg.hop_size)
-    macs = frames * (2 * n_fft * n_bins + n_bins * n_mels)
-    nbytes = 4 * (B * T + 2 * n_fft * n_bins + n_bins * n_mels
-                  + frames * n_mels)
-    t_ops, t_bytes = 2.0 * macs / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    io = B * T + frames * n_mels
+    flops = frames * (2.5 * n_fft * math.log2(n_fft)
+                      + 2.0 * int(np.count_nonzero(mel_m)))
+    nbytes = 4 * (io + used * n_mels)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    fp32_ms = max(2.0 * frames * (2 * n_fft * n_bins + n_bins * n_mels)
+                  / PEAK_FP32_FLOPS,
+                  4 * (io + 2 * n_fft * n_bins + n_bins * n_mels)
+                  / PEAK_HBM_BYTES) * 1e3
+    tf32_ms = max(3 * 2.0 * frames * 2 * n_fft * used / PEAK_TF32_FLOPS
+                  + 2.0 * frames * used * n_mels / PEAK_FP32_FLOPS,
+                  4 * (io + 4 * n_fft * used + used * n_mels)
+                  / PEAK_HBM_BYTES) * 1e3
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=2.0 * macs, bytes=nbytes, frames=frames)
+                flops=flops, bytes=nbytes, frames=frames, used_bins=[k0, k1],
+                matmul_dft_fp32_bound_ms=fp32_ms,
+                matmul_dft_3xtf32_bound_ms=tf32_ms)
+
+
+def stft_yardstick(cfg, device):
+    """torch.stft (cuFFT; periodic Hann, center=True, reflect padding) ->
+    magnitude -> mel product -> clamp -> log10: the same function through
+    library calls, timed beside the kernel. The port never calls it."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
+    n_fft, hop, win_length = mt._resolve(cfg)
+    window = torch.hann_window(win_length, periodic=True, device=device)
+    mel_m = mt._mats(cfg, device)[2]
+
+    def fn(y):
+        spec = torch.stft(y, n_fft, hop_length=hop, win_length=win_length,
+                          window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        S = spec.abs().transpose(-1, -2) @ mel_m
+        return torch.log10(torch.clamp(S, min=1e-10))
+    return fn
+
+
+def device_ms(fn, n=20):
+    """Device time per call of fn: the summed time of the CUDA kernels it
+    launches (torch.profiler, CUDA activity), without the host's time
+    between them. The log-mel kernel's wrapper costs more host time than
+    the card spends on it, so its time per call (``call_ms``) is the
+    wrapper's; the three ways are compared on device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    return us / 1e3 / n
 
 
 def phase_mel_kernel(report):
@@ -1120,22 +1203,34 @@ def phase_mel_kernel(report):
     for i, (name, over, batch, T) in enumerate(MEL_CASES):
         cfg = Config(**over)
         x = np.stack([mel_signal(T, 100 * i + j) for j in range(batch or 1)])
+        if name == "NaN sample":
+            x[NAN_AT] = np.nan
         y = torch.from_numpy(x if batch else x[0]).cuda()
         got = mt.logmelspectrogram_cuda(y, cfg)
         torch.cuda.synchronize()
         want = mt.logmelspectrogram_torch(y, cfg)
         S = mt.mel_power_torch(y, cfg).double()
         host = np.stack([audio.logmelspectrogram(r, cfg) for r in x])
-        S_c = S.clamp(min=1e-10)
+        nan = torch.isnan(want)
+        keep = ~nan
+        S_c = S.clamp(min=1e-10)[keep]
+        got_np = got.cpu().numpy().reshape(host.shape)
+        want_np = want.cpu().numpy().reshape(host.shape)
+        keep_np = keep.cpu().numpy().reshape(host.shape)
         row = dict(
             name=name, shape=list(got.shape), clamped=int((S < 1e-10).sum()),
-            log_err=float((got - want).abs().max()),
-            S_rel=float((10.0 ** got.double() - S_c).abs().max() / S_c.max()),
-            host_err=float(np.abs(got.cpu().numpy().reshape(host.shape)
-                                  - host).max()),
-            plain_host_err=float(np.abs(want.cpu().numpy().reshape(host.shape)
-                                        - host).max()))
-        ok = (bool(torch.isfinite(got).all()) and got.shape == want.shape
+            nan=int(nan.sum()),
+            nan_masks_equal=bool(torch.equal(torch.isnan(got), nan)
+                                 and np.array_equal(np.isnan(host),
+                                                    ~keep_np)),
+            log_err=float((got - want)[keep].abs().max()),
+            S_rel=float((10.0 ** got.double()[keep] - S_c).abs().max()
+                        / S_c.max()),
+            host_err=float(np.abs(got_np - host)[keep_np].max()),
+            plain_host_err=float(np.abs(want_np - host)[keep_np].max()))
+        ok = (bool(torch.isfinite(got[keep]).all()) and got.shape == want.shape
+              and row["nan_masks_equal"]
+              and (row["nan"] > 0) == (name == "NaN sample")
               and row["log_err"] <= MEL_TOL["log"]
               and row["S_rel"] <= MEL_TOL["S"]
               and row["host_err"] <= MEL_TOL["host"]
@@ -1145,22 +1240,41 @@ def phase_mel_kernel(report):
                 f"{row['S_rel']:.3g} (tol {MEL_TOL['S']}), vs host f64: "
                 f"kernel {row['host_err']:.3g} plain "
                 f"{row['plain_host_err']:.3g} (tol {MEL_TOL['host']}), "
-                f"{row['clamped']} elements at the 1e-10 clamp")
+                f"{row['clamped']} elements at the 1e-10 clamp, {row['nan']} "
+                f"NaN, NaN masks equal: {row['nan_masks_equal']}")
         print(line, flush=True)
         if not ok:
             failures.append(line)
         if name in MEL_TIMED:
-            t = dict(ms=cuda_time_ms(
-                         lambda: mt.logmelspectrogram_cuda(y, cfg), iters=20),
-                     plain_ms=cuda_time_ms(
-                         lambda: mt.logmelspectrogram_torch(y, cfg), iters=20),
-                     **mel_bound(cfg, batch or 1, T))
+            yard = stft_yardstick(cfg, y.device)
+            yard_err = float((yard(y) - want).abs().max())
+            kern = lambda d=(): mt.logmelspectrogram_cuda(y, cfg, _defines=d)
+            plain = lambda: mt.logmelspectrogram_torch(y, cfg)
+            t = dict(ms=device_ms(kern), plain_ms=device_ms(plain),
+                     yardstick_ms=device_ms(lambda: yard(y)),
+                     call_ms=cuda_time_ms(kern, iters=20),
+                     plain_call_ms=cuda_time_ms(plain, iters=20),
+                     yardstick_call_ms=cuda_time_ms(lambda: yard(y), iters=20),
+                     yardstick_err=yard_err, **mel_bound(cfg, batch or 1, T))
+            if name in MEL_VARIANTS_AT:
+                t["no_products_ms"] = device_ms(lambda: kern(mt.NO_PRODUCTS))
+                print(f"[mel-variants] {name}: device ms per call: this "
+                      f"kernel {t['ms']:.4f}, products compiled out "
+                      f"{t['no_products_ms']:.4f}", flush=True)
             timing[name] = t
-            print(f"[mel-time] {name} ({t['frames']} frames): kernel "
-                  f"{t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
-                  f"{t['flops'] / 1e9:.2f} GFLOP at the FP32 rate, "
-                  f"{t['bytes'] / 1e6:.1f} MB)", flush=True)
+            print(f"[mel-time] {name} ({t['frames']} frames), device ms "
+                  f"per call (per call with the host): kernel {t['ms']:.4f} "
+                  f"({t['call_ms']:.4f}), {t['bound_ms'] / t['ms']:.1%} of "
+                  f"the lower bound; plain {t['plain_ms']:.4f} "
+                  f"({t['plain_call_ms']:.4f}); cuFFT yardstick "
+                  f"{t['yardstick_ms']:.4f} ({t['yardstick_call_ms']:.4f}; "
+                  f"log vs plain {yard_err:.3g}); bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}; real FFT and mel weights, "
+                  f"{t['flops'] / 1e6:.1f} MFLOP, {t['bytes'] / 1e6:.2f} MB); "
+                  f"matrix-product DFT bounds: FP32 all bins "
+                  f"{t['matmul_dft_fp32_bound_ms']:.4f}, 3xTF32 over bins "
+                  f"{t['used_bins'][0]}..{t['used_bins'][1] - 1} "
+                  f"{t['matmul_dft_3xtf32_bound_ms']:.4f}", flush=True)
         rows.append(row)
     report["mel_kernel_vs_plain"] = rows
     report["mel_timing"] = timing
@@ -1414,14 +1528,22 @@ def mel_kernel_line(report, launches):
         replaces=MEL_KERNEL[1], launches=launches["wn_logmel"],
         max_abs_err=max(r["log_err"] for r in rows), ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None,
+        bound_by=t["bound_by"], library_ms=t["yardstick_ms"],
+        library="yardstick: torch.stft (cuFFT) -> abs -> mel matmul -> "
+                "clamp -> log10",
+        matmul_dft_fp32_bound_ms=t["matmul_dft_fp32_bound_ms"],
+        matmul_dft_3xtf32_bound_ms=t["matmul_dft_3xtf32_bound_ms"],
+        call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
+        library_call_ms=t["yardstick_call_ms"],
+        no_products_ms=t["no_products_ms"],
         max_S_rel_err=max(r["S_rel"] for r in rows),
         max_host_err=max(r["host_err"] for r in rows),
         shape=MEL_MAIN, bench30s_ms=long["ms"],
         bench30s_plain_ms=long["plain_ms"], bench30s_bound_ms=long["bound_ms"],
         batch32_ms=report["mel_timing"]["32 x 1 s"]["ms"],
         batch32_plain_ms=report["mel_timing"]["32 x 1 s"]["plain_ms"],
-        batch32_bound_ms=report["mel_timing"]["32 x 1 s"]["bound_ms"])
+        batch32_bound_ms=report["mel_timing"]["32 x 1 s"]["bound_ms"],
+        nan_masks_equal=all(r["nan_masks_equal"] for r in rows))
 
 
 def summary_line(report) -> str:
@@ -1450,8 +1572,9 @@ def summary_line(report) -> str:
                      f"{agree['leaf_rel'][agree['worst_leaf']]:.2e}")
     parts.append(f"10-step loss {tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}")
     for name, t in report["mel_timing"].items():
-        parts.append(f"log-mel {name}: kernel {t['ms']:.4f} ms (plain "
-                     f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f})")
+        parts.append(f"log-mel {name}: kernel {t['ms']:.4f} ms of device "
+                     f"time (plain {t['plain_ms']:.4f}, cuFFT yardstick "
+                     f"{t['yardstick_ms']:.4f}, bound {t['bound_ms']:.4f})")
     ev, st = report["evaluation"], report["streaming"]
     parts.append(f"evaluation leg {ev['total_s']:.1f} s (cli.evaluate "
                  f"{ev['evaluate_s']:.2f} s, analysis-synthesis log-mel "

@@ -261,6 +261,12 @@ WIDTHS = {
     # nothing divides: every slice is padded
     "ragged": dict(layers=2, stacks=1, residual_channels=24, gate_channels=40,
                    skip_out_channels=16, cin_channels=5),
+    # the demo presets' widths, and odd ones: R off a multiple of 8 (the
+    # kernel runs such a model on a ring padded to 8 channels)
+    "demo": dict(layers=2, stacks=1, residual_channels=4, gate_channels=4,
+                 skip_out_channels=4, cin_channels=80),
+    "odd": dict(layers=2, stacks=1, residual_channels=5, gate_channels=6,
+                skip_out_channels=3, cin_channels=3),
 }
 
 
@@ -325,6 +331,13 @@ def test_kernel_pack_slices_restore_packed(width, dtype, cs):
     assert all(d[n] % 8 == 0 for n in ("Gq", "Rq", "Sq", "Cp"))
     assert all(d[n] % 64 == 8 for n in ("xs", "gs", "ss"))
     assert kp.wl.shape[2] % 16 == 0 and kp.wh.shape[1] % 16 == 0
+    # the first 1x1 conv as the kernel reads it: zero columns up to the
+    # ring's width, a multiple of 8
+    R = spec.residual_channels
+    for got, name in zip(kp.first, ("w_first", "b_first")):
+        assert got.shape[-1] == -(-R // 8) * 8
+        assert torch.equal(got[..., :R], packed[name])
+        assert not got[..., R:].any()
 
 
 def test_fragment_order_is_the_mma_b_operand():

@@ -7,6 +7,8 @@ They import nothing of JAX, so they run on a machine that has only the port:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -98,6 +100,52 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
     torch.testing.assert_close(k_x, p_x, rtol=0, atol=1e-3)
 
 
+# (R, G, S): the demo presets' widths, and widths off every fragment
+# multiple with R odd (the wrapper pads the ring to 8 channels)
+RAGGED = {"demo": (4, 4, 4), "odd": (5, 6, 3), "ragged": (12, 20, 6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, (2, 16)], ids=["picked", "2x16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", sorted(RAGGED))
+def test_kernel_matches_plain_at_ragged_widths(cuda, width, dtype, cluster):
+    """Widths that are not fragment multiples: the kernel pads them with zero
+    channels and gives the plain version's samples, ring and input."""
+    R, G, S = RAGGED[width]
+    spec = WaveNetSpec(layers=3, stacks=1, residual_channels=R,
+                       gate_channels=G, skip_out_channels=S, cin_channels=4,
+                       **HEADS["mol"])
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(4)).to(cuda)
+    dt = getattr(torch, dtype)
+    packed = cg.pack_weights(model, dtype=dt)
+    B, n = 3, 32
+    rs = np.random.RandomState(2)
+    cond = torch.from_numpy(rs.randn(B, n, 4).astype(np.float32)).to(cuda, dt)
+    _, rows = cg.buffer_layout(spec)
+    ring0 = torch.from_numpy(rs.randn(rows, B, R).astype(np.float32)).to(cuda, dt)
+    x0 = cg.default_initial_input(spec, B, device=cuda)
+    results = []
+    for kernel in (True, False):
+        ring, x_cur = ring0.clone(), x0.clone()
+        out = torch.empty(B, n, device=cuda)
+        before = cg.generate_steps.launches
+        if kernel:
+            cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=5,
+                              seed=3, deterministic=True, _cluster=cluster)
+            assert cg.generate_steps.launches == before + 1
+        else:
+            cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond, None,
+                                    t0=5, seed=3, deterministic=True)
+        torch.cuda.synchronize()
+        results.append((out.cpu(), ring.float().cpu(), x_cur.cpu()))
+    (k_out, k_ring, k_x), (p_out, p_ring, p_x) = results
+    torch.testing.assert_close(k_out, p_out, rtol=0, atol=1e-3)
+    torch.testing.assert_close(k_ring, p_ring, rtol=0,
+                               atol=1e-3 if dtype == "float32" else 0.05)
+    torch.testing.assert_close(k_x, p_x, rtol=0, atol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stages", [0, 2])
 def test_kernel_weight_paths_agree(cuda, stages):
@@ -180,7 +228,12 @@ def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
 # its dilations
 TRAIN_WIDTHS = {"small": (4, (1, 2, 1, 2), 16, 32, 24, 8),
                 "wide": (3, (1, 2, 4), 64, 288, 80, 20),
-                "flagship": (3, (1, 8, 32), 128, 256, 128, 80)}
+                "flagship": (3, (1, 8, 32), 128, 256, 128, 80),
+                # widths the bf16 kernels run padded with zero channels
+                # (cuda_train.kernel_widths): the demo presets', and R,
+                # each GLU half and S all off their multiples
+                "demo": (2, (1, 2), 4, 4, 4, 80),
+                "ragged": (3, (1, 2, 4), 12, 20, 5, 5)}
 GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og",
               "db_og")
 
@@ -371,6 +424,11 @@ MEL_CASES = {
                           num_mels=40), (2, 5000)),
     "fft512_hop256_mels100": (dict(fft_size=512, hop_size=256,
                                    win_length=512, num_mels=100), (9000,)),
+    # a hop that does not divide the frame (frames read at f * hop), an odd
+    # hop (4-byte fragment loads), and the full band (bins 1..511, 8 tiles)
+    "hop_300": (dict(hop_size=300), (2, 9000)),
+    "hop_275": (dict(hop_size=275), (9000,)),
+    "full_band": (dict(fmin=0, fmax=11025), (2, 9000)),
 }
 
 
@@ -389,7 +447,8 @@ def test_mel_kernel_matches_plain_and_host(cuda, case):
     before = mel_torch.logmelspectrogram_cuda.launches
     got = mel_torch.logmelspectrogram_cuda(y, cfg)
     torch.cuda.synchronize()
-    assert mel_torch.logmelspectrogram_cuda.launches == before + 1
+    # two launches a call: the transform and the sums of its bin tiles
+    assert mel_torch.logmelspectrogram_cuda.launches == before + 2
     want = mel_torch.logmelspectrogram_torch(y, cfg)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.isfinite(got).all()
@@ -415,6 +474,23 @@ def test_mel_kernel_silence_hits_the_clamp(cuda):
 
 
 @pytest.mark.cuda
+def test_mel_kernel_keeps_nan_as_the_plain_version_does(cuda):
+    """One NaN sample: NaN in every band of the frames that cover it, in the
+    kernel as in the plain version (and jnp.maximum in the JAX package);
+    elsewhere within 1e-3."""
+    cfg = Config()
+    x = np.stack([_sig(9000, 1), _sig(9000, 2)])
+    x[1, 4000] = np.nan
+    y = torch.from_numpy(x).to(cuda)
+    got = mel_torch.logmelspectrogram_cuda(y, cfg)
+    want = mel_torch.logmelspectrogram_torch(y, cfg)
+    mask = torch.isnan(want)
+    assert int(mask.sum()) == 4 * 80 and bool(mask[1].any(dim=1).sum() == 4)
+    assert torch.equal(torch.isnan(got), mask)
+    assert float((got[~mask] - want[~mask]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_mel_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     cfg = Config()
     with pytest.raises(ValueError, match="reflect padding"):
@@ -422,18 +498,85 @@ def test_mel_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         mel_torch.logmelspectrogram_cuda(
             torch.zeros(4096, device=cuda),
-            Config(fft_size=1000, hop_size=250, win_length=1000))
-    with pytest.raises(ValueError, match="mel bins"):
-        mel_torch.logmelspectrogram_cuda(torch.zeros(4096, device=cuda),
-                                         Config(num_mels=160))
+            Config(fft_size=1020, hop_size=255, win_length=1020))
+    with pytest.raises(ValueError, match="shared memory|a block can have"):
+        mel_torch.logmelspectrogram_cuda(
+            torch.zeros(20000, device=cuda),
+            Config(fft_size=8192, hop_size=2048, win_length=8192))
     with pytest.raises(ValueError, match=r"\(T,\) or \(B, T\)"):
         mel_torch.logmelspectrogram_cuda(torch.zeros(1, 2, 4096, device=cuda),
                                          cfg)
-    # a hop that does not divide the frame: the kernel does not define it,
-    # and on the card only the plain function itself computes it
-    with pytest.raises(ValueError, match="multiple of hop_size"):
-        mel_torch.logmelspectrogram_cuda(
-            torch.from_numpy(_sig(9000)).to(cuda), Config(hop_size=300))
-    assert mel_torch.logmelspectrogram_torch(
-        torch.from_numpy(_sig(9000)).to(cuda),
-        Config(hop_size=300)).shape == (31, 80)
+
+
+# ----------------------------------------------------------------------
+# a demo-preset model (4/4/4) through the entry points on the card
+# ----------------------------------------------------------------------
+DEMO_PRESET = "egs/mol/conf/mol_wavenet_demo.json"
+
+
+@pytest.fixture
+def demo_checkpoint(tmp_path):
+    from wavenet_vocoder_tpu_torch.config import load_config
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, DEMO_PRESET))
+    path = ckpt.save_checkpoint(str(tmp_path / "exp"),
+                                create_train_state(cfg, device="cpu"),
+                                global_step=1)
+    (tmp_path / "exp" / "hparams.json").write_text(cfg.to_json())
+    mel = tmp_path / "mels" / "utt0-feats.npy"
+    mel.parent.mkdir()
+    np.save(mel, np.random.RandomState(0).rand(6, 80).astype(np.float32))
+    return dict(ckpt=path, mel=str(mel), hop=cfg.hop_size)
+
+
+@pytest.mark.cuda
+def test_demo_checkpoint_runs_the_kernel_on_the_card(cuda, demo_checkpoint,
+                                                     tmp_path):
+    """cli.synthesis and cli.evaluate with --engine auto launch the
+    generation kernel for a 4/4/4 checkpoint; --engine scan runs the eager
+    loop on the card with the CLI's generator, made on the card."""
+    from scipy.io import wavfile
+
+    from wavenet_vocoder_tpu_torch.cli import evaluate, synthesis
+    d = demo_checkpoint
+    for engine in ("auto", "scan"):
+        before = cg.generate_steps.launches
+        dst = str(tmp_path / f"{engine}.wav")
+        synthesis.main([d["ckpt"], dst, "--conditional", d["mel"],
+                        "--engine", engine])
+        x = wavfile.read(dst)[1]
+        assert len(x) == 6 * d["hop"] and np.isfinite(x).all()
+        assert (cg.generate_steps.launches > before) == (engine == "auto")
+    before = cg.generate_steps.launches
+    out = str(tmp_path / "eval")
+    evaluate.main([str(tmp_path / "mels"), d["ckpt"], out])
+    assert sorted(os.listdir(out)) == ["eval_manifest.txt", "utt0_gen.wav"]
+    assert cg.generate_steps.launches > before
+
+
+@pytest.mark.cuda
+def test_fused_bf16_step_at_demo_widths_runs_the_kernels(cuda):
+    """fused_train at 4/4/4 in bf16: the training kernels run the stack at
+    widths padded with zero channels, every launch on the tensor cores."""
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    cfg = Config(layers=2, stacks=1, residual_channels=4, gate_channels=4,
+                 skip_out_channels=4, fused_train=True,
+                 compute_dtype="bfloat16", max_time_steps=1024)
+    state = create_train_state(cfg, device=cuda)
+    step, _ = make_train_step(cfg)
+    rs = np.random.RandomState(0)
+    B, T = 2, cfg.max_time_steps
+    frames = T // cfg.hop_size + 2 * cfg.cin_pad
+    x = rs.uniform(-0.5, 0.5, (B, T, 1)).astype(np.float32)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in dict(
+        x=x, y=x.copy(), c=rs.randn(B, frames, 80).astype(np.float32),
+        input_lengths=np.full(B, T, np.int32)).items()}
+    before = _launch_counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    _assert_launched(before, 2, 6, torch.bfloat16)

@@ -124,9 +124,10 @@ def test_wrapper_on_cpu_tensor_is_the_plain_version():
 
 
 def test_non_divisible_hop_takes_the_plain_path():
-    # fft_size % hop_size != 0: the kernel does not define it. A CPU tensor
-    # goes through the plain version, as the JAX wrapper goes through its
-    # XLA path; a tensor on the card raises (tests/test_torch_kernels.py)
+    # fft_size % hop_size != 0: the Pallas kernel does not define it, and the
+    # JAX wrapper goes through its XLA path. A CPU tensor goes through the
+    # plain version; the port's kernel reads each frame at f * hop and takes
+    # it on the card (tests/test_torch_kernels.py, case hop_300)
     x = _sig(9000, seed=8)
     got = logmelspectrogram_cuda(torch.from_numpy(x),
                                  Config(hop_size=300)).numpy()

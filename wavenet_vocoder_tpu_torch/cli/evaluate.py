@@ -176,7 +176,8 @@ def main(argv=None) -> None:
             g = None
         # one random stream per batch, keyed on the seed and the batch's
         # first utterance index
-        gen = torch.Generator().manual_seed(args.seed * 1000003 + i)
+        gen = torch.Generator(device=synth.device).manual_seed(
+            args.seed * 1000003 + i)
         wavs = synth(c, g=g, generator=gen, pad_context=False)
         for j, fpath in enumerate(chunk):
             name = out_name(fpath)

@@ -22,7 +22,7 @@ import torch
 from wavenet_vocoder_tpu_torch.config import discover_preset, load_config
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
-from wavenet_vocoder_tpu_torch.synthesis import wavegen
+from wavenet_vocoder_tpu_torch.synthesis import resolve_device, wavegen
 from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt_lib
 
 ENGINE_CHOICES = ("auto", "scan", "cuda")
@@ -91,7 +91,8 @@ def main(argv=None) -> None:
     wav = wavegen(model, cfg, c=c, g=args.speaker_id,
                   length=None if c is not None else args.length,
                   initial_value=args.initial_value,
-                  generator=torch.Generator().manual_seed(args.seed),
+                  generator=torch.Generator(
+                      device=resolve_device(args.device)).manual_seed(args.seed),
                   engine=engine, device=args.device)
     dst = args.dst_wav
     if os.path.isdir(dst):

@@ -66,6 +66,8 @@
 //     step's first two layers and its conditioning row while the head runs.
 //   * Ring buffers (rows, B, R) and the current input (B, C_in) live in global
 //     memory, allocated by the caller, so state survives between launches.
+//     R is a multiple of 8 (rows move 8 channels a vector): the wrapper runs
+//     a narrower model on a ring padded with zero channels.
 //     A CTA writes its own columns of a ring row only after every peer has
 //     consumed the row it evicts (read-before-write; the peers' sends that
 //     the writer waited for come after their reads). Peers read the new row
@@ -383,7 +385,7 @@ template <> struct Vec8<float> {
 };
 
 struct Params {
-  const void* w_first; const float* b_first;  // (C_in, R), (R), public layout
+  const void* w_first; const float* b_first;  // (C_in, R), (R); R the ring's width
   // (CS, L, stage_bytes): per CTA and layer [w_in slice | w_og slice | b_in | b_og]
   const unsigned char* wl;
   // (CS, head_bytes): per CTA [w_h1 slice | w_h2 | b_h1 slice | b_h2]

@@ -325,6 +325,39 @@ def pick_cluster(spec: WaveNetSpec, B: int) -> Tuple[int, int]:
     return cs, min(CLUSTER_STREAMS, B)
 
 
+def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
+                    cluster_size: Optional[int] = None) -> Tuple[bool, str]:
+    """Whether ``csrc/generate.cu`` takes a model of this spec with a pack of
+    this dtype, and if not, why. Any gate, residual and skip width is taken:
+    ``KernelPack`` pads each to its CTA slices of 8-column fragments, and
+    ``generate_steps`` pads the ring of a residual width that is not a
+    multiple of 8. The kernel keeps at most 4096 channels a width and 512
+    output channels a stream, needs two taps or more, and holds its
+    activation buffers for 16 streams in one block's shared memory at the
+    cluster size (every size ``pick_cluster`` may choose for this spec when
+    none is given); ``generate_steps`` raises with the reason otherwise."""
+    G, R, S = spec.gate_channels, spec.residual_channels, spec.skip_out_channels
+    if max(G, R + S) > 4096 or spec.out_channels > 512 \
+            or spec.kernel_size < 2:
+        return False, (
+            "the generation kernel needs gate and residual+skip widths up to "
+            "4096, at most 512 output channels and at least 2 taps; got "
+            f"{G}, {R + S}, {spec.out_channels}, {spec.kernel_size}")
+    if cluster_size is None:
+        first = pick_cluster(spec, 1)[0]
+        sizes = [c for c in CLUSTER_SIZES if min(first, 4) <= c <= first]
+    else:
+        sizes = [cluster_size]
+    for cs in sizes:
+        fixed, _ = kernel_smem_bytes(spec, cs, dtype)
+        if fixed > SMEM_BYTES:
+            return False, (
+                f"the generation kernel's buffers for 16 streams of this "
+                f"model take {fixed} bytes of shared memory at cluster size "
+                f"{cs}; a block has {SMEM_BYTES}")
+    return True, ""
+
+
 def stream_groups(B: int, streams: int) -> Tuple[Tuple[int, int], ...]:
     """[start, end) of the streams each cluster owns, in grid order."""
     return tuple((s, min(B, s + streams)) for s in range(0, B, streams))
@@ -418,7 +451,11 @@ class KernelPack:
                              raw(lay(w_h2.contiguous())),
                              raw(b_h1.reshape(CS, Sq)),
                              raw(b_h2.expand(CS, Cp))], dim=1).contiguous()
-        self.w_first, self.b_first = packed["w_first"], packed["b_first"]
+        self.w_first = packed["w_first"]
+        # the first 1x1 conv as the kernel reads it: its columns padded with
+        # zeros to the ring's width, a multiple of 8 (generate_steps)
+        self.first = tuple(F.pad(packed[n], (0, _up(R, 8) - R)).contiguous()
+                           for n in ("w_first", "b_first"))
 
     def slices(self) -> Dict[str, torch.Tensor]:
         """The per-CTA slices as row-major matrices and their biases: w_in
@@ -574,24 +611,13 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         return
     if dev.type != "cuda":
         raise ValueError(f"no generation kernel for device {dev}")
-    RS = R + spec.skip_out_channels
-    if any(m % 8 or m > 4096 for m in (G, RS, spec.skip_out_channels)) \
-            or spec.out_channels > 512 or spec.kernel_size < 2:
-        raise ValueError("the generation kernel needs gate, residual+skip and "
-                         "skip widths that are multiples of 8 up to 4096, at "
-                         "most 512 output channels and at least 2 taps; got "
-                         f"{G}, {RS}, {spec.skip_out_channels}, "
-                         f"{spec.out_channels}, {spec.kernel_size}")
     cs, streams = _cluster or pick_cluster(spec, B)
     if cs not in CLUSTER_SIZES or not 1 <= streams <= CLUSTER_STREAMS:
         raise ValueError(f"_cluster must be (one of {CLUSTER_SIZES}, "
                          f"1..{CLUSTER_STREAMS}); got {(cs, streams)}")
-    fixed, _ = kernel_smem_bytes(spec, cs, dtype)
-    if fixed > SMEM_BYTES:
-        raise ValueError(
-            f"the generation kernel's buffers for 16 streams of this model "
-            f"take {fixed} bytes of shared memory at cluster size {cs}; a "
-            f"block has {SMEM_BYTES}")
+    takes, why = kernel_supports(spec, dtype, cs)
+    if not takes:
+        raise ValueError(why)
     if kpack is None:
         kpack = kernel_pack(packed, spec, cs)
     if (kpack.cluster_size != cs or kpack.dtype != dtype
@@ -601,14 +627,19 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     info = (ctypes.c_int * 4)() if _info is not None else None
     plan = kpack.plan(streams, KERNEL_THREADS, int(_max_stages))
     ptr = lambda a: None if a is None else a.data_ptr()
+    # the kernel reads and writes ring rows 8 channels a vector: a residual
+    # width that is not a multiple of 8 runs on a copy padded with zero
+    # channels, which stay zero (their weights are zero), copied back after
+    Rk = _up(R, 8)
+    kring = ring if Rk == R else F.pad(ring, (0, Rk - R)).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(tuple(_defines))(
-            ptr(packed["w_first"]), ptr(packed["b_first"]),
+            ptr(kpack.first[0]), ptr(kpack.first[1]),
             ptr(kpack.wl), ptr(kpack.wh), ptr(cond), 0 if cond is None else cond.stride(0),
-            ptr(g_gate), ptr(ring), ptr(x_cur), ptr(out), out.stride(0),
+            ptr(g_gate), ptr(kring), ptr(x_cur), ptr(out), out.stride(0),
             B, n, int(t0), int(seed) & _M32, L, spec.layers_per_stack,
-            spec.kernel_size, R, G, spec.skip_out_channels,
+            spec.kernel_size, Rk, G, spec.skip_out_channels,
             spec.in_channels, spec.out_channels, cin, head_code(spec),
             int(bool(deterministic)), int(dtype == torch.bfloat16),
             plan, info, ptr(_trace), stream)
@@ -616,6 +647,8 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         raise RuntimeError(
             f"generation kernel launch failed: CUDA error {err} (cluster "
             f"{cs} x {streams} streams)")
+    if kring is not ring:
+        ring.copy_(kring[..., :R])
     if _info is not None:
         _info[:] = list(info)
     generate_steps.launches += 1

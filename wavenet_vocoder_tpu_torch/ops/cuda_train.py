@@ -7,7 +7,8 @@ their plain versions in ``ops/fused_train.py``, which ``FusedResStack``
 uses for CPU tensors. Outputs and scratch are allocated here with
 ``torch.empty`` (accumulated outputs with ``torch.zeros``); the kernels run
 on the current stream and do not synchronise. The weights go to the kernels
-as stored: no transposed or padded copies.
+as stored: no transposed copies, and padded ones only at widths that the
+tensor-core kernels do not cut into fragments (``kernel_widths``).
 
 The kernels dispatch by storage dtype: bf16 (the training path) runs the
 tensor-core kernels, f32 the FMA-tile kernels. Each wrapper counts its
@@ -23,6 +24,7 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from wavenet_vocoder_tpu_torch.ops.fused_train import (
     keep_threshold,
@@ -47,7 +49,7 @@ class TrainArgs(ctypes.Structure):
             "has_drop")]
         + [("seed", ctypes.c_uint), ("thresh", ctypes.c_uint),
            ("inv_keep", ctypes.c_float), ("bf16", ctypes.c_int),
-           ("chunk", ctypes.c_int)])
+           ("chunk", ctypes.c_int), ("key_R", ctypes.c_int)])
 
 
 def _fn(source: str, name: str, defines: Tuple[str, ...] = ()):
@@ -82,8 +84,76 @@ def _check(name: str, a: Optional[torch.Tensor], shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def kernel_widths(R: int, G: int, S: int, dtype) -> Tuple[int, int, int]:
+    """(R, G, S) as the kernels run a stack of these widths. The bf16
+    tensor-core kernels cut R into 8-column fragment rows, each GLU half
+    into 8-column fragments and R + S into column pairs, so the wrappers pad
+    those widths with zero channels to the next multiple and slice the
+    results back; the f32 kernels take any widths. A zero channel stays
+    exactly zero through the stack (zero weights and biases, and
+    tanh(0) * sigmoid(0) = 0), and adds exact zeros to every real sum."""
+    if dtype != torch.bfloat16:
+        return R, G, S
+    return _up(R, 8), 2 * _up(G // 2, 8), _up(S, 2)
+
+
+class _Pad:
+    """Zero padding of a stack's operands from (R, G, S) to the kernels'
+    widths, and the slices that take the results back."""
+
+    def __init__(self, R: int, G: int, S: int, widths: Tuple[int, int, int]):
+        self.R, self.G2, self.S = R, G // 2, S
+        self.Rp, Gp, self.Sp = widths
+        self.G2p = Gp // 2
+
+    def last(self, a, n):             # pad the last dimension to n
+        return None if a is None else F.pad(a, (0, n - a.shape[-1])).contiguous()
+
+    def gate(self, a):                # [..., a-half | b-half]
+        if a is None:
+            return None
+        g = self.G2
+        return torch.cat([self.last(a[..., :g], self.G2p),
+                          self.last(a[..., g:], self.G2p)], -1).contiguous()
+
+    def res_skip(self, a):            # [..., residual | skip]
+        return torch.cat([self.last(a[..., :self.R], self.Rp),
+                          self.last(a[..., self.R:], self.Sp)], -1).contiguous()
+
+    def w_in(self, w, k):             # (L, k*R, G): rows tap j, channel r
+        L = w.shape[0]
+        w = F.pad(w.reshape(L, k, self.R, -1), (0, 0, 0, self.Rp - self.R))
+        return self.gate(w.reshape(L, k * self.Rp, -1))
+
+    def w_og(self, w):                # (L, G/2, R+S)
+        return self.res_skip(F.pad(w, (0, 0, 0, self.G2p - self.G2)))
+
+    def ungate(self, a):
+        if a is None:
+            return None
+        g = self.G2p
+        return torch.cat([a[..., :self.G2], a[..., g:g + self.G2]], -1)
+
+    def unres_skip(self, a):
+        return torch.cat([a[..., :self.R], a[..., self.Rp:self.Rp + self.S]], -1)
+
+
+def _padding(x_R: int, w_in, w_og, k: int) -> Optional[_Pad]:
+    """The padding a stack with weights w_in, w_og needs, or None."""
+    G = w_in.shape[2]
+    S = w_og.shape[2] - x_R
+    widths = kernel_widths(x_R, G, S, w_in.dtype)
+    if widths == (x_R, G, S) or w_in.shape[1] != k * x_R or G % 2 or S < 0:
+        return None        # (operands of the wrong shape raise in _common)
+    return _Pad(x_R, G, S, widths)
+
+
 def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
-            seed) -> TrainArgs:
+            seed, key_R) -> TrainArgs:
     """Check the weights and conditioning; fill the fields both sides share."""
     device, dtype = w_in.device, w_in.dtype
     if device.type != "cuda":
@@ -98,9 +168,9 @@ def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
     if len(dils) != L or kR != k * R or G % 2:
         raise ValueError("w_in must be (L, k*R, G) with one dilation per "
                          "layer and G even")
-    if dtype == torch.bfloat16 and (R % 8 or G % 16 or S % 2):
-        raise ValueError(f"the bf16 training kernels need R % 8 == 0, "
-                         f"G % 16 == 0 and S even, got R={R}, G={G}, S={S}")
+    if kernel_widths(R, G, S, dtype) != (R, G, S):
+        raise ValueError(f"the training kernels take R, G, S = "
+                         f"{kernel_widths(R, G, S, dtype)}, got {(R, G, S)}")
     _check("w_in", w_in, (L, kR, G), dtype, device)
     _check("b_in", b_in, (L, G), torch.float32, device)
     _check("w_og", w_og, (L, G2, R + S), dtype, device)
@@ -119,7 +189,8 @@ def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
         B=B, T=T, R=R, G=G, S=S, cin=cin, k=k, L=L,
         H=stack_receptive(dils, k), has_drop=int(drop > 0),
         seed=int(seed) & _M32, thresh=keep_threshold(keep),
-        inv_keep=1.0 / keep, bf16=int(dtype == torch.bfloat16))
+        inv_keep=1.0 / keep, bf16=int(dtype == torch.bfloat16),
+        key_R=R if key_R is None else key_R)
 
 
 def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
@@ -127,15 +198,24 @@ def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
               b_in: torch.Tensor, w_cond: Optional[torch.Tensor],
               w_og: torch.Tensor, b_og: torch.Tensor, *, dils: Sequence[int],
               k: int, drop: float = 0.0, seed: int = 0,
-              _defines: Tuple[str, ...] = ()
+              _defines: Tuple[str, ...] = (), _key_R: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of the stack: (skips (B, T, S) f32, xs (L, B, T, R)), where
     xs[l] is layer l's input in the storage dtype (the backward's stash).
     x0, c and the weights are in the storage dtype, b_in, b_og, gb f32.
     ``_defines`` launches a variant build (``NO_PRODUCTS``)."""
     B, T, R = x0.shape
+    pad = _padding(R, w_in, w_og, k)
+    if pad is not None:     # run at the kernels' widths, slice back
+        skips, xs = train_fwd(
+            pad.last(x0, pad.Rp), c, pad.gate(gb), pad.w_in(w_in, k),
+            pad.gate(b_in), pad.gate(w_cond), pad.w_og(w_og),
+            pad.res_skip(b_og), dils=dils, k=k, drop=drop, seed=seed,
+            _defines=_defines, _key_R=R)
+        return (skips[..., :pad.S].contiguous(),
+                xs[..., :R].contiguous())
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
-                   dils=dils, k=k, drop=drop, seed=seed)
+                   dils=dils, k=k, drop=drop, seed=seed, key_R=_key_R)
     _check("x0", x0, (B, T, args.R), w_in.dtype, w_in.device)
     L = args.L
     dev = x0.device
@@ -202,15 +282,26 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
               w_cond: Optional[torch.Tensor], w_og: torch.Tensor,
               b_og: torch.Tensor, *, dils: Sequence[int], k: int,
               drop: float = 0.0, seed: int = 0,
-              _defines: Tuple[str, ...] = ()):
+              _defines: Tuple[str, ...] = (), _key_R: Optional[int] = None):
     """Backward of the stack from dskips (B, T, S) f32 and the forward's
     stash xs. Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
     all f32; dc, dgb and dw_cond are None where c, gb are absent. The
     weight and bias gradients are f32 atomic sums. ``_defines`` launches a
     variant build (``NO_PRODUCTS``)."""
     L, B, T, R = xs.shape
+    pad = _padding(R, w_in, w_og, k)
+    if pad is not None:     # run at the kernels' widths, slice back
+        dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og = train_bwd(
+            pad.last(dskips, pad.Sp), pad.last(xs, pad.Rp), c, pad.gate(gb),
+            pad.w_in(w_in, k), pad.gate(b_in), pad.gate(w_cond),
+            pad.w_og(w_og), pad.res_skip(b_og), dils=dils, k=k, drop=drop,
+            seed=seed, _defines=_defines, _key_R=R)
+        dw_in = dw_in.reshape(L, k, pad.Rp, -1)[:, :, :R].reshape(L, k * R, -1)
+        return (dx0[..., :R].contiguous(), dc, pad.ungate(dgb),
+                pad.ungate(dw_in), pad.ungate(db_in), pad.ungate(dw_cond),
+                pad.unres_skip(dw_og[:, :pad.G2]), pad.unres_skip(db_og))
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
-                   dils=dils, k=k, drop=drop, seed=seed)
+                   dils=dils, k=k, drop=drop, seed=seed, key_R=_key_R)
     dev, dtype = xs.device, w_in.dtype
     _check("xs", xs, (L, B, T, args.R), dtype, dev)
     _check("dskips", dskips, (B, T, args.S), torch.float32, dev)

@@ -39,7 +39,8 @@ def resolve_device(device=None) -> torch.device:
 
 def _seed_from(generator: Optional[torch.Generator]) -> int:
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen).item())
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                             device=gen.device).item())
 
 
 def pad_mel_context(c: np.ndarray, cin_pad: int) -> np.ndarray:
