@@ -78,7 +78,26 @@ Phases (each failure ends the run with a non-zero exit):
                 frames) equals the offline ``Synthesizer`` from the same seed
                 exactly; decoder segments with carried state equal one call;
                 a small f32 model streamed through "cuda" agrees with the
-                "scan" engine.
+                "scan" engine;
+ 11. loop     — training from a dump on disk: a synthetic dump under build/
+                (48 train and 8 dev utterances in the *-wave.npy /
+                *-feats.npy layout, numpy from a seed) and the flagship
+                ``Config(fused_train=True)`` (bf16, B=8, crop 10240);
+                ``python -m wavenet_vocoder_tpu_torch.cli.train`` in a
+                subprocess for 30 steps (checkpoints at 15 and 30, eval audio
+                at 30, dev audio every epoch): logged losses finite and
+                falling, checkpoints with the EMA twin and hparams.json, eval
+                wavs at the crop's length, every stack launch on the
+                tensor-core kernels (the CLI prints its counters), eval audio
+                through the generation kernel; the step-30 checkpoint loads
+                and ``cli.synthesis --engine auto`` makes an utterance from
+                it. In process: step times (CUDA events between consecutive
+                steps, median of steps 5-30) with ``prefetch_to_device`` and
+                with the loader fed straight into ``train_step``, beside
+                phase 7's synthetic-batch step, and the profiled device-idle
+                share of one loop step (``[loop-time]``); the first 3 f32
+                losses (dropout 0) from the step-30 checkpoint with and
+                without prefetch agree within 1e-5 relative.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -936,11 +955,12 @@ def cublas_yardstick_ms(spec, B, T):
     return out
 
 
-def _profile_step(train_step, state, batch):
-    """Device time of one train step by kernel, from a torch.profiler trace:
-    (groups {name: ms}, busy ms, step ms by CUDA events), or None when the
-    profiler records no device activity. Kernels run on one stream, so the
-    sum of their durations is the device's busy time."""
+def _profile_step(step):
+    """Device time of one call of ``step()`` by kernel, from a
+    torch.profiler trace: (groups {name: ms}, busy ms, step ms by CUDA
+    events), or None when the profiler records no device activity. Busy
+    time is the union of the device's activity intervals (a prefetch copies
+    on a second stream, under the kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -950,19 +970,28 @@ def _profile_step(train_step, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        train_step(state, batch)
+        step()
         end.record()
         torch.cuda.synchronize()
-    groups = {}
+    groups, spans = {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = next((k for k in TRAIN_KERNEL_NAMES if k in e.name),
                     e.name[:60])
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
     if not groups:
         return None
-    return groups, sum(groups.values()), start.elapsed_time(end)
+    busy, last = 0.0, None
+    for a, b in sorted(spans):
+        if last is None or a > last:
+            busy += b - a
+            last = b
+        elif b > last:
+            busy += b - last
+            last = b
+    return groups, busy / 1e3, start.elapsed_time(end)
 
 
 def phase_train_timing(report, state, train_step):
@@ -989,7 +1018,7 @@ def phase_train_timing(report, state, train_step):
               f"{min(t):.1f}, max {max(t):.1f}), "
               f"{steps[B]['samples_per_s']:.0f} samples/s", flush=True)
         if B == cfg.batch_size:
-            prof = _profile_step(train_step, state, batch)
+            prof = _profile_step(lambda: train_step(state, batch))
             if prof is None:
                 print("[train-time] the profiler recorded no device activity")
             else:
@@ -1519,6 +1548,267 @@ def phase_streaming(report):
         launches=launches, carry_exact=carry_exact, small_err=err)
 
 
+# ----------------------------------------------------------------------
+# phase 11: training from a dump on disk
+# ----------------------------------------------------------------------
+LOOP_STEPS = 30
+LOOP_UTTS = {"train_no_dev": (48, 0), "dev": (8, 1)}   # (utterances, seed)
+LOOP_REL_TOL = 1e-5
+LOOP_TIMEOUT_S = 600
+
+
+def make_synthetic_dump(root, cfg, n_utts=48, seed=0):
+    """bench.py's on-disk dump (bench.py:25-41; a copy, bench.py imports
+    JAX): *-wave.npy / *-feats.npy of uniform noise and normal features,
+    each utterance 2-21 frames longer than the crop with its context."""
+    import os
+
+    import numpy as np
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    hop = cfg.hop_size
+    min_samples = cfg.max_time_steps + 2 * cfg.cin_pad * hop
+    for i in range(n_utts):
+        frames = (min_samples // hop) + 2 + rs.randint(0, 20)
+        T = frames * hop
+        wave = rs.uniform(-0.5, 0.5, T).astype(np.float32)
+        feats = rs.randn(frames, cfg.num_mels).astype(np.float32)
+        np.save(os.path.join(root, f"synth{i:04d}-wave.npy"), wave)
+        np.save(os.path.join(root, f"synth{i:04d}-feats.npy"), feats)
+    return root
+
+
+def _run_cli(args, tag):
+    """``python -m`` a CLI of the port from the repo root; its output, or
+    the phase fails with the end of it."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=root, env=env,
+                          capture_output=True, text=True,
+                          timeout=LOOP_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"{tag} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _forever(loader):
+    while True:
+        yield from loader
+
+
+def _loop_steps(train_step, state, batches, n, gen):
+    """n steps fed from ``batches``; (ms of each step after the first, from
+    CUDA events recorded after consecutive steps, so waits on the host
+    count; the losses as floats, fetched at the end)."""
+    import torch
+    events, losses = [], []
+    for _ in range(n):
+        m = train_step(state, next(batches), gen)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return ms, [float(v) for v in losses]
+
+
+def _read_metrics(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            m = json.loads(line)
+            out.setdefault(m["tag"], {})[m["step"]] = m["value"]
+    return out
+
+
+def phase_loop(report):
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device
+    from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    from wavenet_vocoder_tpu_torch.training.loop import get_data_loaders
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    t_phase = time.perf_counter()
+    cfg = Config(fused_train=True, checkpoint_interval=15,
+                 train_eval_interval=LOOP_STEPS, test_eval_epoch_interval=1)
+    B, T, L = cfg.batch_size, cfg.max_time_steps, cfg.layers
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_loop")
+    shutil.rmtree(work, ignore_errors=True)
+    dump, exp = os.path.join(work, "dump"), os.path.join(work, "exp")
+    for split, (n, seed) in LOOP_UTTS.items():
+        make_synthetic_dump(os.path.join(dump, split), cfg, n, seed)
+    preset = os.path.join(work, "preset.json")
+    with open(preset, "w") as f:
+        f.write(cfg.to_json())
+
+    # the CLI, as a user runs it
+    t0 = time.perf_counter()
+    out = _run_cli(["wavenet_vocoder_tpu_torch.cli.train", "--dump-root", dump,
+                    "--checkpoint-dir", exp, "--preset", preset,
+                    "--max-train-steps", str(LOOP_STEPS)], "cli.train")
+    cli_s = time.perf_counter() - t0
+    line = [x for x in out.splitlines()
+            if x.startswith("[train] kernel launches ")]
+    if not line:
+        fail("cli.train printed no kernel launches:\n" + out[-2000:])
+    counts = json.loads(line[-1][len("[train] kernel launches "):])
+    metrics = _read_metrics(os.path.join(exp, "log", "metrics.jsonl"))
+    logged = [metrics["train/loss"][k] for k in sorted(metrics["train/loss"])]
+    n_dev = len(metrics.get("dev/loss", {}))
+    # forwards: the train steps, the dev batches, one teacher-forced pass
+    want = {"train_fwd": L * (LOOP_STEPS + n_dev + 1),
+            "train_bwd": 3 * L * LOOP_STEPS}
+    tail = logged[1:][-5:]
+    print(f"[loop] cli.train, {LOOP_STEPS} steps from the dump in "
+          f"{cli_s:.1f} s: logged losses (steps "
+          f"{sorted(metrics['train/loss'])}) "
+          + " ".join(f"{v:.4f}" for v in logged)
+          + f"; {n_dev} dev batches; launches {counts} (expected "
+          f"tensor-core {want}, FMA 0)", flush=True)
+    if not np.isfinite(logged).all() or not np.mean(tail) < logged[0]:
+        fail(f"cli.train losses not finite or not falling: {logged}")
+    for name, n in want.items():
+        c = counts[name]
+        if c["tc_launches"] != n or c["launches"] != n or c["fma_launches"]:
+            fail(f"{name}: {c}, expected {n} tensor-core launches and no "
+                 "FMA launch")
+    if counts["generate"]["launches"] <= 0:
+        fail("the eval audio did not launch the generation kernel")
+    for step in (15, LOOP_STEPS):
+        for ema in (False, True):
+            if not os.path.exists(ckpt.checkpoint_path(exp, step, ema=ema)):
+                fail(f"missing {ckpt.checkpoint_path(exp, step, ema=ema)}")
+    if not os.path.exists(os.path.join(exp, "hparams.json")):
+        fail("no hparams.json beside the checkpoints")
+    inter = os.path.join(exp, "intermediate")
+    dev_steps = sorted({int(f[4:13]) for f in os.listdir(
+        os.path.join(inter, "dev_eval")) if f.endswith("_predicted.wav")})
+    wavs = [("train_no_dev_eval", LOOP_STEPS)] + [("dev_eval", s)
+                                                  for s in dev_steps]
+    for sub, step in wavs:
+        for kind in ("predicted", "target"):
+            w = _read_wav(os.path.join(inter, sub,
+                                       f"step{step:09d}_{kind}.wav"))
+            if len(w) != T or not np.isfinite(w).all():
+                fail(f"{sub} step {step} {kind}: {len(w)} samples, "
+                     f"expected {T}")
+    if not dev_steps:
+        fail("no dev-phase eval audio")
+
+    # the step-30 checkpoint: loads, and synthesises through the CLI
+    path = ckpt.checkpoint_path(exp, LOOP_STEPS, ema=True)
+    model, counters = ckpt.load_model(path, spec_from_config(cfg))
+    if counters["global_step"] != LOOP_STEPS:
+        fail(f"checkpoint counters {counters}")
+    del model
+    mel = os.path.join(dump, "dev", "synth0000-feats.npy")
+    dst = os.path.join(work, "synth.wav")
+    t0 = time.perf_counter()
+    _run_cli(["wavenet_vocoder_tpu_torch.cli.synthesis", path, dst,
+              "--conditional", mel, "--engine", "auto"], "cli.synthesis")
+    synth_s = time.perf_counter() - t0
+    w = _read_wav(dst)
+    frames = np.load(mel).shape[0]
+    print(f"[loop] step-{LOOP_STEPS} checkpoint loads; cli.synthesis "
+          f"--engine auto: {len(w)} samples ({frames} frames) in "
+          f"{synth_s:.1f} s, std {w.std():.3f}", flush=True)
+    if len(w) != frames * cfg.hop_size or not np.isfinite(w).all():
+        fail(f"cli.synthesis from the loop's checkpoint: {len(w)} samples")
+
+    # in process: step times with and without prefetch, the idle share
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = create_train_state(cfg)
+    train_step, _ = make_train_step(cfg)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    loader = get_data_loaders(dump, cfg)["train_no_dev"]
+    feeds = {"prefetch": lambda: prefetch_to_device(_forever(loader),
+                                                    depth=2),
+             "no_prefetch": lambda: _forever(loader)}
+    runs = {name: [] for name in feeds}
+    # in turns, so that drift over the runs falls on both
+    for name in ("prefetch", "no_prefetch", "no_prefetch", "prefetch"):
+        ms, losses = _loop_steps(train_step, state, feeds[name](), LOOP_STEPS,
+                                 gen)
+        if not np.isfinite(losses).all():
+            fail(f"{name} run: losses not finite")
+        runs[name].append(dict(step_ms=ms, losses=losses))
+    times, profiles = {}, {}
+    for name, feed in feeds.items():
+        # ms[k] is step k+2's time: steps 5-30 are ms[3:]
+        steady = [t for r in runs[name] for t in r["step_ms"][3:]]
+        times[name] = dict(runs=runs[name], median_ms=float(np.median(steady)),
+                           min_ms=min(steady), max_ms=max(steady))
+        batches = feed()
+        next(batches)   # the loader (and the prefetch queue) under way
+        prof = _profile_step(lambda: train_step(state, next(batches), gen))
+        profiles[name] = None if prof is None else dict(
+            kernels_ms=prof[0], busy_ms=prof[1], step_ms=prof[2],
+            idle=1.0 - prof[1] / prof[2])
+        del batches
+    synth7 = report["train_timing"]["steps"][B]["median_ms"]
+    gpu = gpu_name_and_limit()
+    prof_txt = "; ".join(
+        f"{name} {p['step_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms "
+        f"(idle {p['idle']:.1%})" if p is not None
+        else f"{name}: no device activity recorded"
+        for name, p in profiles.items())
+    print(f"[loop-time] {gpu}: B={B} T={T} bf16 loop step median (steps "
+          f"5-{LOOP_STEPS} of two runs each, in turns) with "
+          f"prefetch_to_device(depth=2) {times['prefetch']['median_ms']:.1f} "
+          f"ms (min {times['prefetch']['min_ms']:.1f}, max "
+          f"{times['prefetch']['max_ms']:.1f}), loader straight into "
+          f"train_step {times['no_prefetch']['median_ms']:.1f} ms (min "
+          f"{times['no_prefetch']['min_ms']:.1f}, max "
+          f"{times['no_prefetch']['max_ms']:.1f}), phase 7 synthetic batch "
+          f"{synth7:.1f} ms; one profiled loop step: {prof_txt}", flush=True)
+    del state, train_step
+    torch.cuda.empty_cache()
+
+    # stream ordering: f32, dropout 0, from the step-30 checkpoint, the
+    # first 3 losses with and without prefetch
+    # (one loader thread: with more, the crop draws of the two runs could
+    # come in another order)
+    cfg32 = cfg.replace(compute_dtype="", dropout=0.0, num_workers=1)
+    step32, _ = make_train_step(cfg32)
+    first = {}
+    for name, feed in (("prefetch", lambda ld: prefetch_to_device(
+            _forever(ld), depth=2)), ("no_prefetch", _forever)):
+        st = create_train_state(cfg32)
+        ckpt.load_checkpoint(ckpt.checkpoint_path(exp, LOOP_STEPS), st)
+        ld = get_data_loaders(dump, cfg32)["train_no_dev"]
+        first[name] = _loop_steps(step32, st, feed(ld), 3, None)[1]
+        del st
+    rel = max(abs(a - b) / abs(b) for a, b in zip(first["prefetch"],
+                                                  first["no_prefetch"]))
+    print(f"[loop] f32 from the step-{LOOP_STEPS} checkpoint, first 3 "
+          f"losses with prefetch {first['prefetch']} and without "
+          f"{first['no_prefetch']}: max rel {rel:.2e} (tol {LOOP_REL_TOL})",
+          flush=True)
+    if not rel <= LOOP_REL_TOL:
+        fail("prefetch and no-prefetch losses disagree")
+    torch.cuda.empty_cache()
+    report["loop"] = dict(
+        cli_s=cli_s, logged_losses=logged, n_dev=n_dev, launches=counts,
+        expected=want, dev_eval_steps=dev_steps, synth_s=synth_s,
+        times=times, synthetic_step_ms=synth7, gpu=gpu, profiles=profiles,
+        f32_first_losses=first, f32_rel=rel,
+        total_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -1582,6 +1872,17 @@ def summary_line(report) -> str:
                  f" s), launches {ev['launches']}")
     parts.append(f"stream equals offline exactly: {st['exact']} "
                  f"({st['samples']} samples)")
+    lp = report["loop"]
+    prof = lp["profiles"]["prefetch"]
+    idle = prof["idle"] if prof is not None else float("nan")
+    parts.append(f"loop from a dump: cli.train {LOOP_STEPS} steps in "
+                 f"{lp['cli_s']:.1f} s, losses {lp['logged_losses'][0]:.4f}"
+                 f" -> {lp['logged_losses'][-1]:.4f}; step median with "
+                 f"prefetch {lp['times']['prefetch']['median_ms']:.1f} ms, "
+                 f"without {lp['times']['no_prefetch']['median_ms']:.1f} ms "
+                 f"(phase 7 synthetic {lp['synthetic_step_ms']:.1f} ms), "
+                 f"idle {idle:.1%}; f32 prefetch vs not rel "
+                 f"{lp['f32_rel']:.2e}")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -1633,6 +1934,13 @@ def main() -> int:
         phase = "streaming"
         phase_streaming(report)
         mel_line = mel_kernel_line(report, eval_launches)
+        phase = "loop"
+        loop_launches = phase_loop(report)
+        kernel_line["loop_launches"] = loop_launches["generate"]["launches"]
+        for line in train_lines:
+            key = line["name"][3:]          # wn_train_fwd -> train_fwd
+            line["loop_launches"] = loop_launches[key]["launches"]
+            line["loop_tc_launches"] = loop_launches[key]["tc_launches"]
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

@@ -580,3 +580,92 @@ def test_fused_bf16_step_at_demo_widths_runs_the_kernels(cuda):
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics["loss"]))
     _assert_launched(before, 2, 6, torch.bfloat16)
+
+
+# ----------------------------------------------------------------------
+# training from a dump: prefetch and the loop on the card
+# ----------------------------------------------------------------------
+def _np_batches(n, B=2, T=512, seed=0):
+    rs = np.random.RandomState(seed)
+    return [{"x": rs.uniform(-0.5, 0.5, (B, T, 1)).astype(np.float32),
+             "c": rs.randn(B, T // 64 + 4, 8).astype(np.float32),
+             "input_lengths": rs.randint(1, T, B).astype(np.int32)}
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pin", [True, False], ids=["pinned", "pageable"])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_prefetch_on_a_side_stream_equals_a_plain_copy(cuda, monkeypatch,
+                                                       pin, depth):
+    """Batches copied on the side stream (pinned when asked) equal a plain
+    ``.to(device)``, in order; work queued on the consumer stream right
+    after a batch is yielded reads the copied values."""
+    from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device
+    pinned = []
+    real_pin = torch.Tensor.pin_memory
+
+    def counting_pin(self, *a, **kw):
+        out = real_pin(self, *a, **kw)
+        pinned.append(out.is_pinned())
+        return out
+    monkeypatch.setattr(torch.Tensor, "pin_memory", counting_pin)
+    batches = _np_batches(6)
+    for i, got in enumerate(prefetch_to_device(iter(batches), depth=depth,
+                                               device=cuda, pin_memory=pin)):
+        # consume at once on the current stream, as a train step would
+        sums = {k: v.double().sum() for k, v in got.items()}
+        for k, v in batches[i].items():
+            want = torch.as_tensor(v).to(cuda)
+            assert got[k].device.type == "cuda" and got[k].dtype == want.dtype
+            assert torch.equal(got[k], want), (i, k)
+            assert float(sums[k]) == float(want.double().sum()), (i, k)
+    assert pinned == ([True] * 18 if pin else [])
+
+
+@pytest.mark.cuda
+def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
+    """A 3-step ``train_loop`` at a small depth, bf16 fused: every stack
+    launch is a tensor-core launch (none on the FMA kernels), and the eval
+    audio comes from the generation kernel."""
+    from scipy.io import wavfile
+
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    from wavenet_vocoder_tpu_torch.training.loop import train_loop
+    cfg = Config(layers=4, stacks=2, residual_channels=16, gate_channels=32,
+                 skip_out_channels=16, cin_channels=8, num_mels=8,
+                 hop_size=64, upsample_params={"upsample_scales": [4, 16]},
+                 fused_train=True, compute_dtype="bfloat16", batch_size=2,
+                 max_time_steps=1024, num_workers=1, checkpoint_interval=3,
+                 train_eval_interval=3, test_eval_epoch_interval=1)
+    rs = np.random.RandomState(0)
+    for split, n in (("train_no_dev", 4), ("dev", 2)):
+        d = tmp_path / "dump" / split
+        d.mkdir(parents=True)
+        for i in range(n):
+            frames = 22 + rs.randint(0, 8)
+            np.save(d / f"u{i}-wave.npy",
+                    rs.uniform(-0.5, 0.5, frames * 64).astype(np.float32))
+            np.save(d / f"u{i}-feats.npy",
+                    rs.randn(frames, 8).astype(np.float32))
+    before, gen_before = _launch_counts(), cg.generate_steps.launches
+    out = str(tmp_path / "exp")
+    state = train_loop(cfg, str(tmp_path / "dump"), out, max_steps_override=3,
+                       log_interval=1)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    L = cfg.layers
+    n_dev = sum(1 for line in open(os.path.join(out, "log", "metrics.jsonl"))
+                if '"dev/loss"' in line)
+    # forwards: 3 train steps, the dev batches, one teacher-forced pass
+    assert [a - b for a, b in zip(after["fwd"], before["fwd"])] == \
+        [L * (3 + n_dev + 1)] * 2 + [0]
+    assert [a - b for a, b in zip(after["bwd"], before["bwd"])] == \
+        [3 * L * 3] * 2 + [0]
+    assert cg.generate_steps.launches > gen_before
+    assert state.step == 3 and next(state.model.parameters()).is_cuda
+    assert os.path.exists(ckpt.checkpoint_path(out, 3, ema=True))
+    for sub, step in (("train_no_dev_eval", 3), ("dev_eval", 2)):
+        w = wavfile.read(os.path.join(out, "intermediate", sub,
+                                      f"step{step:09d}_predicted.wav"))[1]
+        assert len(w) == cfg.max_time_steps and np.isfinite(w).all()

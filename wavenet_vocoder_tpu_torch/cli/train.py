@@ -1,0 +1,98 @@
+"""Training CLI (reference: train.py:1-16 docopt usage).
+
+    python -m wavenet_vocoder_tpu_torch.cli.train --dump-root DIR \
+        --checkpoint-dir DIR [--preset JSON] [--hparams "k=v,..."] \
+        [--checkpoint PATH] [--restore-parts PATH] [--reset-optimizer] \
+        [--speaker-id N] [--log-event-path DIR] [--max-train-steps N] \
+        [--device DEVICE]
+
+The port's counterpart of ``wavenet_vocoder_tpu/cli/train.py``, with the
+same flags plus ``--device``. It trains on the GPU unless ``--device`` names
+another device. One device only: ``--distributed`` and its address flags
+raise until the multi-device slice of the port; ``--no-mesh`` is accepted
+and changes nothing. At the end it prints the kernel launches of the run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from wavenet_vocoder_tpu_torch.config import config_debug_string, load_config
+from wavenet_vocoder_tpu_torch.training.loop import train_loop
+
+_MULTI_DEVICE = ("{} is not available in the PyTorch port yet: it belongs to "
+                 "the multi-device slice of the port (see ROADMAP.md, Queue A "
+                 "6). Run without it on one device.")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--dump-root", "--data-root", dest="dump_root",
+                   required=True, help="directory with train_no_dev/ dev/ dumps")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--preset", default=None, help="preset JSON path")
+    p.add_argument("--hparams", default="", help='"k=v,..." overrides')
+    p.add_argument("--checkpoint", default=None, help="resume checkpoint")
+    p.add_argument("--restore-parts", default=None,
+                   help="partial restore for fine-tuning")
+    p.add_argument("--reset-optimizer", action="store_true")
+    p.add_argument("--speaker-id", type=int, default=None)
+    p.add_argument("--log-event-path", default=None)
+    p.add_argument("--max-train-steps", type=int, default=None)
+    p.add_argument("--no-mesh", action="store_true",
+                   help="disable multi-device data parallelism (one device "
+                        "only in the port: changes nothing)")
+    # parsed as the JAX package's CLI parses them; they raise until the
+    # multi-device slice is ported
+    p.add_argument("--distributed", action="store_true",
+                   help="join a multi-process cluster (not ported yet: "
+                        "raises)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of process 0 (implies --distributed)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device to train on (default: cuda; fails "
+                        "without a GPU)")
+    return p
+
+
+def kernel_launches() -> dict:
+    """The launch counters of the kernels a training run reaches."""
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate, cuda_train
+    out = {}
+    for name, w in (("train_fwd", cuda_train.train_fwd),
+                    ("train_bwd", cuda_train.train_bwd)):
+        out[name] = dict(launches=w.launches, tc_launches=w.tc_launches,
+                         fma_launches=w.fma_launches)
+    out["generate"] = dict(launches=cuda_generate.generate_steps.launches)
+    return out
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    for flag, given in (("--distributed", args.distributed),
+                        ("--coordinator-address",
+                         args.coordinator_address is not None),
+                        ("--num-processes", args.num_processes is not None),
+                        ("--process-id", args.process_id is not None)):
+        if given:
+            raise NotImplementedError(_MULTI_DEVICE.format(flag))
+    cfg = load_config(args.preset, args.hparams)
+    print(config_debug_string(cfg))
+    train_loop(
+        cfg, args.dump_root, args.checkpoint_dir,
+        log_event_path=args.log_event_path,
+        restore_checkpoint=args.checkpoint,
+        restore_parts_path=args.restore_parts,
+        reset_optimizer=args.reset_optimizer,
+        speaker_id=args.speaker_id,
+        max_steps_override=args.max_train_steps,
+        use_mesh=not args.no_mesh,
+        device=args.device,
+    )
+    print("[train] kernel launches " + json.dumps(kernel_launches()))
+
+
+if __name__ == "__main__":
+    main()

@@ -93,8 +93,8 @@ class Config:
     use_speaker_embedding: bool = True
 
     # -- Data loader (reference: hparams.py:85-86) --
-    # pin_memory is accepted so reference presets load unchanged; the
-    # synthesis slice of the port does not read it (no data loader yet).
+    # pin_memory: batches go to the card from pinned host memory
+    # (data/prefetch.py); the JAX package accepts and ignores it.
     pin_memory: bool = True
     num_workers: int = 2
 

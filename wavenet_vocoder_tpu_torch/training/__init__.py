@@ -1,2 +1,3 @@
-"""Training: optimizer, LR schedules, EMA and the train step. Submodules
-are imported explicitly (``training.train_state``, ``training.lrschedule``)."""
+"""Training: optimizer, LR schedules, EMA, the train step, checkpoints and
+the loop. Submodules are imported explicitly (``training.train_state``,
+``training.loop``, ...)."""
