@@ -64,7 +64,7 @@ Phases (each failure ends the run with a non-zero exit):
                 with the bounds of its matrix-product DFT beside it. The
                 kernels line gives the 8 x 1 s batch, the
                 shape phase 9 launches;
-  9. evaluation — in a temporary directory: 8 wav files of 1 s,
+  9. evaluation — under build/chip_smoke_eval: 8 wav files of 1 s,
                 ``cli.preprocess`` makes the dump dir, a flagship model's
                 state is saved with ``save_checkpoint`` and ``hparams.json``,
                 ``cli.evaluate`` and ``cli.synthesis`` read both and write
@@ -98,6 +98,32 @@ Phases (each failure ends the run with a non-zero exit):
                 share of one loop step (``[loop-time]``); the first 3 f32
                 losses (dropout 0) from the step-30 checkpoint with and
                 without prefetch agree within 1e-5 relative.
+ 12. multi-device — at the flagship width: (a) the training kernels with
+                the dropout key's row offset (b0=4; B=4, T=3000, dropout
+                0.05, bf16 and f32) against their plain versions at b0=4,
+                and against rows 4..7 of a B=8 launch at b0=0 (TRAIN_TOL);
+                (b) two ranks on the one card (gloo, both on cuda:0: a check
+                of the data-parallel step, not a way to train), 4 rows each
+                of a B=8 batch with unequal lengths, 3 bf16 steps at dropout
+                0.05, against one process at B=8: the ranks' parameters
+                bitwise equal; the losses, the first step's grad norm (the
+                later ones within 10x) and every parameter's gradient from
+                one state within phase 6's bf16 STEP_TOL (the parameters'
+                drift after 3 steps is printed); every stack launch on the
+                tensor cores; (c) ``cli.train
+                --distributed`` through NCCL at world size 1 (torchrun's
+                variables in its environment) for 10 steps on phase 11's
+                dump, its step beside phases 7 and 11's; (d) a mesh record
+                listing cuda:0 twice: B=32 x 1 s synthesis sharded equals
+                unsharded in every sample (deterministic), and shard i
+                equals its rows alone with seed + i (sampling); (e)
+                ``cli.evaluate --distributed`` in two gloo processes on
+                phase 9's dump and checkpoint: disjoint manifests whose
+                union is one process's list, deterministic audio equal to
+                one process's. The other processes are this script started
+                again (``--md-rank``, ``--run-module``), each failing if it
+                imported JAX; the kernels line counts (b)-(e)'s launches as
+                ``multi_device_launches``.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -107,8 +133,10 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1317,6 +1345,18 @@ def phase_mel_kernel(report):
 EVAL_UTTS = 8
 
 
+@contextlib.contextmanager
+def _work_dir(name):
+    """build/<name> under the checkout, emptied first and kept after."""
+    import os
+    import shutil
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    yield work
+
+
 def _read_wav(path):
     from scipy.io import wavfile
     return wavfile.read(path)[1].astype("float32") / 32768.0
@@ -1324,7 +1364,6 @@ def _read_wav(path):
 
 def phase_evaluation(report):
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -1344,7 +1383,8 @@ def phase_evaluation(report):
     cg.generate_steps.launches = 0
     mt.logmelspectrogram_cuda.launches = 0
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    # under build/, kept after the phase: phase 12 evaluates its dump again
+    with _work_dir("chip_smoke_eval") as tmp:
         wav_dir, dump = os.path.join(tmp, "wavs"), os.path.join(tmp, "dump")
         exp, out = os.path.join(tmp, "exp"), os.path.join(tmp, "eval")
         os.makedirs(wav_dir)
@@ -1448,7 +1488,8 @@ def phase_evaluation(report):
     report["evaluation"] = dict(
         evaluate_s=eval_s, synthesis_s=synth_s, mel_ms=mel_ms, gen_ms=gen_ms,
         launches=launches, dump_err=dump_err, host_err=host_err,
-        plain_err=plain_err, total_s=time.perf_counter() - t_phase)
+        plain_err=plain_err, total_s=time.perf_counter() - t_phase,
+        dump=dump, checkpoint=path)
     return launches
 
 
@@ -1809,6 +1850,518 @@ def phase_loop(report):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 12: multi-device
+# ----------------------------------------------------------------------
+# (a) the training kernels with the dropout key's row offset
+MD_KERNEL_B, MD_KERNEL_T, MD_B0, MD_DROP = 4, 3000, 4, 0.05
+# (b) two ranks on the card: rows of a global batch of 8, unequal lengths
+MD_RANKS, MD_STEPS, MD_SEED = 2, 3, 4242
+MD_LENGTHS = (10240, 9001, 10240, 7777, 10240, 8888, 10240, 6666)
+# (c) cli.train --distributed at world size 1
+MD_NCCL_STEPS = 10
+# (d) utterance-sharded synthesis: two shards of 16 streams on one card
+MD_SYNTH_B, MD_SYNTH_SEED = 32, 99
+# (e) cli.evaluate over two processes, batches of 4 (as the one process)
+MD_EVAL_BATCH = 4
+MD_TIMEOUT_S = 240
+_PORT_KERNELS = ("train_fwd", "train_bwd", "generate")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch counters of the port, by name."""
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    out = {n: dict(launches=w.launches, tc_launches=w.tc_launches,
+                   fma_launches=w.fma_launches)
+           for n, w in (("train_fwd", ct.train_fwd),
+                        ("train_bwd", ct.train_bwd))}
+    out["generate"] = dict(launches=cg.generate_steps.launches)
+    out["logmel"] = dict(launches=mt.logmelspectrogram_cuda.launches)
+    return out
+
+
+def zero_kernel_counts():
+    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    for w in (ct.train_fwd, ct.train_bwd):
+        w.launches = w.tc_launches = w.fma_launches = 0
+    cg.generate_steps.launches = 0
+    mt.logmelspectrogram_cuda.launches = 0
+
+
+def _add_counts(total, counts):
+    for name in _PORT_KERNELS:
+        for k, v in counts.get(name, {}).items():
+            total[name][k] = total[name].get(k, 0) + v
+
+
+def _self_cmd(*args):
+    return [sys.executable, os.path.abspath(__file__)] + list(args)
+
+
+def _spawn(cmds, tag, env=None):
+    """Run processes of this script together; their outputs, or the phase
+    fails: when one exits with an error (the others are stopped at once,
+    rather than left waiting on a collective) or passes MD_TIMEOUT_S."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(env or os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    logs = [tempfile.TemporaryFile("w+") for _ in cmds]
+    procs = [subprocess.Popen(c, cwd=root, env=env, stdout=log,
+                              stderr=subprocess.STDOUT, text=True)
+             for c, log in zip(cmds, logs)]
+    deadline = time.perf_counter() + MD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f"{tag} exited {p.returncode} (killed past {MD_TIMEOUT_S} s "
+                 f"or beside a failed process if negative):\n{out[-3000:]}")
+    return outs
+
+
+def _launch_line(out, tag):
+    line = [x for x in out.splitlines()
+            if x.startswith("[run-module] kernel launches ")]
+    if not line:
+        fail(f"{tag}: no kernel launch line:\n{out[-2000:]}")
+    return json.loads(line[-1][len("[run-module] kernel launches "):])
+
+
+def run_module(argv):
+    """``--run-module MOD ARGS``: run a CLI module of the port as ``python
+    -m`` would, print its kernel launches, and exit 4 if it imported JAX."""
+    import runpy
+    sys.argv = list(argv)
+    runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+    print("[run-module] kernel launches " + json.dumps(kernel_counts()),
+          flush=True)
+    if "jax" in sys.modules or "wavenet_vocoder_tpu" in sys.modules:
+        print("chip_smoke: the port pulled in JAX", file=sys.stderr)
+        return 4
+    return 0
+
+
+def md_batch(cfg):
+    """phase 6's batch (bench.py's) at B=8, with unequal valid lengths."""
+    import numpy as np
+    b = train_batch(cfg, 8)
+    b["input_lengths"] = np.asarray(MD_LENGTHS, np.int32)
+    return b
+
+
+def md_steps(group, rank, world, out_dir, tag):
+    """MD_STEPS bf16 train steps of the flagship (fused, dropout 0.05) on
+    this rank's rows of md_batch, every rank drawing the same dropout seed
+    per step; writes the initial parameters, the first step's gradients and
+    the final parameters to out_dir and returns the losses, norms and
+    launches."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.parallel import replicate_global
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(fused_train=True, dropout=MD_DROP)
+    state = create_train_state(cfg)
+    if group is not None:
+        replicate_global(state)     # rank 0's state on every rank
+    step, _ = make_train_step(cfg, group=group)
+    params = lambda: {k: p.detach().cpu() for k, p in
+                      state.model.named_parameters()}
+    torch.save(params(), os.path.join(out_dir, f"{tag}.init.pt"))
+    batch = md_batch(cfg)
+    n = len(batch["x"]) // world
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    before = {n_: (w.launches, w.tc_launches)
+              for n_, w in (("train_fwd", ct.train_fwd),
+                            ("train_bwd", ct.train_bwd))}
+    losses, norms = [], []
+    for i in range(MD_STEPS):
+        m = step(state, local, torch.Generator().manual_seed(MD_SEED + i))
+        if i == 0:
+            torch.save({k: p.grad.detach().cpu() for k, p in
+                        state.model.named_parameters()},
+                       os.path.join(out_dir, f"{tag}.grads.pt"))
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    torch.save(params(), os.path.join(out_dir, f"{tag}.params.pt"))
+    launched = {n_: [w.launches - before[n_][0], w.tc_launches - before[n_][1]]
+                for n_, w in (("train_fwd", ct.train_fwd),
+                              ("train_bwd", ct.train_bwd))}
+    return dict(losses=[float(v) for v in losses],
+                grad_norms=[float(v) for v in norms], launched=launched,
+                L=state.model.spec.layers, T=cfg.max_time_steps)
+
+
+def md_rank_worker(rank, port, out_dir):
+    """One of phase 12 (b)'s ranks: gloo on cuda:0 beside the other."""
+    import torch.distributed as dist
+
+    from wavenet_vocoder_tpu_torch.parallel import initialize_distributed
+    initialize_distributed(f"127.0.0.1:{port}", MD_RANKS, rank,
+                           local_device_ids="0", backend="gloo",
+                           timeout_s=MD_TIMEOUT_S)
+    res = md_steps(dist.group.WORLD, rank, MD_RANKS, out_dir, f"rank{rank}")
+    res["jax_loaded"] = ("jax" in sys.modules
+                         or "wavenet_vocoder_tpu" in sys.modules)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _md_kernels(report):
+    """(a): the training kernels at b0 against their plain versions at b0,
+    and against rows b0.. of a launch over all 8 rows at b0=0."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+    _, model = _flagship_model("cuda", 12)
+    spec = model.spec
+    B, T, b0 = MD_KERNEL_B, MD_KERNEL_T, MD_B0
+    rows_out, failures = [], []
+    for i, dname in enumerate(("bfloat16", "float32")):
+        dtype, tol = getattr(torch, dname), TRAIN_TOL[dname]
+        inputs, dskips = _stack_case(model, B + b0, T, dtype, False,
+                                     seed=60 + i)
+        x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+        rows = slice(b0, b0 + B)
+        part = (x0[rows].contiguous(), c[rows].contiguous(), None, w_in,
+                b_in, w_cond, w_og, b_og)
+        kw = dict(dils=spec.dilations, k=spec.kernel_size, drop=MD_DROP,
+                  seed=-4242 + i)
+        with torch.no_grad():
+            skips, _ = ct.train_fwd(*part, **kw, b0=b0)
+            skips_p, xs_p = ft.fused_res_stack_fwd_plain(*part, **kw, b0=b0)
+            skips_all, xs_all = ct.train_fwd(*inputs, **kw)
+            args = (dskips[rows].contiguous(), xs_p, part[1], None, w_in,
+                    b_in, w_cond, w_og, b_og)
+            got = ct.train_bwd(*args, **kw, b0=b0)
+            want = ft.fused_res_stack_bwd_plain(*args, **kw, b0=b0)
+            got_all = ct.train_bwd(dskips, xs_all, c, None, w_in, b_in,
+                                   w_cond, w_og, b_og, **kw)
+            torch.cuda.synchronize()
+        outs = [_compare("skips", skips, skips_p, tol)]
+        outs += [_compare(n, a, b, tol) for n, a, b in
+                 zip(GRAD_NAMES, got, want) if b is not None]
+        rows8 = [_compare("skips vs rows of B=8", skips, skips_all[rows], tol),
+                 _compare("dx0 vs rows of B=8", got[0], got_all[0][rows], tol),
+                 _compare("dc vs rows of B=8", got[1], got_all[1][rows], tol)]
+        line = (f"[multi-device] (a) {dname} B={B} T={T} dropout {MD_DROP} "
+                f"b0={b0}, tol {tol}: kernel vs plain "
+                + ", ".join(f"{o['name']} {o['rel']:.2e}" for o in outs)
+                + "; kernel at b0 vs rows " + f"{b0}..{b0 + B - 1} of a B="
+                f"{B + b0} b0=0 launch: "
+                + ", ".join(f"{o['name'].split()[0]} {o['rel']:.2e}"
+                            for o in rows8))
+        print(line, flush=True)
+        failures += [f"{o['name']}: {line}" for o in outs + rows8
+                     if not o["ok"]]
+        rows_out.append(dict(dtype=dname, tol=tol, vs_plain=outs,
+                             vs_rows=rows8))
+        del inputs, dskips, got, want, got_all, xs_all, xs_p
+        torch.cuda.empty_cache()
+    report["kernels_b0"] = rows_out
+    if failures:
+        fail("the training kernels at a row offset disagree:\n"
+             + "\n".join(failures))
+
+
+def _md_ranks(report, work, total):
+    """(b): two gloo ranks on the card against one process at B=8."""
+    import torch
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([_self_cmd("--md-rank", str(r), "--md-port", str(port),
+                      "--md-dir", work) for r in range(MD_RANKS)],
+           "phase 12 (b) ranks")
+    ranks_s = time.perf_counter() - t0
+    res = [json.load(open(os.path.join(work, f"rank{r}.json")))
+           for r in range(MD_RANKS)]
+    single = md_steps(None, 0, 1, work, "single")
+    for r in res:
+        _add_counts(total, {k: dict(launches=v[0], tc_launches=v[1])
+                            for k, v in r["launched"].items()})
+    load = lambda tag, kind: torch.load(os.path.join(work,
+                                                     f"{tag}.{kind}.pt"))
+    p0, p1, ps = (load(t, "params") for t in ("rank0", "rank1", "single"))
+    unequal = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    g0, gs = load("rank0", "grads"), load("single", "grads")
+    # phase 6's leaf measure on the first step's (all-reduced) gradients
+    gscale = {n: float(g.abs().max()) for n, g in gs.items()}
+    floor = 1e-6 * max(gscale.values())
+    grad_rel = {n: float((g0[n] - g).abs().max()) / max(gscale[n], floor)
+                for n, g in gs.items()}
+    # every parameter is held by its gradient from one state (above, phase
+    # 6's measure). What the parameters drifted apart after MD_STEPS steps
+    # is printed, not held: Adam divides each gradient by its own size, so
+    # the bf16 noise of small gradients moves elements by up to ~0.2 lr
+    # (8-21% of some leaves' update, run to run), and a leaf whose gradient
+    # is below the floor (the last layer's unused residual output;
+    # first_conv.weight_v, whose gradient weight norm projects out) moves by
+    # Adam's reading of rounding noise alone
+    p_init = load("single", "init")
+    noise = sorted(n for n in ps if gscale[n] < floor)
+    update_rel = {n: float((p0[n] - p).norm())
+                  / max(float((p - p_init[n]).norm()), 1e-30)
+                  for n, p in ps.items() if n not in noise}
+    param_rel = {n: float((p0[n] - p).abs().max())
+                 / max(float(p.abs().max()), 1e-30) for n, p in ps.items()}
+    tol = STEP_TOL["bfloat16"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(res[0]["losses"],
+                                                    single["losses"])]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(res[0]["grad_norms"],
+                                                    single["grad_norms"])]
+    L = single["L"]
+    want = {"train_fwd": [L * MD_STEPS] * 2,
+            "train_bwd": [3 * L * MD_STEPS] * 2}
+    worst_g = max(grad_rel.items(), key=lambda kv: kv[1])
+    top_u = sorted(update_rel.items(), key=lambda kv: -kv[1])[:4]
+    worst_u = top_u[0]
+    worst_p = max(param_rel.items(), key=lambda kv: kv[1])
+    print(f"[multi-device] (b) {MD_RANKS} gloo ranks on cuda:0, 4 rows each "
+          f"of B=8 T={single['T']} (lengths {list(MD_LENGTHS)}), bf16, "
+          f"dropout {MD_DROP}, {MD_STEPS} steps in {ranks_s:.1f} s: losses "
+          f"{[round(v, 6) for v in res[0]['losses']]} (one process "
+          f"{[round(v, 6) for v in single['losses']]}, rel "
+          f"{max(loss_rel):.2e}, tol {tol['loss']}); grad norm rel by step "
+          f"{[f'{v:.2e}' for v in norm_rel]} (tol {tol['grad_norm']} at step "
+          f"1, from one state; x10 after, at weights that carry the earlier "
+          f"updates' bf16 noise); step-1 gradients "
+          f"worst leaf {worst_g[0]} {worst_g[1]:.2e} (tol {tol['leaf']}); "
+          f"parameters after {MD_STEPS} steps (not held), |diff| / |update| "
+          f"(L2) worst " + ", ".join(f"{n} {v:.2e}" for n, v in top_u)
+          + f" (gradient below the floor: {noise}), max "
+          f"|diff| / max |p| worst {worst_p[0]} {worst_p[1]:.2e}; ranks' "
+          f"parameters bitwise equal: "
+          f"{not unequal} ({len(p0)} tensors); launches rank0 "
+          f"{res[0]['launched']} rank1 {res[1]['launched']} one process "
+          f"{single['launched']} ([all, tensor-core], expected {want} per "
+          f"run at half or whole batch)", flush=True)
+    if any(r["jax_loaded"] for r in res):
+        fail("a rank imported JAX")
+    if unequal:
+        fail(f"the ranks' parameters differ: {unequal[:5]}")
+    for r in res + [single]:
+        if r["launched"] != want:
+            fail(f"launches {r['launched']}, expected all on the tensor "
+                 f"cores {want}")
+    if not (max(loss_rel) <= tol["loss"] and norm_rel[0] <= tol["grad_norm"]
+            and max(norm_rel) <= 10 * tol["grad_norm"]
+            and worst_g[1] <= tol["leaf"]):
+        fail("two ranks disagree with one process beyond STEP_TOL")
+    return dict(losses=res[0]["losses"], single_losses=single["losses"],
+                loss_rel=max(loss_rel), grad_norm_rel=norm_rel,
+                worst_grad_leaf=worst_g, worst_update_leaf=worst_u,
+                worst_param_leaf=worst_p,
+                ranks_equal=not unequal, launched=[r["launched"] for r in res],
+                single_launched=single["launched"], ranks_s=ranks_s)
+
+
+def _md_nccl(report, work, total):
+    """(c): cli.train --distributed through NCCL at world size 1, torchrun's
+    variables in its environment, on phase 11's dump."""
+    import numpy as np
+
+    from wavenet_vocoder_tpu_torch.config import load_config
+    from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    loop = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_loop")
+    dump, preset = os.path.join(loop, "dump"), os.path.join(loop,
+                                                            "preset.json")
+    exp = os.path.join(work, "exp_nccl")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    out = _spawn([_self_cmd(
+        "--run-module", "wavenet_vocoder_tpu_torch.cli.train", "--distributed",
+        "--dump-root", dump, "--checkpoint-dir", exp, "--preset", preset,
+        "--max-train-steps", str(MD_NCCL_STEPS))], "phase 12 (c) cli.train",
+        env=env)[0]
+    cli_s = time.perf_counter() - t0
+    counts = _launch_line(out, "phase 12 (c)")
+    _add_counts(total, counts)
+    metrics = _read_metrics(os.path.join(exp, "log", "metrics.jsonl"))
+    losses = [metrics["train/loss"][k] for k in sorted(metrics["train/loss"])]
+    step_ms = 1e3 * metrics["train/step_time_s"][MD_NCCL_STEPS]
+    _, counters = ckpt.load_params(ckpt.latest_path(exp),
+                                   spec_from_config(load_config(preset)))
+    synth7 = report["train_timing"]["steps"][8]["median_ms"]
+    loop11 = report["loop"]["times"]["prefetch"]["median_ms"]
+    gpu = gpu_name_and_limit()
+    print(f"[multi-device] (c) {gpu}: cli.train --distributed (NCCL, world "
+          f"size 1, torchrun's variables) {MD_NCCL_STEPS} steps from phase "
+          f"11's dump in {cli_s:.1f} s: 'distributed: process 0/1' "
+          f"{'printed' if 'distributed: process 0/1' in out else 'MISSING'};"
+          f" logged losses {[round(v, 4) for v in losses]}; step "
+          f"{MD_NCCL_STEPS} {step_ms:.1f} ms on the host's clock (phase 7 "
+          f"synthetic B=8 step {synth7:.1f} ms, phase 11 loop step "
+          f"{loop11:.1f} ms); checkpoint at step {counters['global_step']}; "
+          f"launches {counts}", flush=True)
+    if "distributed: process 0/1" not in out:
+        fail("cli.train did not join the process group")
+    if (not np.isfinite(losses).all()
+            or counters["global_step"] != MD_NCCL_STEPS):
+        fail(f"cli.train --distributed: losses {losses}, checkpoint "
+             f"{counters}")
+    return dict(cli_s=cli_s, losses=losses, step_ms=step_ms,
+                synthetic_step_ms=synth7, loop_step_ms=loop11, gpu=gpu,
+                launches=counts)
+
+
+def _md_synthesis(report):
+    """(d): a mesh record listing cuda:0 twice: sharded == unsharded in
+    deterministic mode, shard i == its rows alone with seed + i sampled."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.parallel import Mesh
+    from wavenet_vocoder_tpu_torch.synthesis import Synthesizer
+    cfg, model = _flagship_model("cuda", 13)
+    devs = np.empty(2, dtype=object)
+    devs[:] = [torch.device("cuda", 0)] * 2
+    mesh = Mesh(("data",), devs)
+    frames = cfg.sample_rate // cfg.hop_size
+    rs = np.random.RandomState(14)
+    mel = rs.randn(MD_SYNTH_B, frames, cfg.num_mels).astype(np.float32)
+    t0 = time.perf_counter()
+    one = Synthesizer(model, cfg, engine="cuda")
+    two = Synthesizer(model, cfg, engine="cuda", mesh=mesh)
+    det1 = one(mel, deterministic=True)
+    det2 = two(mel, deterministic=True)
+    det_equal = int((det1 == det2).all(axis=1).sum())
+    c = torch.from_numpy(mel).cuda()
+    c = torch.cat([c[:, :1].expand(-1, cfg.cin_pad, -1), c,
+                   c[:, -1:].expand(-1, cfg.cin_pad, -1)], dim=1)
+    shard = MD_SYNTH_B // 2
+    sampled = cg.FusedGenerator(model, mesh=mesh)(c=c, seed=MD_SYNTH_SEED)
+    gen = cg.FusedGenerator(model)
+    alone = [gen(c=c[i * shard:(i + 1) * shard], seed=MD_SYNTH_SEED + i)
+             for i in range(2)]
+    torch.cuda.synchronize()
+    samp_equal = [bool(torch.equal(sampled[i * shard:(i + 1) * shard], a))
+                  for i, a in enumerate(alone)]
+    secs = time.perf_counter() - t0
+    print(f"[multi-device] (d) mesh [cuda:0, cuda:0], flagship bf16 pack, "
+          f"B={MD_SYNTH_B} x {det1.shape[1]} samples: deterministic "
+          f"sharded == unsharded in {det_equal}/{MD_SYNTH_B} utterances "
+          f"(every sample); sampling, shard i == its rows alone with seed + "
+          f"i: {samp_equal}; {secs:.1f} s", flush=True)
+    if det_equal != MD_SYNTH_B or not all(samp_equal):
+        fail("sharded synthesis differs from unsharded")
+    if not (np.isfinite(det2).all() and float(det2.std()) > 0.0):
+        fail("sharded synthesis audio is not finite")
+    return dict(det_equal=det_equal, samp_equal=samp_equal, s=secs,
+                samples=int(det1.shape[1]))
+
+
+def _md_evaluation(report, work, total):
+    """(e): cli.evaluate --distributed over two gloo processes on the card
+    with phase 9's dump and checkpoint, against one process."""
+    import numpy as np
+
+    from wavenet_vocoder_tpu_torch.cli import evaluate
+    ev = report["evaluation"]
+    dump, path = ev["dump"], ev["checkpoint"]
+    out2, out1 = os.path.join(work, "eval2"), os.path.join(work, "eval1")
+    common = ["--batch-size", str(MD_EVAL_BATCH), "--deterministic"]
+    port = _free_port()
+    t0 = time.perf_counter()
+    outs = _spawn([_self_cmd(
+        "--run-module", "wavenet_vocoder_tpu_torch.cli.evaluate", dump, path,
+        out2, *common, "--coordinator-address", f"127.0.0.1:{port}",
+        "--num-processes", "2", "--process-id", str(i),
+        "--local-device-ids", "0", "--dist-backend", "gloo")
+        for i in range(2)], "phase 12 (e) cli.evaluate")
+    two_s = time.perf_counter() - t0
+    for i, out in enumerate(outs):
+        _add_counts(total, _launch_line(out, f"phase 12 (e) process {i}"))
+    evaluate.main([dump, path, out1] + common)
+    lists = [open(os.path.join(out2, f"eval_manifest.proc{i}.txt")).read()
+             .split() for i in range(2)]
+    whole = open(os.path.join(out1, "eval_manifest.txt")).read().split()
+    disjoint = not set(lists[0]) & set(lists[1])
+    complete = sorted(lists[0] + lists[1]) == sorted(whole)
+    same = [n for n in whole if np.array_equal(
+        _read_wav(os.path.join(out1, n)), _read_wav(os.path.join(out2, n)))]
+    print(f"[multi-device] (e) cli.evaluate --distributed, 2 gloo processes "
+          f"on cuda:0, batches of {MD_EVAL_BATCH}, deterministic: manifests "
+          f"{[len(x) for x in lists]} utterances, disjoint {disjoint}, union "
+          f"== one process's {len(whole)}: {complete}; audio equal to one "
+          f"process in {len(same)}/{len(whole)} utterances; {two_s:.1f} s",
+          flush=True)
+    if not (disjoint and complete and len(same) == len(whole)
+            and len(whole) == EVAL_UTTS):
+        fail("distributed evaluation is not the one-process evaluation "
+             "split in two")
+    return dict(manifests=lists, disjoint=disjoint, complete=complete,
+                equal=len(same), s=two_s)
+
+
+def phase_multi_device(report):
+    """Phase 12; returns the launches of rows 1-3 over (b)-(e)."""
+    import torch
+    t_phase = time.perf_counter()
+    _md_kernels(report)
+    torch.cuda.empty_cache()
+    total = {n: {} for n in _PORT_KERNELS}
+    with _work_dir("chip_smoke_md") as work:
+        zero_kernel_counts()
+        ranks = _md_ranks(report, work, total)
+        torch.cuda.empty_cache()
+        nccl = _md_nccl(report, work, total)
+        synth = _md_synthesis(report)
+        torch.cuda.empty_cache()
+        evals = _md_evaluation(report, work, total)
+        # this process's launches: (b)'s one process, (d), (e)'s one
+        # process; the other processes' were added as they reported them
+        _add_counts(total, kernel_counts())
+    report["multi_device"] = dict(
+        ranks=ranks, nccl=nccl, synthesis=synth, evaluation=evals,
+        launches=total, total_s=time.perf_counter() - t_phase)
+    print(f"[multi-device] phase 12 in {report['multi_device']['total_s']:.1f}"
+          f" s; launches of (b)-(e) {total}", flush=True)
+    for name in _PORT_KERNELS:
+        if total[name].get("launches", 0) <= 0:
+            fail(f"phase 12 launched no {name}")
+    return total
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -1883,12 +2436,29 @@ def summary_line(report) -> str:
                  f"(phase 7 synthetic {lp['synthetic_step_ms']:.1f} ms), "
                  f"idle {idle:.1%}; f32 prefetch vs not rel "
                  f"{lp['f32_rel']:.2e}")
+    md = report["multi_device"]
+    rk = md["ranks"]
+    parts.append(f"multi-device: 2 gloo ranks on one card vs one process "
+                 f"loss rel {rk['loss_rel']:.2e}, grad norm rel "
+                 f"{max(rk['grad_norm_rel']):.2e}, ranks bitwise equal "
+                 f"{rk['ranks_equal']}; cli.train over NCCL (world 1) step "
+                 f"{md['nccl']['step_ms']:.1f} ms; sharded synthesis equal "
+                 f"{md['synthesis']['det_equal']}/{MD_SYNTH_B}; evaluation "
+                 f"shards {[len(x) for x in md['evaluation']['manifests']]}"
+                 f" equal {md['evaluation']['equal']}/{EVAL_UTTS}; phase "
+                 f"{md['total_s']:.1f} s")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="write the full report as JSON here")
+    # what phase 12 starts this script as, in processes of their own
+    ap.add_argument("--md-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--md-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--md-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--run-module", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1902,6 +2472,10 @@ def main() -> int:
     if "jax" in sys.modules or "wavenet_vocoder_tpu" in sys.modules:
         print("chip_smoke: the port pulled in JAX", file=sys.stderr)
         return 4
+    if args.run_module:
+        return run_module(args.run_module)
+    if args.md_rank is not None:
+        return md_rank_worker(args.md_rank, args.md_port, args.md_dir)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     report = {}
@@ -1941,6 +2515,13 @@ def main() -> int:
             key = line["name"][3:]          # wn_train_fwd -> train_fwd
             line["loop_launches"] = loop_launches[key]["launches"]
             line["loop_tc_launches"] = loop_launches[key]["tc_launches"]
+        phase = "multi-device"
+        md = phase_multi_device(report)
+        kernel_line["multi_device_launches"] = md["generate"]["launches"]
+        for line in train_lines:
+            key = line["name"][3:]
+            line["multi_device_launches"] = md[key]["launches"]
+            line["multi_device_tc_launches"] = md[key]["tc_launches"]
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

@@ -244,8 +244,17 @@ def test_evaluate_cli_speaker_prefixed_names(work, tmp_path):
 @pytest.mark.parametrize("flag", [["--mesh"], ["--distributed"],
                                   ["--num-processes", "2"]],
                          ids=["mesh", "distributed", "num_processes"])
-def test_evaluate_cli_multi_device_flags_raise(work, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+def test_evaluate_cli_multi_device_flags_raise(work, tmp_path, flag,
+                                               monkeypatch):
+    """The multi-device flags raise, before anything is written, where
+    they cannot work: --mesh shards over the GPUs and takes no --device; a
+    process group needs its address, size and rank (flags or torchrun's
+    environment)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    match = "--mesh" if flag == ["--mesh"] else "torchrun"
+    with pytest.raises(ValueError, match=match):
         evaluate([work["dump"], work["ckpt"], str(tmp_path / "e"),
                   "--device", "cpu"] + flag)
     assert not (tmp_path / "e").exists()

@@ -274,7 +274,7 @@ def _assert_launched(before, n_fwd, n_bwd, dtype):
         assert d == want, (name, d, want)
 
 
-def _check_train_kernels(width, dt, drop, glob, cond, B, T):
+def _check_train_kernels(width, dt, drop, glob, cond, B, T, b0=0):
     """Forward (skips, x_l stash) and backward (all eight gradients) against
     the plain versions on the same inputs. The backward gets the plain
     forward's stash on both sides. Tolerance per output, relative to its
@@ -283,7 +283,7 @@ def _check_train_kernels(width, dt, drop, glob, cond, B, T):
     rounding of gated or dz)."""
     tol = 1e-4 if dt == torch.float32 else 2e-2
     inputs, dskips, dils = _stack_inputs(width, dt, glob, cond, B=B, T=T)
-    kw = dict(dils=dils, k=3, drop=drop, seed=-12345)
+    kw = dict(dils=dils, k=3, drop=drop, seed=-12345, b0=b0)
     before = _launch_counts()
     skips, xs = ct.train_fwd(*inputs, **kw)
     _assert_launched(before, len(dils), 0, dt)
@@ -335,6 +335,41 @@ def test_train_kernels_match_plain_flagship_chunks(cuda, dtype, drop):
                            sms, bf16)
     assert 3003 % chunk % 32 != 0 and 1001 % chunk != 0
     _check_train_kernels("flagship", dt, drop, True, True, B=3, T=1001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", ["small", "flagship", "ragged"])
+def test_train_kernels_row_offset_matches_plain(cuda, width, dtype):
+    """The dropout key's row offset b0 (a data-parallel rank's first global
+    row): the kernels at b0=4 against the plain versions at b0=4, and on
+    rows 4..7 against rows 4..7 of a B=8, b0=0 launch on the same inputs
+    (skips, stash and the per-row gradients dx0, dc, dgb), at the kernel
+    tests' tolerances."""
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    _check_train_kernels(width, dt, 0.2, True, True, B=4, T=130, b0=4)
+    inputs, dskips, dils = _stack_inputs(width, dt, True, True, B=8, T=130,
+                                         seed=3)
+    kw = dict(dils=dils, k=3, drop=0.2, seed=-12345)
+    rows = slice(4, 8)
+    x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+    part = (x0[rows].contiguous(), c[rows].contiguous(),
+            gb[:, rows].contiguous(), w_in, b_in, w_cond, w_og, b_og)
+    skips8, xs8 = ct.train_fwd(*inputs, **kw)
+    skips4, xs4 = ct.train_fwd(*part, **kw, b0=4)
+    skips_off, _ = ct.train_fwd(*part, **kw)       # rank 0's keys
+    g8 = ct.train_bwd(dskips, xs8, c, gb, w_in, b_in, w_cond, w_og, b_og,
+                      **kw)
+    g4 = ct.train_bwd(dskips[rows].contiguous(), xs4, part[1], part[2],
+                      w_in, b_in, w_cond, w_og, b_og, **kw, b0=4)
+    torch.cuda.synchronize()
+    assert _rel_err(skips4, skips8[rows]) <= tol
+    assert _rel_err(xs4, xs8[:, rows]) <= tol
+    assert _rel_err(skips_off, skips8[rows]) > 1e-3
+    for name, a, b in (("dx0", g4[0], g8[0][rows]), ("dc", g4[1], g8[1][rows]),
+                       ("dgb", g4[2], g8[2][:, rows])):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
 
 
 @pytest.mark.cuda

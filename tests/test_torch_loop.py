@@ -197,8 +197,8 @@ def test_interrupted_run_writes_its_final_checkpoint(runs, tmp_path,
     cfg = runs["cfg"]
     real = loop.make_train_step
 
-    def interrupting(c):
-        step, ev = real(c)
+    def interrupting(c, **kw):
+        step, ev = real(c, **kw)
         calls = []
 
         def train_step(state, batch, gen=None):

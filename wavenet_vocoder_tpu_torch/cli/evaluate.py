@@ -2,14 +2,24 @@
 
     python -m wavenet_vocoder_tpu_torch.cli.evaluate DUMP_DIR CHECKPOINT \
         OUT_DIR [--preset JSON] [--hparams "k=v"] [--num-utterances N] \
-        [--batch-size N] [--speaker-id N] [--seed N] \
-        [--engine auto|scan|cuda] [--device DEVICE]
+        [--batch-size N] [--speaker-id N] [--seed N] [--deterministic] \
+        [--engine auto|scan|cuda] [--device DEVICE] [--mesh] \
+        [--distributed | --coordinator-address H:P --num-processes N \
+         --process-id I] [--local-device-ids I] [--dist-backend nccl|gloo]
 
 The port's counterpart of ``wavenet_vocoder_tpu/cli/evaluate.py``, with the
-same arguments and outputs. It runs on the GPU unless ``--device`` names
-another device. Writes paired {name}_gen.wav / {name}_ref.wav (reference:
-evaluate.py:208-253); mel-only dirs (no *-wave.npy) synthesize from features
-alone (reference: evaluate.py:51-78 dummy_collate).
+same arguments and outputs, plus ``--device``, ``--deterministic`` (argmax /
+mean instead of sampling) and the process-group flags of cli.train. It runs
+on the GPU unless ``--device`` names another device. Writes paired
+{name}_gen.wav / {name}_ref.wav (reference: evaluate.py:208-253); mel-only
+dirs (no *-wave.npy) synthesize from features alone (reference:
+evaluate.py:51-78 dummy_collate).
+
+``--mesh`` splits each batch over the local GPUs (the tail padded with
+copies of the last utterance). ``--distributed`` (torchrun, or the address
+flags) gives process i every n-th utterance of the length-sorted list from
+the i-th; each process writes its own utterances and
+``eval_manifest.proc{i}.txt``. The processes exchange nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from glob import glob
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wavenet_vocoder_tpu_torch.cli.synthesis import (
     ENGINE_CHOICES,
@@ -27,11 +38,8 @@ from wavenet_vocoder_tpu_torch.cli.synthesis import (
 )
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.ops.mulaw import inv_mulaw, inv_mulaw_quantize
+from wavenet_vocoder_tpu_torch.parallel import distributed as pdist
 from wavenet_vocoder_tpu_torch.synthesis import Synthesizer, pad_mel_context
-
-_MULTI_DEVICE = ("{} is not available in the PyTorch port yet: it belongs to "
-                 "the multi-device slice of the port (see ROADMAP.md). Run "
-                 "without it on one device.")
 
 
 def main(argv=None) -> None:
@@ -45,6 +53,8 @@ def main(argv=None) -> None:
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--speaker-id", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--deterministic", action="store_true",
+                   help="argmax / mean outputs instead of sampling")
     p.add_argument("--verbose", type=int, default=0,
                    help="verbosity level (reference: evaluate.py:15, 97-102)")
     # accepted for reference-CLI compatibility: the reference parses these
@@ -69,26 +79,27 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; fails "
                         "without a GPU)")
-    # parsed as the JAX package's CLI parses them; both raise until the
-    # multi-device slice is ported
     p.add_argument("--mesh", action="store_true",
-                   help="shard utterance batches over all local devices "
-                        "(not ported yet: raises)")
-    p.add_argument("--distributed", action="store_true",
-                   help="join a multi-process cluster (not ported yet: "
-                        "raises)")
-    p.add_argument("--coordinator-address", default=None,
-                   help="host:port of process 0 (implies --distributed)")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+                   help="shard utterance batches over the local GPUs (data "
+                        "axis; both engines)")
+    pdist.add_cli_flags(p)
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MULTI_DEVICE.format("--mesh"))
-    if (args.distributed or args.coordinator_address is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(_MULTI_DEVICE.format("--distributed"))
+    if args.mesh and args.device is not None:
+        raise ValueError("--mesh shards over the local GPUs; it does not "
+                         "take --device")
     engine = resolve_engine(args.engine)
+    pidx, pcount = pdist.initialize_from_args(args)
+    try:
+        _evaluate(args, engine, pidx, pcount)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _evaluate(args, engine: str, pidx: int, pcount: int) -> None:
+    device = args.device
+    if pcount > 1 and device is None and torch.cuda.is_available():
+        device = pdist.process_device()
 
     if args.verbose > 0:
         print(f"dump_dir={args.dump_dir} checkpoint={args.checkpoint} "
@@ -107,7 +118,16 @@ def main(argv=None) -> None:
     os.makedirs(args.out_dir, exist_ok=True)
     # move the model and (for cuda) pack the kernel's weights ONCE across
     # all batches (make_generation_fast_; reference: synthesis.py:48-49)
-    synth = Synthesizer(model, cfg, engine=engine, device=args.device)
+    mesh, n_dev = None, 1
+    if args.mesh:
+        from wavenet_vocoder_tpu_torch.parallel import make_mesh
+        # one process per device: under --distributed a process meshes its
+        # own GPU; the processes stay independent
+        mesh = make_mesh({"data": -1}, devices=(
+            [pdist.process_device()] if pcount > 1 else None))
+        n_dev = mesh.shape["data"]
+        print(f"Sharding utterance batches over {n_dev} devices")
+    synth = Synthesizer(model, cfg, engine=engine, device=device, mesh=mesh)
 
     feats = sorted(glob(os.path.join(args.dump_dir, "*-feats.npy")))
     if not feats:
@@ -144,6 +164,12 @@ def main(argv=None) -> None:
         n_frames = {f: int(np.load(f, mmap_mode="r").shape[0])
                     for f in feats}
         feats = sorted(feats, key=lambda f: (n_frames[f], f))
+    if pcount > 1:
+        # disjoint per-process stride after the length sort, so every
+        # process gets a mix of lengths; no truncation: the processes run
+        # no collectives to keep in step
+        feats = feats[pidx::pcount]
+        print(f"process {pidx}: {len(feats)} utterances")
     hop = audio.get_hop_size(cfg)
     mu = cfg.quantize_channels - 1
 
@@ -174,11 +200,19 @@ def main(argv=None) -> None:
                             for f in chunk], np.int32)
         else:
             g = None
+        if len(mels) % n_dev:
+            # the mesh split needs batch % devices == 0: replicate-pad the
+            # tail rows and drop their outputs below
+            pad_n = n_dev - len(mels) % n_dev
+            c = np.concatenate([c] + [c[-1:]] * pad_n, axis=0)
+            if g is not None:
+                g = np.concatenate([g, np.repeat(g[-1:], pad_n)])
         # one random stream per batch, keyed on the seed and the batch's
         # first utterance index
         gen = torch.Generator(device=synth.device).manual_seed(
             args.seed * 1000003 + i)
-        wavs = synth(c, g=g, generator=gen, pad_context=False)
+        wavs = synth(c, g=g, generator=gen, pad_context=False,
+                     deterministic=args.deterministic)[:len(mels)]
         for j, fpath in enumerate(chunk):
             name = out_name(fpath)
             T_j = mels[j].shape[0] * hop
@@ -204,7 +238,11 @@ def main(argv=None) -> None:
         if not args.output_html:
             print(f"[{min(i + batch_size, len(feats))}/{len(feats)}] done")
 
-    with open(os.path.join(args.out_dir, "eval_manifest.txt"), "w") as f:
+    # one process writes eval_manifest.txt; under --distributed each writes
+    # the manifest of its own (disjoint) shard only
+    mname = ("eval_manifest.txt" if pcount == 1
+             else f"eval_manifest.proc{pidx}.txt")
+    with open(os.path.join(args.out_dir, mname), "w") as f:
         f.write("".join(f"{out_name(fpath)}_gen.wav\n" for fpath in feats))
 
 

@@ -4,25 +4,35 @@
         --checkpoint-dir DIR [--preset JSON] [--hparams "k=v,..."] \
         [--checkpoint PATH] [--restore-parts PATH] [--reset-optimizer] \
         [--speaker-id N] [--log-event-path DIR] [--max-train-steps N] \
-        [--device DEVICE]
+        [--device DEVICE] [--no-mesh] [--distributed] \
+        [--coordinator-address HOST:PORT --num-processes N --process-id I] \
+        [--local-device-ids I] [--dist-backend nccl|gloo]
 
 The port's counterpart of ``wavenet_vocoder_tpu/cli/train.py``, with the
-same flags plus ``--device``. It trains on the GPU unless ``--device`` names
-another device. One device only: ``--distributed`` and its address flags
-raise until the multi-device slice of the port; ``--no-mesh`` is accepted
-and changes nothing. At the end it prints the kernel launches of the run.
+same flags plus ``--device``, ``--local-device-ids`` and ``--dist-backend``.
+It trains on the GPU unless ``--device`` names another device.
+
+Data parallelism runs one process per GPU. Under torchrun,
+``torchrun --nproc-per-node N -m wavenet_vocoder_tpu_torch.cli.train
+--distributed ...`` joins the ranks from torchrun's environment; elsewhere
+give every process ``--coordinator-address`` (rank 0's host:port),
+``--num-processes`` and its ``--process-id``. Without a process group and
+with several GPUs, the loop spawns one rank per GPU itself unless
+``--no-mesh``. At the end it prints the kernel launches of the run.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-from wavenet_vocoder_tpu_torch.config import config_debug_string, load_config
-from wavenet_vocoder_tpu_torch.training.loop import train_loop
+import torch.distributed as dist
 
-_MULTI_DEVICE = ("{} is not available in the PyTorch port yet: it belongs to "
-                 "the multi-device slice of the port (see ROADMAP.md, Queue A "
-                 "6). Run without it on one device.")
+from wavenet_vocoder_tpu_torch.config import config_debug_string, load_config
+from wavenet_vocoder_tpu_torch.parallel.distributed import (
+    add_cli_flags,
+    initialize_from_args,
+)
+from wavenet_vocoder_tpu_torch.training.loop import train_loop
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,17 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-event-path", default=None)
     p.add_argument("--max-train-steps", type=int, default=None)
     p.add_argument("--no-mesh", action="store_true",
-                   help="disable multi-device data parallelism (one device "
-                        "only in the port: changes nothing)")
-    # parsed as the JAX package's CLI parses them; they raise until the
-    # multi-device slice is ported
-    p.add_argument("--distributed", action="store_true",
-                   help="join a multi-process cluster (not ported yet: "
-                        "raises)")
-    p.add_argument("--coordinator-address", default=None,
-                   help="host:port of process 0 (implies --distributed)")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+                   help="disable multi-device data parallelism")
+    add_cli_flags(p)
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: cuda; fails "
                         "without a GPU)")
@@ -71,26 +72,24 @@ def kernel_launches() -> dict:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for flag, given in (("--distributed", args.distributed),
-                        ("--coordinator-address",
-                         args.coordinator_address is not None),
-                        ("--num-processes", args.num_processes is not None),
-                        ("--process-id", args.process_id is not None)):
-        if given:
-            raise NotImplementedError(_MULTI_DEVICE.format(flag))
+    initialize_from_args(args)
     cfg = load_config(args.preset, args.hparams)
     print(config_debug_string(cfg))
-    train_loop(
-        cfg, args.dump_root, args.checkpoint_dir,
-        log_event_path=args.log_event_path,
-        restore_checkpoint=args.checkpoint,
-        restore_parts_path=args.restore_parts,
-        reset_optimizer=args.reset_optimizer,
-        speaker_id=args.speaker_id,
-        max_steps_override=args.max_train_steps,
-        use_mesh=not args.no_mesh,
-        device=args.device,
-    )
+    try:
+        train_loop(
+            cfg, args.dump_root, args.checkpoint_dir,
+            log_event_path=args.log_event_path,
+            restore_checkpoint=args.checkpoint,
+            restore_parts_path=args.restore_parts,
+            reset_optimizer=args.reset_optimizer,
+            speaker_id=args.speaker_id,
+            max_steps_override=args.max_train_steps,
+            use_mesh=not args.no_mesh,
+            device=args.device,
+        )
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print("[train] kernel launches " + json.dumps(kernel_launches()))
 
 

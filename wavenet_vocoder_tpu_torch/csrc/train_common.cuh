@@ -52,6 +52,8 @@ struct TrainArgs {
   int chunk;              // bwd weight gradients: positions per block
   int key_R;              // R of the dropout key: the model's residual width, which
                           // the wrapper's zero padding of R leaves out
+  int b0;                 // batch row of row 0 in the dropout key: a data-parallel
+                          // rank's global row offset (0 on one device)
 };
 
 namespace wn {
@@ -79,12 +81,13 @@ __device__ __forceinline__ uint32_t mix_bits(uint32_t x) {
   return x;
 }
 
-// dropout_mask of the JAX kernel at one element: row key mix(b ^ seed), then
-// mix(key ^ ((t_key*L + l)*R + r)), kept iff its top 24 bits < thresh, with
-// the model's R (key_R). The time key is the absolute time plus H (the JAX
-// kernels' window offset).
+// dropout_mask of the JAX kernel at one element: row key mix(b_key ^ seed),
+// then mix(key ^ ((t_key*L + l)*R + r)), kept iff its top 24 bits < thresh,
+// with the model's R (key_R). The row key is the global batch row b + b0 (the
+// JAX kernels' [seed, row offset] pair); the time key is the absolute time
+// plus H (the JAX kernels' window offset).
 __device__ __forceinline__ bool keep_bit(const TrainArgs& a, int b, int t, int r) {
-  const uint32_t bkey = mix_bits((uint32_t)b ^ a.seed);
+  const uint32_t bkey = mix_bits((uint32_t)(b + a.b0) ^ a.seed);
   const uint32_t idx =
       ((uint32_t)(t + a.H) * (uint32_t)a.L + (uint32_t)a.l) * (uint32_t)a.key_R + (uint32_t)r;
   return (mix_bits(bkey ^ idx) >> 8) < a.thresh;

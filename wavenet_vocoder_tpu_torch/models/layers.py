@@ -147,18 +147,17 @@ class ResidualConv1dGLU(nn.Module):
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
                 g: Optional[torch.Tensor] = None, *, dropout: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                keep_mask: Optional[torch.Tensor] = None):
         """Batch mode. x: (B, T, R) -> (residual_out, skip), channels-last.
 
         ``dropout > 0`` drops the conv input (not the residual passthrough)
-        with a Bernoulli mask drawn from ``generator``, scaling kept values
-        by 1/keep (reference: modules.py:126-128)."""
+        where ``keep_mask`` (a {0, 1} tensor shaped like x) is 0, scaling
+        kept values by 1/keep (reference: modules.py:126-128)."""
         g_proj = None if g is None else conv1x1(self.conv1x1g, g)
         x_in = x
         if dropout > 0.0:
             keep = 1.0 - dropout
-            u = torch.rand(x.shape, generator=generator, device=x.device)
-            x_in = torch.where(u < keep, x / keep, torch.zeros_like(x))
+            x_in = torch.where(keep_mask > 0, x / keep, torch.zeros_like(x))
         h = self.gated(causal_conv(self.conv, x_in), c, g_proj)
         s = conv1x1(self.conv1x1_skip, h)
         out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF

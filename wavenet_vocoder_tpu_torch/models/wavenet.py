@@ -30,7 +30,11 @@ from wavenet_vocoder_tpu_torch.models.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
 )
-from wavenet_vocoder_tpu_torch.ops.fused_train import fused_res_stack
+from wavenet_vocoder_tpu_torch.ops.fused_train import (
+    dropout_mask,
+    fused_res_stack,
+    stack_receptive,
+)
 
 
 def receptive_field_size(total_layers: int, num_cycles: int, kernel_size: int,
@@ -209,7 +213,7 @@ class WaveNet(nn.Module):
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
                 g: Optional[torch.Tensor] = None, *, train: bool = False,
                 dtype: Optional[torch.dtype] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None, b0: int = 0) -> torch.Tensor:
         """Batch forward (reference: wavenet.py:164-213; the JAX package's
         ``apply_wavenet``).
 
@@ -218,9 +222,13 @@ class WaveNet(nn.Module):
         dtype: compute dtype of the network below the head's output (e.g.
         torch.bfloat16); parameters stay f32 masters. train/seed: conv-input
         dropout of ``spec.dropout`` when ``train`` and a seed is given (an
-        int32 per step: the fused stack's mask key, else the seed of the
-        blocks' torch.Generator). With ``spec.fused_train`` the residual
-        stack runs through ``ops.fused_train.fused_res_stack``.
+        int32 per step). Both paths draw the fused stack's counter-hash mask,
+        keyed on (seed, global batch row, time, layer, channel); b0 is the
+        global row of x's row 0 (a data-parallel rank's offset, as JAX's
+        ``apply_wavenet(mesh=)`` hands each shard its rows), so a rank drops
+        what one device would drop in its rows of the global batch. With
+        ``spec.fused_train`` the residual stack runs through
+        ``ops.fused_train.fused_res_stack``.
         Returns (B, T, out_channels) float32.
         """
         T = x.shape[1]
@@ -242,18 +250,21 @@ class WaveNet(nn.Module):
                 x, c, self.conv_layers, self.spec,
                 g=None if g_vec is None else g_vec.float(),
                 dtype=dtype or torch.float32, dropout=drop,
-                seed=seed if drop > 0 else None)
+                seed=seed if drop > 0 else None, b0=b0)
             out = skips * math.sqrt(1.0 / self.spec.layers)
             out = torch.relu(out if dtype is None else out.to(dtype))
             out = torch.relu(conv1x1(self.last_conv_layers[1], out))
             return conv1x1(self.last_conv_layers[3], out).float()
 
-        gen = None
-        if drop > 0:
-            gen = torch.Generator(device=x.device).manual_seed(int(seed))
+        B, R, L = x.shape[0], self.spec.residual_channels, self.spec.layers
+        H = stack_receptive(self.spec.dilations, self.spec.kernel_size)
         skips = None
-        for blk in self.conv_layers:
-            x, h = blk(x, c, g_exp, dropout=drop, generator=gen)
+        for l, blk in enumerate(self.conv_layers):
+            m = None
+            if drop > 0:
+                m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, b0=b0, t0=H,
+                                 keep=1.0 - drop, device=x.device)
+            x, h = blk(x, c, g_exp, dropout=drop, keep_mask=m)
             skips = h if skips is None else skips + h
         return self.head(skips).float()
 

@@ -663,23 +663,47 @@ generate_steps.launches = 0
 class FusedGenerator:
     """Pack-once, generate-many wrapper around ``generate_steps`` — the
     counterpart of the JAX package's ``PallasGenerator``. Build once per
-    model, call per batch."""
+    model, call per batch.
+
+    ``mesh``: a ``parallel.Mesh`` whose ``data_axis`` lists the devices the
+    utterances are split over (the JAX generator's shard_map dispatch): one
+    weight pack per device, shard i of the batch on the i-th device with
+    seed + i (JAX's ``seed + axis_index``), no communication between the
+    shards. Every shard's launches are issued before any result is waited
+    on. The conditioning is upsampled on the model's device and split."""
 
     def __init__(self, model: WaveNet, *, weight_dtype=torch.bfloat16,
-                 chunk: int = DEFAULT_CHUNK):
+                 chunk: int = DEFAULT_CHUNK, mesh=None,
+                 data_axis: str = "data"):
         self.model = model
         self.spec = model.spec
         self.chunk = int(chunk)
         self.weight_dtype = weight_dtype
         self.packed = pack_weights(model, dtype=weight_dtype)
         self.device = self.packed["w_first"].device
-        # the kernel-side packs, made once for each cluster size the picker
-        # chooses between; the plain version on the CPU needs none
-        self.kpacks = {}
-        if self.device.type == "cuda":
-            for B in (1, 1 << 20):
-                cs = pick_cluster(self.spec, B)[0]
-                self.kpacks[cs] = kernel_pack(self.packed, self.spec, cs)
+        self.mesh = mesh
+        devices = ([self.device] if mesh is None else
+                   [torch.device(d) for d in mesh.axis_devices(data_axis)])
+        # one weight pack (and kernel-side packs) per device; shard i runs
+        # on devices[i]
+        packs = {}
+        for d in devices:
+            if d not in packs:
+                packed = (self.packed if d == self.device else
+                          {k: v.to(d) for k, v in self.packed.items()})
+                packs[d] = (packed, self._kernel_packs(packed, d))
+        self.shards = [(d,) + packs[d] for d in devices]
+
+    def _kernel_packs(self, packed, device):
+        """The kernel-side packs for each cluster size the picker chooses
+        between; the plain version on the CPU needs none."""
+        kpacks = {}
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                for B in (1, 1 << 20):
+                    cs = pick_cluster(self.spec, B)[0]
+                    kpacks[cs] = kernel_pack(packed, self.spec, cs)
+        return kpacks
 
     @torch.no_grad()
     def __call__(self, *, T: Optional[int] = None,
@@ -692,7 +716,8 @@ class FusedGenerator:
                  seed: int = 0,
                  state: Optional[Tuple] = None,
                  return_state: bool = False):
-        """(B, T) f32 samples (scalar heads) or int32 codes (categorical).
+        """(B, T) f32 samples (scalar heads) or int32 codes (categorical),
+        on the model's device.
 
         c: (B, T_mel, C) mel with an upsample net, else (B, T, C); c_up,
         instead of c: (B, T, C) conditioning already at the sample rate;
@@ -707,7 +732,8 @@ class FusedGenerator:
         up, and the returned state holds the same tensors. With
         ``return_state`` the result is (samples, state). Carried segments
         must be multiples of ``chunk``: padding steps would advance the
-        state past the segment's end.
+        state past the segment's end. A generator over a mesh carries no
+        state.
         """
         del log_scale_min
         spec, dev, dtype, chunk = self.spec, self.device, self.weight_dtype, self.chunk
@@ -715,6 +741,9 @@ class FusedGenerator:
         as_dev = lambda a: None if a is None else torch.as_tensor(a, device=dev)
         if c is not None and c_up is not None:
             raise ValueError("give c or c_up, not both")
+        if self.mesh is not None and (state is not None or return_state):
+            raise ValueError("streaming state carry is single-device; run "
+                             "one stream group per device instead")
         c, g = as_dev(c), as_dev(g)
         if c_up is not None:
             c_up = as_dev(c_up).float()
@@ -741,6 +770,10 @@ class FusedGenerator:
             B = g.shape[0]
         else:
             B = 1
+        n = len(self.shards)
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by the mesh's data "
+                             f"axis ({n}); pad the utterance batch")
         T_pad = -(-T // chunk) * chunk
         cond = None
         if c_up is not None:
@@ -756,23 +789,36 @@ class FusedGenerator:
         t_off = 0
         if state is not None:
             x_cur, ring, t_off = state
+        elif initial_input is None:
+            x_cur = default_initial_input(spec, B, device=dev)
         else:
-            if initial_input is None:
-                x_cur = default_initial_input(spec, B, device=dev)
-            else:
-                x_cur = as_dev(initial_input).reshape(B, -1).float().clone()
-            _, rows = buffer_layout(spec)
-            ring = torch.zeros(rows, B, spec.residual_channels, dtype=dtype,
-                               device=dev)
-        out = torch.empty(B, T_pad, device=dev, dtype=(
-            torch.float32 if spec.scalar_input else torch.int32))
+            x_cur = as_dev(initial_input).reshape(B, -1).float().clone()
+        _, rows = buffer_layout(spec)
+        Bs = B // n
+        runs = []
+        for i, (d, packed, kpacks) in enumerate(self.shards):
+            part = lambda a, ax=0: None if a is None else a.narrow(
+                ax, i * Bs, Bs).to(d).contiguous()
+            runs.append(dict(
+                packed=packed, cond=part(cond), g_gate=part(g_gate, 1),
+                x_cur=x_cur if n == 1 else part(x_cur),
+                ring=(ring if state is not None else torch.zeros(
+                    rows, Bs, spec.residual_channels, dtype=dtype, device=d)),
+                out=torch.empty(Bs, T_pad, device=d, dtype=(
+                    torch.float32 if spec.scalar_input else torch.int32)),
+                kpack=kpacks.get(pick_cluster(spec, Bs)[0])))
+        # chunk by chunk, every shard's launch before the next chunk: the
+        # devices run side by side, and nothing here waits on them
         for t0 in range(0, T_pad, chunk):
-            generate_steps(self.packed, spec, ring, x_cur,
-                           out[:, t0:t0 + chunk],
-                           None if cond is None else cond[:, t0:t0 + chunk],
-                           g_gate, t0=t_off + t0, seed=seed,
-                           deterministic=deterministic,
-                           kpack=self.kpacks.get(pick_cluster(spec, B)[0]))
+            for i, r in enumerate(runs):
+                generate_steps(r["packed"], spec, r["ring"], r["x_cur"],
+                               r["out"][:, t0:t0 + chunk],
+                               None if r["cond"] is None
+                               else r["cond"][:, t0:t0 + chunk],
+                               r["g_gate"], t0=t_off + t0, seed=seed + i,
+                               deterministic=deterministic, kpack=r["kpack"])
+        out = (runs[0]["out"] if n == 1 else
+               torch.cat([r["out"].to(dev) for r in runs]))
         if return_state:
-            return out[:, :T], (x_cur, ring, t_off + T)
+            return out[:, :T], (x_cur, runs[0]["ring"], t_off + T)
         return out[:, :T]

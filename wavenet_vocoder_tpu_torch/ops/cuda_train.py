@@ -49,7 +49,8 @@ class TrainArgs(ctypes.Structure):
             "has_drop")]
         + [("seed", ctypes.c_uint), ("thresh", ctypes.c_uint),
            ("inv_keep", ctypes.c_float), ("bf16", ctypes.c_int),
-           ("chunk", ctypes.c_int), ("key_R", ctypes.c_int)])
+           ("chunk", ctypes.c_int), ("key_R", ctypes.c_int),
+           ("b0", ctypes.c_int)])
 
 
 def _fn(source: str, name: str, defines: Tuple[str, ...] = ()):
@@ -153,7 +154,7 @@ def _padding(x_R: int, w_in, w_og, k: int) -> Optional[_Pad]:
 
 
 def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
-            seed, key_R) -> TrainArgs:
+            seed, b0, key_R) -> TrainArgs:
     """Check the weights and conditioning; fill the fields both sides share."""
     device, dtype = w_in.device, w_in.dtype
     if device.type != "cuda":
@@ -182,6 +183,8 @@ def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
     _check("gb", gb, (L, B, G), torch.float32, device)
     if not 0.0 <= drop < 1.0:
         raise ValueError(f"dropout {drop} outside [0, 1)")
+    if not 0 <= b0 < 2 ** 31 - B:
+        raise ValueError(f"row offset b0={b0} outside [0, 2^31 - B)")
     keep = 1.0 - drop
     return TrainArgs(
         c=_ptr(c), gb=_ptr(gb), w_in=_ptr(w_in), b_in=_ptr(b_in),
@@ -190,32 +193,34 @@ def _common(w_in, b_in, w_cond, w_og, b_og, c, gb, *, B, T, dils, k, drop,
         H=stack_receptive(dils, k), has_drop=int(drop > 0),
         seed=int(seed) & _M32, thresh=keep_threshold(keep),
         inv_keep=1.0 / keep, bf16=int(dtype == torch.bfloat16),
-        key_R=R if key_R is None else key_R)
+        key_R=R if key_R is None else key_R, b0=int(b0))
 
 
 def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
               gb: Optional[torch.Tensor], w_in: torch.Tensor,
               b_in: torch.Tensor, w_cond: Optional[torch.Tensor],
               w_og: torch.Tensor, b_og: torch.Tensor, *, dils: Sequence[int],
-              k: int, drop: float = 0.0, seed: int = 0,
+              k: int, drop: float = 0.0, seed: int = 0, b0: int = 0,
               _defines: Tuple[str, ...] = (), _key_R: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of the stack: (skips (B, T, S) f32, xs (L, B, T, R)), where
     xs[l] is layer l's input in the storage dtype (the backward's stash).
     x0, c and the weights are in the storage dtype, b_in, b_og, gb f32.
-    ``_defines`` launches a variant build (``NO_PRODUCTS``)."""
+    b0 is the global batch row of row 0 in the dropout key (a data-parallel
+    rank's row offset). ``_defines`` launches a variant build
+    (``NO_PRODUCTS``)."""
     B, T, R = x0.shape
     pad = _padding(R, w_in, w_og, k)
     if pad is not None:     # run at the kernels' widths, slice back
         skips, xs = train_fwd(
             pad.last(x0, pad.Rp), c, pad.gate(gb), pad.w_in(w_in, k),
             pad.gate(b_in), pad.gate(w_cond), pad.w_og(w_og),
-            pad.res_skip(b_og), dils=dils, k=k, drop=drop, seed=seed,
+            pad.res_skip(b_og), dils=dils, k=k, drop=drop, seed=seed, b0=b0,
             _defines=_defines, _key_R=R)
         return (skips[..., :pad.S].contiguous(),
                 xs[..., :R].contiguous())
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
-                   dils=dils, k=k, drop=drop, seed=seed, key_R=_key_R)
+                   dils=dils, k=k, drop=drop, seed=seed, b0=b0, key_R=_key_R)
     _check("x0", x0, (B, T, args.R), w_in.dtype, w_in.device)
     L = args.L
     dev = x0.device
@@ -281,10 +286,11 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
               w_in: torch.Tensor, b_in: torch.Tensor,
               w_cond: Optional[torch.Tensor], w_og: torch.Tensor,
               b_og: torch.Tensor, *, dils: Sequence[int], k: int,
-              drop: float = 0.0, seed: int = 0,
+              drop: float = 0.0, seed: int = 0, b0: int = 0,
               _defines: Tuple[str, ...] = (), _key_R: Optional[int] = None):
     """Backward of the stack from dskips (B, T, S) f32 and the forward's
-    stash xs. Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
+    stash xs, with the forward's dropout key (seed, row offset b0).
+    Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
     all f32; dc, dgb and dw_cond are None where c, gb are absent. The
     weight and bias gradients are f32 atomic sums. ``_defines`` launches a
     variant build (``NO_PRODUCTS``)."""
@@ -295,13 +301,13 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
             pad.last(dskips, pad.Sp), pad.last(xs, pad.Rp), c, pad.gate(gb),
             pad.w_in(w_in, k), pad.gate(b_in), pad.gate(w_cond),
             pad.w_og(w_og), pad.res_skip(b_og), dils=dils, k=k, drop=drop,
-            seed=seed, _defines=_defines, _key_R=R)
+            seed=seed, b0=b0, _defines=_defines, _key_R=R)
         dw_in = dw_in.reshape(L, k, pad.Rp, -1)[:, :, :R].reshape(L, k * R, -1)
         return (dx0[..., :R].contiguous(), dc, pad.ungate(dgb),
                 pad.ungate(dw_in), pad.ungate(db_in), pad.ungate(dw_cond),
                 pad.unres_skip(dw_og[:, :pad.G2]), pad.unres_skip(db_og))
     args = _common(w_in, b_in, w_cond, w_og, b_og, c, gb, B=B, T=T,
-                   dils=dils, k=k, drop=drop, seed=seed, key_R=_key_R)
+                   dils=dils, k=k, drop=drop, seed=seed, b0=b0, key_R=_key_R)
     dev, dtype = xs.device, w_in.dtype
     _check("xs", xs, (L, B, T, args.R), dtype, dev)
     _check("dskips", dskips, (B, T, args.S), torch.float32, dev)

@@ -18,9 +18,12 @@ Numerics (kernel and plain version alike, and as the TPU kernels):
     | dskips]; the weight gradients and dx contract against round(dz);
     db_in and dgb sum f32 dz; db_og sums round(dy).
 
-Dropout: the mask is a hash of (seed, batch row, absolute time + H, layer,
-channel) with the JAX kernel's int32 arithmetic, so the forward and the
-backward, kernel and plain version, draw the same bits as the JAX kernel.
+Dropout: the mask is a hash of (seed, global batch row, absolute time + H,
+layer, channel) with the JAX kernel's int32 arithmetic, so the forward and
+the backward, kernel and plain version, draw the same bits as the JAX
+kernel. Under data parallelism a rank passes its row offset ``b0`` (the JAX
+kernels' ``[seed, row offset]`` pair), so its mask is rows [b0, b0 + B) of
+the mask one device draws for the global batch.
 """
 from __future__ import annotations
 
@@ -111,14 +114,14 @@ def pack_block_weights(blocks, spec, dtype=torch.float32):
 # the plain PyTorch versions of the kernels
 # ----------------------------------------------------------------------
 def _conv_input(xs_l: torch.Tensor, l: int, L: int, H: int, drop: float,
-                seed: int) -> torch.Tensor:
+                seed: int, b0: int) -> torch.Tensor:
     """Layer l's conv input in f32 from its stash: round(x_l), dropped."""
     x = xs_l.float()
     if drop <= 0:
         return x
     B, T, R = x.shape
-    m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, t0=H, keep=1.0 - drop,
-                     device=x.device)
+    m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, b0=b0, t0=H,
+                     keep=1.0 - drop, device=x.device)
     return (x * (m * (1.0 / (1.0 - drop)))).to(xs_l.dtype).float()
 
 
@@ -141,7 +144,7 @@ def _z(taps, cf, gb, w_in, b_in, w_cond, l: int):
 
 def fused_res_stack_fwd_plain(x0, c, gb, w_in, b_in, w_cond, w_og, b_og, *,
                               dils: Sequence[int], k: int, drop: float = 0.0,
-                              seed: int = 0):
+                              seed: int = 0, b0: int = 0):
     """What ``cuda_train.train_fwd`` computes, with torch ops: (skips
     (B, T, S) f32, xs (L, B, T, R) in the storage dtype = w_in.dtype)."""
     dtype = w_in.dtype
@@ -154,8 +157,8 @@ def fused_res_stack_fwd_plain(x0, c, gb, w_in, b_in, w_cond, w_og, b_og, *,
     skips = torch.zeros(B, T, w_og.shape[2] - R, device=x0.device)
     for l, d in enumerate(dils):
         xs.append(x.to(dtype))
-        z = _z(_taps(_conv_input(xs[l], l, L, H, drop, seed), d, k), cf, gb,
-               w_in, b_in, w_cond, l)
+        z = _z(_taps(_conv_input(xs[l], l, L, H, drop, seed, b0), d, k), cf,
+               gb, w_in, b_in, w_cond, l)
         gated = (torch.tanh(z[..., :G2]) * torch.sigmoid(z[..., G2:])
                  ).to(dtype).float()
         y = gated @ w_og[l].float() + b_og[l]
@@ -166,7 +169,7 @@ def fused_res_stack_fwd_plain(x0, c, gb, w_in, b_in, w_cond, w_og, b_og, *,
 
 def fused_res_stack_bwd_plain(dskips, xs, c, gb, w_in, b_in, w_cond, w_og,
                               b_og, *, dils: Sequence[int], k: int,
-                              drop: float = 0.0, seed: int = 0):
+                              drop: float = 0.0, seed: int = 0, b0: int = 0):
     """What ``cuda_train.train_bwd`` computes, written out (not autograd):
     (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og), all f32; dc, dgb,
     dw_cond are None where c, gb are absent."""
@@ -188,7 +191,7 @@ def fused_res_stack_bwd_plain(dskips, xs, c, gb, w_in, b_in, w_cond, w_og,
     keep = 1.0 - drop
     for l in range(L - 1, -1, -1):
         d = dils[l]
-        taps = _taps(_conv_input(xs[l], l, L, H, drop, seed), d, k)
+        taps = _taps(_conv_input(xs[l], l, L, H, drop, seed, b0), d, k)
         z = _z(taps, cf, gb, w_in, b_in, w_cond, l)
         ta, sb = torch.tanh(z[..., :G2]), torch.sigmoid(z[..., G2:])
         gated = rd(ta * sb)
@@ -215,8 +218,8 @@ def fused_res_stack_bwd_plain(dskips, xs, c, gb, w_in, b_in, w_cond, w_og,
             sh = (k - 1 - j) * d
             dxin = dxin + dzp[:, sh:sh + T] @ w_in[l, j * R:(j + 1) * R].float().t()
         if drop > 0:
-            m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, t0=H, keep=keep,
-                             device=xs.device)
+            m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, b0=b0, t0=H,
+                             keep=keep, device=xs.device)
             dxin = dxin * (m * (1.0 / keep))
         dx = dy_out + dxin
     return dx, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og
@@ -227,11 +230,13 @@ def fused_res_stack_bwd_plain(dskips, xs, c, gb, w_in, b_in, w_cond, w_og,
 # ----------------------------------------------------------------------
 @dataclass(frozen=True)
 class StackStatics:
-    """Non-tensor arguments of the fused stack."""
+    """Non-tensor arguments of the fused stack; b0 is the global batch row
+    of row 0 in the dropout key."""
     dils: Tuple[int, ...]
     k: int
     drop: float = 0.0
     seed: int = 0
+    b0: int = 0
 
 
 def _impl(device: torch.device):
@@ -255,7 +260,8 @@ class FusedResStack(torch.autograd.Function):
                 st: StackStatics):
         fwd, _ = _impl(x0.device)
         skips, xs = fwd(x0, c, gb, w_in, b_in, w_cond, w_og, b_og,
-                        dils=st.dils, k=st.k, drop=st.drop, seed=st.seed)
+                        dils=st.dils, k=st.k, drop=st.drop, seed=st.seed,
+                        b0=st.b0)
         ctx.st = st
         ctx.save_for_backward(xs, c, gb, w_in, b_in, w_cond, w_og, b_og)
         return skips
@@ -267,7 +273,7 @@ class FusedResStack(torch.autograd.Function):
         _, bwd = _impl(xs.device)
         grads = bwd(dskips.float().contiguous(), xs, c, gb, w_in, b_in,
                     w_cond, w_og, b_og, dils=st.dils, k=st.k, drop=st.drop,
-                    seed=st.seed)
+                    seed=st.seed, b0=st.b0)
         like = (xs, c, gb, w_in, b_in, w_cond, w_og, b_og)
         return tuple(None if g is None else g.to(a.dtype)
                      for g, a in zip(grads, like)) + (None,)
@@ -276,7 +282,7 @@ class FusedResStack(torch.autograd.Function):
 def fused_res_stack(x0: torch.Tensor, c: Optional[torch.Tensor], blocks,
                     spec, *, g: Optional[torch.Tensor] = None,
                     dtype=torch.bfloat16, dropout: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed: Optional[int] = None, b0: int = 0) -> torch.Tensor:
     """The whole residual stack fused; returns skips (B, T, S) f32.
 
     x0: (B, T, R) first_conv output; c: (B, T, cin) sample-rate
@@ -284,7 +290,8 @@ def fused_res_stack(x0: torch.Tensor, c: Optional[torch.Tensor], blocks,
     embedded global conditioning or None, whose time-constant projection
     ``g @ w_cond_g`` enters as a per-layer bias (L, B, G) computed here, so
     its gradient reaches the cond_g weights through autograd. dropout > 0
-    needs an int32 ``seed`` (one per step)."""
+    needs an int32 ``seed`` (one per step); ``b0`` is the global batch row
+    of x0's row 0 (a data-parallel rank's offset), which keys the mask."""
     if c is None and spec.has_local_conditioning:
         raise ValueError("spec has local conditioning but c is None")
     drop = float(dropout)
@@ -296,7 +303,8 @@ def fused_res_stack(x0: torch.Tensor, c: Optional[torch.Tensor], blocks,
         gb = torch.stack([g.float() @ _w1x1(blk.conv1x1g).float()
                           for blk in blocks]).contiguous()
     st = StackStatics(dils=tuple(spec.dilations), k=spec.kernel_size,
-                      drop=drop, seed=0 if seed is None else int(seed))
+                      drop=drop, seed=0 if seed is None else int(seed),
+                      b0=int(b0))
     cont = lambda a: None if a is None else a.contiguous()
     return FusedResStack.apply(
         x0.to(dtype).contiguous(), cont(None if c is None else c.to(dtype)),

@@ -10,6 +10,11 @@ The port's counterpart of ``wavenet_vocoder_tpu/synthesis.py``
 
 Entry points run on ``cuda`` unless the caller passes ``device``; without a
 GPU and without ``device`` they raise rather than drop to the CPU.
+
+``mesh`` (a ``parallel.Mesh``): utterances are split over its ``data`` axis,
+one shard per device, with no communication between them (the JAX
+package's utterance sharding). Deterministic outputs equal the unsharded
+run's; sampled shard i draws with the base seed + i.
 """
 from __future__ import annotations
 
@@ -81,22 +86,32 @@ class Synthesizer:
     kernel's weights at construction, then generate per request."""
 
     def __init__(self, model: WaveNet, cfg: Config, *, engine: str = "cuda",
-                 weight_dtype=torch.bfloat16, device=None, **engine_kwargs):
+                 weight_dtype=torch.bfloat16, device=None, mesh=None,
+                 **engine_kwargs):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         self.cfg = cfg
         self.engine = engine
+        if mesh is not None and device is None:
+            device = mesh.axis_devices("data")[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spec = model.spec
         self._gen = None
+        self._replicas = None
         if engine == "cuda":
             from wavenet_vocoder_tpu_torch.ops.cuda_generate import FusedGenerator
             self._gen = FusedGenerator(self.model, weight_dtype=weight_dtype,
-                                       **engine_kwargs)
+                                       mesh=mesh, **engine_kwargs)
         elif engine_kwargs:
             raise TypeError(f"engine='scan' takes no engine_kwargs, "
                             f"got {sorted(engine_kwargs)}")
+        elif mesh is not None:
+            import copy
+            self._replicas = [
+                (d, self.model if d == self.device
+                 else copy.deepcopy(self.model).to(d))
+                for d in (torch.device(d) for d in mesh.axis_devices("data"))]
 
     @torch.no_grad()
     def __call__(self, c=None, *,
@@ -125,14 +140,41 @@ class Synthesizer:
                                 log_scale_min=cfg.log_scale_min,
                                 deterministic=deterministic,
                                 seed=_seed_from(generator))
-        else:
+        elif self._replicas is None:
             from wavenet_vocoder_tpu_torch.ops.generate import generate
             samples = generate(self.model, T=T, c=c, g=g,
                                initial_input=initial_input,
                                log_scale_min=cfg.log_scale_min,
                                deterministic=deterministic,
                                generator=generator)["samples"]
+        else:
+            samples = self._scan_sharded(c, g, T, initial_input, generator,
+                                         deterministic)
         return _decode(cfg, samples)
+
+    def _scan_sharded(self, c, g, T, initial_input, generator,
+                      deterministic):
+        """The eager decoder on each shard's device in turn; shard i samples
+        from a generator seeded with the base seed + i."""
+        from wavenet_vocoder_tpu_torch.ops.generate import generate
+        n = len(self._replicas)
+        B = next((a.shape[0] for a in (c, g, initial_input) if a is not None),
+                 1)
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by the mesh's data "
+                             f"axis ({n}); pad the utterance batch")
+        seed, Bs = _seed_from(generator), B // n
+        outs = []
+        for i, (d, model) in enumerate(self._replicas):
+            part = lambda a: None if a is None else torch.as_tensor(
+                a)[i * Bs:(i + 1) * Bs].to(d)
+            gen = torch.Generator(device=d).manual_seed(seed + i)
+            outs.append(generate(model, T=T, c=part(c), g=part(g),
+                                 initial_input=part(initial_input),
+                                 log_scale_min=self.cfg.log_scale_min,
+                                 deterministic=deterministic,
+                                 generator=gen)["samples"].to(self.device))
+        return torch.cat(outs)
 
 
 def batch_wavegen(model: WaveNet, cfg: Config, *,
@@ -142,15 +184,16 @@ def batch_wavegen(model: WaveNet, cfg: Config, *,
                   initial_input: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
                   engine: str = "cuda", device=None,
-                  deterministic: bool = False,
+                  deterministic: bool = False, mesh=None,
                   **engine_kwargs) -> np.ndarray:
     """Generate a batch of waveforms (reference: synthesis.py:42-86).
 
     c: (B, T_mel, D) mel ALREADY including the cin_pad context frames
     (use :func:`pad_mel_context`); length = (T_mel - 2*cin_pad) * hop.
+    mesh: utterances split over its ``data`` axis (B must divide).
     Returns (B, T) float32 waveforms.
     """
-    synth = Synthesizer(model, cfg, engine=engine, device=device,
+    synth = Synthesizer(model, cfg, engine=engine, device=device, mesh=mesh,
                         **engine_kwargs)
     return synth(c, g=g, T=T, initial_input=initial_input,
                  generator=generator, deterministic=deterministic,

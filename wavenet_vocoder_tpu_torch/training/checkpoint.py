@@ -37,6 +37,7 @@ import torch
 
 from wavenet_vocoder_tpu_torch.compat.from_jax import state_dict_from_jax
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
+from wavenet_vocoder_tpu_torch.parallel.distributed import is_primary
 
 _FORMAT = "wavenet-tpu-ckpt"
 _VERSION = 1
@@ -156,7 +157,11 @@ def save_checkpoint(directory: str, state, *, global_step: int,
     """Write step-stamped + latest checkpoints of a ``TrainState``, and the
     EMA twin stream when it has an EMA shadow (reference: train.py:852-884).
     Every file is written atomically; an interrupt mid-save leaves prior
-    checkpoints intact."""
+    checkpoints intact. Under data parallelism only the primary process
+    writes (every rank holds the same state); the others return the path
+    the primary writes."""
+    if not is_primary():
+        return checkpoint_path(directory, global_step)
     os.makedirs(directory, exist_ok=True)
     counters = {"global_step": int(global_step),
                 "global_epoch": int(global_epoch),

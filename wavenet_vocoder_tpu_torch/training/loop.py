@@ -13,26 +13,36 @@ the card launches the training kernels; eval audio runs the generation
 kernel through ``synthesis.batch_wavegen(engine="cuda")``. Entry points run
 on the card unless ``device`` names another device.
 
-One device only: the JAX loop's multi-process and mesh branches belong to
-the multi-device slice of the port; ``use_mesh`` is accepted and does
-nothing.
+Data parallelism is one process per device (``parallel.distributed``). In a
+process group (the CLI ran ``initialize_distributed``, or torchrun did) each
+rank loads a disjoint corpus slice and feeds ``cfg.batch_size // world``
+rows a step; the step all-reduces the gradients and the losses' mask counts,
+so every rank holds the same state; only the primary writes hparams.json,
+checkpoints, metrics and eval audio. With ``use_mesh`` and several GPUs in
+one process, the loop spawns one worker per GPU (the JAX loop meshes all
+local devices there); with ``use_mesh=False`` it trains on one of them and
+says so.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 from collections import deque
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.data import DataLoader, WaveNetDataset
 from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device, to_device
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
+from wavenet_vocoder_tpu_torch.parallel import distributed as pdist
 from wavenet_vocoder_tpu_torch.synthesis import batch_wavegen, resolve_device
 from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt_lib
 from wavenet_vocoder_tpu_torch.training.train_state import (
@@ -45,12 +55,20 @@ from wavenet_vocoder_tpu_torch.training.train_state import (
 
 class MetricWriter:
     """TensorBoard if importable, else JSONL only; ``metrics.jsonl`` is
-    always written (reference: train.py:771-775 tensorboardX scalars)."""
+    always written (reference: train.py:771-775 tensorboardX scalars).
+    ``enabled=False`` (the ranks other than the primary) writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self._tb = None
+        self._jsonl = None
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         try:
+            # TensorBoard's no-TensorFlow mode: scalars need nothing of TF,
+            # and a TensorFlow installed beside the port imports JAX
+            sys.modules.setdefault("tensorboard.compat.notf",
+                                   types.ModuleType("tensorboard.compat.notf"))
             from torch.utils.tensorboard import SummaryWriter
             self._tb = SummaryWriter(log_dir)
         except Exception:
@@ -58,6 +76,8 @@ class MetricWriter:
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
         self._jsonl.write(json.dumps(
@@ -66,21 +86,30 @@ class MetricWriter:
     def flush(self) -> None:
         if self._tb is not None:
             self._tb.flush()
-        self._jsonl.flush()
+        if self._jsonl is not None:
+            self._jsonl.flush()
 
     def close(self) -> None:
         self.flush()
         if self._tb is not None:
             self._tb.close()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 def get_data_loaders(data_root: str, cfg: Config,
-                     speaker_id: Optional[int] = None
+                     speaker_id: Optional[int] = None,
+                     batch_size: Optional[int] = None,
+                     process_shard: Optional[tuple] = None
                      ) -> Dict[str, DataLoader]:
     """Loaders for the {train_no_dev, dev} dump layout
     (reference: train.py:973-1032); a flat dump dir (no splits) trains on
-    everything. Static shapes, shuffled with ``cfg.seed``."""
+    everything. Static shapes, shuffled with ``cfg.seed``.
+
+    process_shard: (rank, world) under data parallelism: each rank loads a
+    disjoint corpus slice (``WaveNetDataset.shard``, equal lengths, so every
+    rank runs the same number of batches) in batches of ``batch_size`` =
+    global batch / world rows."""
     loaders = {}
     for phase in ("train_no_dev", "dev"):
         d = os.path.join(data_root, phase)
@@ -91,15 +120,21 @@ def get_data_loaders(data_root: str, cfg: Config,
                 continue
         train = phase == "train_no_dev"
         ds = WaveNetDataset(d, cfg, speaker_id=speaker_id, train=train)
-        loaders[phase] = DataLoader(ds, cfg, shuffle=train, seed=cfg.seed,
+        if process_shard is not None:
+            ds = ds.shard(*process_shard)
+        loaders[phase] = DataLoader(ds, cfg, batch_size=batch_size,
+                                    shuffle=train, seed=cfg.seed,
                                     static_shapes=True)
     return loaders
 
 
-def eval_generator(cfg: Config, tag: int, step: int,
+def step_generator(cfg: Config, tag: int, step: int,
                    device) -> torch.Generator:
-    """A generator on ``device`` with a seed distinct per (artifact kind,
-    train step): every intermediate audio dump samples its own path."""
+    """A generator on ``device`` with a seed distinct per (kind, train
+    step): every intermediate audio dump samples its own path (tags 1-3),
+    and each train step draws its dropout seed from its own (tag 0), so a
+    resumed run draws what an uninterrupted one draws, on every rank alike
+    (the JAX step derives its randomness from the step count)."""
     seed = int(np.random.SeedSequence(
         [cfg.seed, tag, step]).generate_state(1, np.uint64)[0] >> 1)
     return torch.Generator(device=device).manual_seed(seed)
@@ -214,6 +249,39 @@ def restore(state: TrainState, *, restore_parts_path: Optional[str] = None,
     return counters
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawned_worker(rank: int, world: int, port: int, args: tuple,
+                    kwargs: dict) -> None:
+    """One rank of ``train_loop``'s spawned data-parallel run."""
+    pdist.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                 local_device_ids=str(rank))
+    try:
+        train_loop(*args, **kwargs)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_data_parallel(n: int, cfg: Config, data_root: str,
+                         checkpoint_dir: str, kwargs: dict) -> TrainState:
+    """Train on ``n`` local GPUs, one spawned process each (NCCL over a free
+    localhost port); returns the primary's final state, read back from its
+    last checkpoint onto the first GPU."""
+    import torch.multiprocessing as mp
+    print(f"Training data-parallel over {n} GPUs, one process each")
+    mp.spawn(_spawned_worker, args=(n, _free_port(), (cfg, data_root,
+                                                      checkpoint_dir), kwargs),
+             nprocs=n, join=True)
+    state = create_train_state(cfg, device="cuda:0")
+    ckpt_lib.load_checkpoint(ckpt_lib.latest_path(checkpoint_dir), state)
+    return state
+
+
 def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                log_event_path: Optional[str] = None,
                restore_checkpoint: Optional[str] = None,
@@ -225,33 +293,72 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                log_interval: int = 10,
                device=None) -> TrainState:
     """Full training entry (reference: train.py:1035-1114), on ``device``
-    (default: the GPU; raises without one unless a device is named)."""
-    del use_mesh  # one device: there is nothing to shard
+    (default: the GPU; raises without one unless a device is named).
+
+    In a process group (``parallel.initialize_distributed`` ran) this
+    process is one data-parallel rank: ``device`` defaults to its GPU, it
+    trains on its corpus slice and local rows, and only rank 0 writes.
+    Outside one, with ``use_mesh``, no ``device`` and several GPUs, it
+    spawns one rank per GPU and returns the primary's final state."""
+    rank, world = pdist.process_info()
+    in_group = dist.is_initialized()
+    n_gpu = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not in_group and device is None and n_gpu > 1:
+        if use_mesh:
+            return _spawn_data_parallel(
+                n_gpu, cfg, data_root, checkpoint_dir, dict(
+                    log_event_path=log_event_path,
+                    restore_checkpoint=restore_checkpoint,
+                    restore_parts_path=restore_parts_path,
+                    reset_optimizer=reset_optimizer, speaker_id=speaker_id,
+                    max_steps_override=max_steps_override,
+                    log_interval=log_interval))
+        print(f"use_mesh=False: training on one of {n_gpu} GPUs")
+    if world > 1 and not use_mesh:
+        raise ValueError("multi-process training requires use_mesh=True")
+    if in_group and device is None:
+        device = pdist.process_device()
     device = resolve_device(device)
+    primary = rank == 0
     os.makedirs(checkpoint_dir, exist_ok=True)
-    # effective config next to the checkpoints (reference: train.py:1065-1067)
-    with open(os.path.join(checkpoint_dir, "hparams.json"), "w") as f:
-        f.write(cfg.to_json(indent=2))
+    if primary:
+        # effective config next to the checkpoints (reference:
+        # train.py:1065-1067)
+        with open(os.path.join(checkpoint_dir, "hparams.json"), "w") as f:
+            f.write(cfg.to_json(indent=2))
 
     spec = spec_from_config(cfg)
     print(f"Receptive field: {spec.receptive_field} samples "
           f"({spec.receptive_field / cfg.sample_rate * 1000:.1f} ms)")
 
-    loaders = get_data_loaders(data_root, cfg, speaker_id)
+    if world > 1:
+        loaders = get_data_loaders(
+            data_root, cfg, speaker_id,
+            batch_size=pdist.local_batch_size(cfg.batch_size),
+            process_shard=(rank, world))
+        print(f"Training data-parallel: rank {rank} of {world} on {device}")
+    else:
+        loaders = get_data_loaders(data_root, cfg, speaker_id)
     state = create_train_state(cfg, device=device)
-    counters = restore(state, restore_parts_path=restore_parts_path,
-                       restore_checkpoint=restore_checkpoint,
-                       reset_optimizer=reset_optimizer)
+    counters = {"global_step": 0, "global_epoch": 0, "global_test_step": 0}
+    # under data parallelism only rank 0 reads the checkpoint files (the
+    # only writer; the file system need not be shared) and broadcasts the
+    # state and counters, which also makes every rank's state bit-identical
+    if primary:
+        counters = restore(state, restore_parts_path=restore_parts_path,
+                           restore_checkpoint=restore_checkpoint,
+                           reset_optimizer=reset_optimizer)
+    if world > 1:
+        counters = pdist.replicate_global(state, counters)
     global_step = counters["global_step"]
     global_epoch = counters["global_epoch"]
     global_test_step = counters["global_test_step"]
 
-    train_step, eval_step = make_train_step(cfg)
+    train_step, eval_step = make_train_step(
+        cfg, group=dist.group.WORLD if in_group else None)
     checked = False
     writer = MetricWriter(log_event_path or
-                          os.path.join(checkpoint_dir, "log"))
-    # dropout seeds: one int32 a step drawn from this generator
-    dropout_gen = torch.Generator().manual_seed(cfg.seed)
+                          os.path.join(checkpoint_dir, "log"), enabled=primary)
     max_steps = max_steps_override or cfg.max_train_steps
 
     try:
@@ -281,7 +388,8 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                         checked = True
                     if train:
                         t0 = time.time()
-                        metrics = train_step(state, batch, dropout_gen)
+                        metrics = train_step(state, batch, step_generator(
+                            cfg, 0, global_step, "cpu"))
                         global_step += 1
                         # fetching the loss synchronises with the card: log
                         # on an interval and let other steps run ahead
@@ -297,21 +405,23 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                                           time.time() - t0, global_step)
                         else:
                             loss = None
-                        if global_step % cfg.checkpoint_interval == 0:
+                        if (primary and
+                                global_step % cfg.checkpoint_interval == 0):
                             ckpt_lib.save_checkpoint(
                                 checkpoint_dir, state,
                                 global_step=global_step,
                                 global_epoch=global_epoch,
                                 global_test_step=global_test_step,
                                 save_optimizer_state=cfg.save_optimizer_state)
-                        if global_step % cfg.train_eval_interval == 0:
+                        if (primary and
+                                global_step % cfg.train_eval_interval == 0):
                             save_eval_audio(state, cfg, host, eval_dir,
                                             global_step,
-                                            eval_generator(cfg, 1, global_step,
+                                            step_generator(cfg, 1, global_step,
                                                            device), device)
                             save_states(state, cfg, host, eval_dir,
                                         global_step,
-                                        eval_generator(cfg, 2, global_step,
+                                        step_generator(cfg, 2, global_step,
                                                        device))
                         if global_step >= max_steps:
                             break
@@ -319,7 +429,7 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                         loss = float(eval_step(state, batch)["loss"])
                         global_test_step += 1
                         writer.scalar("dev/loss", loss, global_test_step)
-                        if (not test_evaluated
+                        if (primary and not test_evaluated
                                 and global_epoch % cfg.test_eval_epoch_interval
                                 == 0):
                             # file names use the train step (reference:
@@ -327,7 +437,7 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                             test_evaluated = True
                             save_eval_audio(state, cfg, host, eval_dir,
                                             global_step,
-                                            eval_generator(cfg, 3, global_step,
+                                            step_generator(cfg, 3, global_step,
                                                            device), device)
                     if loss is not None:
                         running += loss
@@ -344,9 +454,10 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
         print("Interrupted — saving final checkpoint "
               "(reference: train.py:1101-1110)")
     finally:
-        ckpt_lib.save_checkpoint(
-            checkpoint_dir, state, global_step=global_step,
-            global_epoch=global_epoch, global_test_step=global_test_step,
-            save_optimizer_state=cfg.save_optimizer_state)
+        if primary:
+            ckpt_lib.save_checkpoint(
+                checkpoint_dir, state, global_step=global_step,
+                global_epoch=global_epoch, global_test_step=global_test_step,
+                save_optimizer_state=cfg.save_optimizer_state)
         writer.close()
     return state

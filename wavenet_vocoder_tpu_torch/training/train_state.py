@@ -32,6 +32,7 @@ from wavenet_vocoder_tpu_torch.ops.losses import (
     masked_mol_loss,
     sequence_mask,
 )
+from wavenet_vocoder_tpu_torch.parallel.distributed import batch_row_offset
 from wavenet_vocoder_tpu_torch.training.lrschedule import make_schedule
 
 # names the JAX package accepts, and why the port does not map them
@@ -126,17 +127,20 @@ def create_train_state(cfg: Config, *, model: Optional[WaveNet] = None,
     return TrainState(model, opt, schedule, ema)
 
 
-def select_criterion(cfg: Config):
-    """Loss by input_type / output_distribution (reference: train.py:781-791)."""
+def select_criterion(cfg: Config, group=None):
+    """Loss by input_type / output_distribution (reference: train.py:781-791);
+    under a process ``group`` each rank's share of the global masked mean
+    (ops/losses.py)."""
     if cfg.is_mulaw_quantize:
-        return lambda y_hat, y, mask: masked_cross_entropy(y_hat, y, mask)
+        return lambda y_hat, y, mask: masked_cross_entropy(y_hat, y, mask,
+                                                           group=group)
     if cfg.output_distribution == "Logistic":
         return lambda y_hat, y, mask: masked_mol_loss(
             y_hat, y, mask, num_classes=cfg.quantize_channels,
-            log_scale_min=cfg.log_scale_min)
+            log_scale_min=cfg.log_scale_min, group=group)
     if cfg.output_distribution == "Normal":
         return lambda y_hat, y, mask: masked_gaussian_loss(
-            y_hat, y, mask, log_scale_min=cfg.log_scale_min)
+            y_hat, y, mask, log_scale_min=cfg.log_scale_min, group=group)
     raise ValueError(
         f"Not supported: input_type={cfg.input_type}, "
         f"output_distribution={cfg.output_distribution} "
@@ -178,7 +182,7 @@ def _on(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, group=None):
     """Build ``(train_step, eval_step)``.
 
     batch dict (tensors or numpy arrays):
@@ -194,15 +198,26 @@ def make_train_step(cfg: Config):
     ``cfg.dropout > 0`` it draws one int32 dropout seed from ``generator``,
     which must then be given.
     ``eval_step(state, batch)`` returns {"loss"} with dropout off.
+
+    ``group``: a ``torch.distributed`` process group over which the step
+    runs data-parallel, each rank on its rows of the global batch (rank r
+    holds rows [r * B, (r + 1) * B) of B local rows). The losses divide by
+    the global mask count; the gradients are summed over the ranks in one
+    flat buffer; the reported loss is the global one. The grad norm, the
+    clip, the optimizer and the EMA then see identical values on every
+    rank, and dropout is keyed on the global rows. Every
+    rank must draw the same dropout seed (the same generator state).
     """
-    criterion = select_criterion(cfg)
+    import torch.distributed as dist
+    criterion = select_criterion(cfg, group)
     # compute dtype below the head's output; "" is f32 throughout
     dtype = getattr(torch, cfg.compute_dtype) if cfg.compute_dtype else None
 
     def loss_fn(model, batch, seed, train):
         x = batch["x"]
+        b0 = 0 if group is None else batch_row_offset(x.shape[0], group)
         y_hat = model(x, batch.get("c"), batch.get("g"), train=train,
-                      dtype=dtype, seed=seed)
+                      dtype=dtype, seed=seed, b0=b0)
         T = x.shape[1]
         # one-sample AR shift (reference: train.py:728-729, 742-748)
         mask = sequence_mask(batch["input_lengths"], T)[:, 1:]
@@ -232,30 +247,42 @@ def make_train_step(cfg: Config):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        loss = loss.detach()
+        if group is not None:
+            # the ranks' shares summed: the global loss and its gradient
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss[None]])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            torch._foreach_copy_(grads, [
+                v.view_as(g) for v, g in
+                zip(flat[:-1].split([g.numel() for g in grads]), grads)])
+            loss = flat[-1]
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
         if cfg.clip_thresh > 0:
             # optax.clip_by_global_norm: scale by thresh / max(norm, thresh)
             thresh = float(cfg.clip_thresh)
-            scale = thresh / torch.clamp(grad_norm, min=thresh)
-            for g in grads:
-                g.mul_(scale)
+            torch._foreach_mul_(grads,
+                                thresh / torch.clamp(grad_norm, min=thresh))
         lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, model, cfg.ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
-                "lr": lr}
+        return {"loss": loss, "grad_norm": grad_norm.detach(), "lr": lr}
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Dev-set loss with the same criterion, no update, dropout off
-        (reference: train.py:702-709)."""
+        (reference: train.py:702-709); under ``group`` the global masked
+        mean, on every rank."""
         model = state.model
         batch = _on(batch, next(model.parameters()).device)
         model.eval()
-        return {"loss": loss_fn(model, batch, None, False)}
+        loss = loss_fn(model, batch, None, False)
+        if group is not None:
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        return {"loss": loss}
 
     return train_step, eval_step
