@@ -124,6 +124,32 @@ Phases (each failure ends the run with a non-zero exit):
                 again (``--md-rank``, ``--run-module``), each failing if it
                 imported JAX; the kernels line counts (b)-(e)'s launches as
                 ``multi_device_launches``.
+ 13. bench    — the generation kernel at the bench's two published big
+                models, 30L3S (30 layers, 3 stacks) and 512ch (512/512/256),
+                bf16, against its plain version as phase 2 holds it at
+                B=32 and B=256, and one 256-step launch at B=256 timed
+                beside its plain version and bound; then ``python -m
+                wavenet_vocoder_tpu_torch.bench`` in subprocesses: synthesis
+                at the flagship (B=256 and 128, with the compact B=64 train
+                record), 30L3S and 512ch (B=256, one timed iteration),
+                training at B=32 from a constant batch and from the loader
+                (BENCH_PIPELINE=1), and streaming latency. Each JSON record
+                must have a finite value, the card's name and no error;
+                every run must launch its kernels (training on the tensor
+                cores); the flagship's B=256 value must lie within 25% of
+                phase 3's B=256 request. The kernels line counts the runs'
+                launches as ``bench_launches`` and gives the big models'
+                launch times (``ms_30L3S``, ``bound_ms_512ch``, ...);
+ 14. quality  — the sampled-audio quality net: one backward of the stack at
+                the quality model's widths in the healthy build twice (dx0
+                and dc bitwise equal) and in each fault build (dx0 moved by
+                more than 1e-4 of its largest value); then
+                ``wavenet_vocoder_tpu_torch.scripts.quality_check`` for the
+                QUALITY_HEADS (mulaw256; see there) at 1500 steps on the
+                kernels, which must pass the JAX script's thresholds
+                (``quality_launches`` on the kernels line); then the same
+                check of mulaw256 on the bwd_x_shift fault build, which
+                must fail (exit 1): the net can fail on the port.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -141,9 +167,6 @@ import subprocess
 import sys
 import time
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
-PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 KERNEL_SOURCE = "wavenet_vocoder_tpu_torch/csrc/generate.cu"
 REPLACES = "wavenet_vocoder_tpu/ops/pallas_generate.py:172"
 TRAIN_KERNELS = {
@@ -166,11 +189,16 @@ def fail(msg: str) -> None:
 
 
 def gpu_name_and_limit() -> str:
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60)
-    lines = proc.stdout.strip().splitlines()
-    return lines[0].strip() if lines else "nvidia-smi: no output"
+    from wavenet_vocoder_tpu_torch.utils.profiling import gpu_name_and_limit
+    return gpu_name_and_limit()
+
+
+def peak(kind: str) -> float:
+    """The published H100 SXM rate ("bf16", "tf32", "fp32" FLOP/s, "hbm"
+    bytes/s) that every bound here is stated against: utils/flops.py's
+    table, which the bench's MFU reads too."""
+    from wavenet_vocoder_tpu_torch.utils.flops import H100_SXM
+    return H100_SXM[kind]
 
 
 def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
@@ -203,6 +231,7 @@ def phase_build(report):
     jobs += [("generate", cg.NO_PRODUCTS), ("generate", cg.TRACE),
              ("train_fwd", ct.NO_PRODUCTS), ("train_bwd", ct.NO_PRODUCTS),
              ("mel", mt.NO_PRODUCTS)]
+    jobs += [("train_bwd", d) for d in ct.FAULTS.values() if d]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for _ in pool.map(lambda job: build._compile(*job), jobs):
@@ -211,8 +240,9 @@ def phase_build(report):
         build.load(*job)
     secs = time.perf_counter() - t0
     print(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, two variants of "
-          f"generate.cu and the no-products train_fwd.cu, train_bwd.cu and "
-          f"mel.cu: nvcc and load {secs:.1f}s")
+          f"generate.cu, the no-products train_fwd.cu, train_bwd.cu and "
+          f"mel.cu, and the two fault builds of train_bwd.cu: nvcc and load "
+          f"{secs:.1f}s")
     report["build_s"] = secs
 
 
@@ -397,6 +427,55 @@ def _describe(row):
     return " ".join(parts[:1]) + " " + "; ".join(parts[1:])
 
 
+def _bf16_verdict(rows, tag):
+    """Phase 2's limits over all of one model's bf16 rows: prints the line
+    and returns it where the limits fail, else None."""
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    flips = sum(r["step_flips"] for r in bf16)
+    steps = sum(r["stream_steps"] for r in bf16)
+    parted = sum(r["multi_parted"] for r in bf16 if "multi_parted" in r)
+    streams = sum(r["B"] for r in bf16 if "multi_parted" in r)
+    line = (f"{tag} bf16 in all: {flips}/{steps} single steps beyond tol "
+            f"(limit {BF16_MAX_FLIPS:.4g}), {parted}/{streams} streams part "
+            f"in the {CHECK_STEPS}-step launches (limit "
+            f"{BF16_MAX_PARTED:.4g})")
+    print(line, flush=True)
+    if flips > BF16_MAX_FLIPS * steps or parted > BF16_MAX_PARTED * streams:
+        return line
+    return None
+
+
+def _check_model(model, shapes, dnames, tag, label):
+    """Phase 2's rows for one model: each (B, T, serving) shape, pack dtype
+    and sampling mode, each row labelled with ``label``. Returns (rows,
+    failures), the bf16 limits over all rows included."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    spec = model.spec
+    packs = {d: cg.pack_weights(model, dtype=getattr(torch, d))
+             for d in dnames}
+    rows, failures = [], []
+    for B, T, serving in shapes:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        cond32 = torch.randn(B, T, spec.cin_channels, device="cuda",
+                             generator=g)
+        x0 = cg.default_initial_input(spec, B, device="cuda")
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            cond = cond32.to(dtype).contiguous()
+            for det in (True, False):
+                row, bad = _check(packs[dname], spec, cond, x0, dtype, dname,
+                                  T, det, serving)
+                row.update(label)
+                rows.append(row)
+                line = f"{tag} {_describe(row)}"
+                print(line, flush=True)
+                failures += [f"{b}: {line}" for b in bad]
+    verdict = _bf16_verdict(rows, tag)
+    return rows, failures + ([verdict] if verdict else [])
+
+
 def phase_kernel(report):
     import torch
 
@@ -408,37 +487,10 @@ def phase_kernel(report):
     rows, failures = [], []
     for head, over in HEADS.items():
         _, model = _flagship_model("cuda", 1, **over)
-        spec = model.spec
-        for B, T, serving in shapes:
-            g = torch.Generator(device="cuda").manual_seed(2)
-            cond32 = torch.randn(B, T, spec.cin_channels, device="cuda",
-                                 generator=g)
-            x0 = cg.default_initial_input(spec, B, device="cuda")
-            for dname in ("float32", "bfloat16"):
-                dtype = getattr(torch, dname)
-                packed = cg.pack_weights(model, dtype=dtype)
-                cond = cond32.to(dtype).contiguous()
-                for det in (True, False):
-                    row, bad = _check(packed, spec, cond, x0, dtype, dname,
-                                      T, det, serving)
-                    row["head"] = head
-                    rows.append(row)
-                    line = f"[kernel] {head:11s} {_describe(row)}"
-                    print(line, flush=True)
-                    failures += [f"{b}: {line}" for b in bad]
-        bf16 = [r for r in rows if r["head"] == head
-                and r["dtype"] == "bfloat16"]
-        flips = sum(r["step_flips"] for r in bf16)
-        steps = sum(r["stream_steps"] for r in bf16)
-        parted = sum(r["multi_parted"] for r in bf16 if "multi_parted" in r)
-        streams = sum(r["B"] for r in bf16 if "multi_parted" in r)
-        line = (f"[kernel] {head:11s} bf16 in all: {flips}/{steps} single "
-                f"steps beyond tol (limit {BF16_MAX_FLIPS:.4g}), {parted}/"
-                f"{streams} streams part in the {CHECK_STEPS}-step launches "
-                f"(limit {BF16_MAX_PARTED:.4g})")
-        print(line, flush=True)
-        if flips > BF16_MAX_FLIPS * steps or parted > BF16_MAX_PARTED * streams:
-            failures.append(line)
+        mine, bad = _check_model(model, shapes, ("float32", "bfloat16"),
+                                 f"[kernel] {head:11s}", dict(head=head))
+        rows += mine
+        failures += bad
     report["kernel_vs_plain"] = rows
     # the served path: MoL head, bf16 pack, the serving batches
     served = [r for r in rows if r["head"] == "mol"
@@ -545,9 +597,53 @@ def bound_ms(spec, packed, B, n, dtype_bytes, peak_flops):
     nbytes = (weights + B * n * spec.cin_channels * dtype_bytes
               + 2 * rows * B * R * dtype_bytes + 2 * B * spec.in_channels * 4
               + B * n * 4)
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak("hbm")
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def _launch_inputs(spec, B, n):
+    """(cond, x0, ring, out) of one n-step bf16 launch at B from zero
+    state, cond drawn from seed 5."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cond = torch.randn(B, n, spec.cin_channels, device="cuda",
+                       generator=g).to(torch.bfloat16)
+    x0 = cg.default_initial_input(spec, B, device="cuda")
+    _, rows = cg.buffer_layout(spec)
+    ring = torch.zeros(rows, B, spec.residual_channels, dtype=torch.bfloat16,
+                       device="cuda")
+    return cond, x0, ring, torch.empty(B, n, device="cuda")
+
+
+def _time_launch(tag, packed, spec, inputs, iters):
+    """One sampling launch on ``inputs`` (_launch_inputs) timed beside its
+    plain version and its bound, printed after ``tag``. The timing launches
+    are not counted."""
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    cond, x0, ring, out = inputs
+    B, n = out.shape
+
+    def launch(fn):
+        fn(packed, spec, ring, x0.clone(), out, cond, None, t0=0, seed=1,
+           deterministic=False)
+
+    saved = cg.generate_steps.launches
+    ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=iters)
+    plain_ms = cuda_time_ms(lambda: launch(cg.generate_steps_plain),
+                            iters=1, warmup=1)
+    cg.generate_steps.launches = saved
+    b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, peak("bf16"))
+    cs = cg.pick_cluster(spec, B)
+    print(f"{tag} B={B} n={n} bf16 cluster {cs[0]}x{cs[1]}: {ms:.3f} "
+          f"ms/launch ({ms * 1e3 / n:.1f} us/step); plain {plain_ms:.1f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(B=B, n=n, ms=ms, us_per_step=ms * 1e3 / n, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                cluster=cs)
 
 
 def phase_timing(report, model):
@@ -557,29 +653,9 @@ def phase_timing(report, model):
     spec = model.spec
     B, n = 256, cg.DEFAULT_CHUNK
     packed = cg.pack_weights(model, dtype=torch.bfloat16)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    cond = torch.randn(B, n, spec.cin_channels, device="cuda",
-                       generator=g).to(torch.bfloat16)
-    x0 = cg.default_initial_input(spec, B, device="cuda")
-    _, rows = cg.buffer_layout(spec)
-    ring = torch.zeros(rows, B, spec.residual_channels, dtype=torch.bfloat16,
-                       device="cuda")
-    out = torch.empty(B, n, device="cuda")
-
-    def launch(fn):
-        fn(packed, spec, ring, x0.clone(), out, cond, None, t0=0, seed=1,
-           deterministic=False)
-
+    cond, x0, ring, out = inputs = _launch_inputs(spec, B, n)
     saved = cg.generate_steps.launches
-    ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=5)
-    plain_ms = cuda_time_ms(lambda: launch(cg.generate_steps_plain),
-                            iters=1, warmup=1)
-    b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, PEAK_BF16_FLOPS)
-    picked = cg.pick_cluster(spec, B)
-    print(f"[time] kernel B={B} n={n} bf16 cluster {picked[0]}x{picked[1]}: "
-          f"{ms:.3f} ms/launch ({ms * 1e3 / n:.1f} us/step); plain "
-          f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}; "
-          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    timing = _time_launch("[time] kernel", packed, spec, inputs, iters=5)
 
     def timed(Bs, **kw):
         ring_b = ring if Bs == B else ring[:, :Bs].contiguous()
@@ -636,14 +712,13 @@ def phase_timing(report, model):
           + f"; head {gaps[1 + 4 * L]} + {gaps[2 + 4 * L]}, sampler "
           f"{gaps[3 + 4 * L]}; step {trace['total']}")
     cg.generate_steps.launches = saved   # timing launches are not the path's
-    report["timing"] = dict(B=B, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, flops=flops, bytes=nbytes,
-                            cluster=picked, sweep=sweep,
-                            no_products=no_products, trace=trace)
+    report["timing"] = dict(timing, sweep=sweep, no_products=no_products,
+                            trace=trace)
     return dict(name="wn_generate", route="cuda", source=KERNEL_SOURCE,
                 replaces=REPLACES, launches=report["launches"],
-                max_abs_err=report["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=report["max_abs_err"], ms=timing["ms"],
+                plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+                bound_by=timing["bound_by"], library_ms=None,
                 bf16_flips=report["bf16_flips"],
                 bf16_stream_steps=report["bf16_stream_steps"],
                 f32_max_abs_err=report["f32_max_abs_err"])
@@ -768,15 +843,9 @@ STEP_TOL = {"float32": {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 2e-2},
 
 
 def train_batch(cfg, B):
-    """bench.py's training batch (bench.py:78-85), made with numpy."""
-    import numpy as np
-    T = cfg.max_time_steps
-    frames = T // cfg.hop_size + 2 * cfg.cin_pad
-    rs = np.random.RandomState(0)
-    x = rs.uniform(-0.5, 0.5, (B, T, 1)).astype(np.float32)
-    return {"x": x, "y": x.copy(),
-            "c": rs.randn(B, frames, cfg.num_mels).astype(np.float32),
-            "input_lengths": np.full(B, T, np.int32)}
+    """The bench's training batch (the root bench.py's), numpy from seed 0."""
+    from wavenet_vocoder_tpu_torch.bench import train_batch
+    return train_batch(cfg, B)
 
 
 def _plain_stack():
@@ -920,7 +989,7 @@ def train_bounds(spec, B, T, nbytes):
     out = {}
     for name, macs in (("wn_train_fwd", fwd), ("wn_train_bwd", bwd)):
         flops = 2.0 * macs * B * T
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes[name] / PEAK_HBM_BYTES
+        t_ops, t_bytes = flops / peak("bf16"), nbytes[name] / peak("hbm")
         out[name] = dict(macs_per_position=macs, flops=flops,
                          bytes=nbytes[name],
                          bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1156,7 +1225,6 @@ NAN_AT = (1, 9000)   # (row, sample) set to NaN in the NaN case
 MEL_MAIN = "8 x 1 s"
 MEL_TIMED = ("30 s", "32 x 1 s", MEL_MAIN, "3000 samples")
 MEL_VARIANTS_AT = ("30 s", MEL_MAIN)
-PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 
 
 def mel_signal(T, seed):
@@ -1195,15 +1263,15 @@ def mel_bound(cfg, B, T):
     flops = frames * (2.5 * n_fft * math.log2(n_fft)
                       + 2.0 * int(np.count_nonzero(mel_m)))
     nbytes = 4 * (io + used * n_mels)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak("fp32"), nbytes / peak("hbm")
     fp32_ms = max(2.0 * frames * (2 * n_fft * n_bins + n_bins * n_mels)
-                  / PEAK_FP32_FLOPS,
+                  / peak("fp32"),
                   4 * (io + 2 * n_fft * n_bins + n_bins * n_mels)
-                  / PEAK_HBM_BYTES) * 1e3
-    tf32_ms = max(3 * 2.0 * frames * 2 * n_fft * used / PEAK_TF32_FLOPS
-                  + 2.0 * frames * used * n_mels / PEAK_FP32_FLOPS,
+                  / peak("hbm")) * 1e3
+    tf32_ms = max(3 * 2.0 * frames * 2 * n_fft * used / peak("tf32")
+                  + 2.0 * frames * used * n_mels / peak("fp32"),
                   4 * (io + 4 * n_fft * used + used * n_mels)
-                  / PEAK_HBM_BYTES) * 1e3
+                  / peak("hbm")) * 1e3
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes, frames=frames, used_bins=[k0, k1],
@@ -1598,27 +1666,6 @@ LOOP_REL_TOL = 1e-5
 LOOP_TIMEOUT_S = 600
 
 
-def make_synthetic_dump(root, cfg, n_utts=48, seed=0):
-    """bench.py's on-disk dump (bench.py:25-41; a copy, bench.py imports
-    JAX): *-wave.npy / *-feats.npy of uniform noise and normal features,
-    each utterance 2-21 frames longer than the crop with its context."""
-    import os
-
-    import numpy as np
-    os.makedirs(root, exist_ok=True)
-    rs = np.random.RandomState(seed)
-    hop = cfg.hop_size
-    min_samples = cfg.max_time_steps + 2 * cfg.cin_pad * hop
-    for i in range(n_utts):
-        frames = (min_samples // hop) + 2 + rs.randint(0, 20)
-        T = frames * hop
-        wave = rs.uniform(-0.5, 0.5, T).astype(np.float32)
-        feats = rs.randn(frames, cfg.num_mels).astype(np.float32)
-        np.save(os.path.join(root, f"synth{i:04d}-wave.npy"), wave)
-        np.save(os.path.join(root, f"synth{i:04d}-feats.npy"), feats)
-    return root
-
-
 def _run_cli(args, tag):
     """``python -m`` a CLI of the port from the repo root; its output, or
     the phase fails with the end of it."""
@@ -1673,6 +1720,7 @@ def phase_loop(report):
     import numpy as np
     import torch
 
+    from wavenet_vocoder_tpu_torch.bench import _make_synthetic_dump
     from wavenet_vocoder_tpu_torch.config import Config
     from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device
     from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
@@ -1689,7 +1737,7 @@ def phase_loop(report):
     shutil.rmtree(work, ignore_errors=True)
     dump, exp = os.path.join(work, "dump"), os.path.join(work, "exp")
     for split, (n, seed) in LOOP_UTTS.items():
-        make_synthetic_dump(os.path.join(dump, split), cfg, n, seed)
+        _make_synthetic_dump(os.path.join(dump, split), cfg, n, seed)
     preset = os.path.join(work, "preset.json")
     with open(preset, "w") as f:
         f.write(cfg.to_json())
@@ -1959,13 +2007,19 @@ def run_module(argv):
     -m`` would, print its kernel launches, and exit 4 if it imported JAX."""
     import runpy
     sys.argv = list(argv)
-    runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+    code = 0
+    try:
+        runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+    except SystemExit as e:     # the module's exit code, after the counts
+        if isinstance(e.code, str):
+            print(e.code, file=sys.stderr)
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
     print("[run-module] kernel launches " + json.dumps(kernel_counts()),
           flush=True)
     if "jax" in sys.modules or "wavenet_vocoder_tpu" in sys.modules:
         print("chip_smoke: the port pulled in JAX", file=sys.stderr)
         return 4
-    return 0
+    return code
 
 
 def md_batch(cfg):
@@ -2362,6 +2416,333 @@ def phase_multi_device(report):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 13: the bench
+# ----------------------------------------------------------------------
+BENCH_AGREE = 0.25          # flagship B=256 value vs phase 3's, relative
+BENCH_TIMEOUT_S = 600
+# the bench's runs: (tag, BENCH_* variables). Flagship synthesis with the
+# compact B=64 train record, the two published big models (512ch timed
+# once at B=256 only: an iteration takes ~15 s, its weights being read
+# from global memory every step), training at B=32 from a constant batch
+# and from the loader, and streaming.
+BENCH_RUNS = (
+    ("synthesis flagship", {}),
+    ("synthesis 30L3S", {"BENCH_MODEL": "30L3S", "BENCH_TRAIN": "0"}),
+    ("synthesis 512ch", {"BENCH_MODEL": "512ch", "BENCH_TRAIN": "0",
+                         "BENCH_ITERS": "1", "BENCH_RT_BATCH": "0"}),
+    ("train B=32", {"BENCH_MODE": "train", "BENCH_BATCH": "32"}),
+    ("train B=32 pipeline", {"BENCH_MODE": "train", "BENCH_BATCH": "32",
+                             "BENCH_PIPELINE": "1"}),
+    ("latency", {"BENCH_MODE": "latency"}),
+)
+BIG_MODELS = ("30L3S", "512ch")
+
+
+def _big_models(report):
+    """The generation kernel at the bench's two published big models (bf16
+    pack, MoL, seed 1) against its plain version as phase 2 holds it at the
+    serving batches, and one 256-step launch at B=256 timed as phase 4 times
+    the flagship's. Returns {model: timing}."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.bench import MODELS
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    rows, timing, failures = [], {}, []
+    for name in BIG_MODELS:
+        model = WaveNet(spec_from_config(Config(**MODELS[name])),
+                        generator=torch.Generator().manual_seed(1))
+        model = model.to("cuda").eval()
+        tag = f"[bench-kernel] {name:6s}"
+        mine, bad = _check_model(
+            model, [(B, cg.DEFAULT_CHUNK, True) for B in CHECK_BATCHES],
+            ("bfloat16",), tag, dict(model=name))
+        rows += mine
+        failures += bad
+        packed = cg.pack_weights(model, dtype=torch.bfloat16)
+        timing[name] = _time_launch(
+            tag, packed, model.spec,
+            _launch_inputs(model.spec, 256, cg.DEFAULT_CHUNK), iters=3)
+        del model, packed
+        torch.cuda.empty_cache()
+    report["bench_kernel_vs_plain"] = rows
+    if failures:
+        fail("generation kernel disagrees with its plain version:\n"
+             + "\n".join(failures))
+    return timing
+
+
+def _bench_run(tag, over, dump):
+    """``python -m wavenet_vocoder_tpu_torch.bench`` with the variables
+    ``over`` (this script's --run-module, which adds the launch counts):
+    (its record, its launches, seconds). Fails on a missing record, a value
+    that is missing or not finite, another device or an error."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(over, BENCH_DATA_DIR=dump,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            _self_cmd("--run-module", "wavenet_vocoder_tpu_torch.bench"),
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"bench {tag}: past {BENCH_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench {tag} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    recs = [json.loads(x) for x in proc.stdout.splitlines()
+            if x.startswith('{"metric"')]
+    if len(recs) != 1:
+        fail(f"bench {tag}: {len(recs)} records:\n{proc.stdout[-2000:]}")
+    rec, d = recs[0], recs[0]["detail"]
+    bad = []
+    if not (isinstance(rec.get("value"), (int, float))
+            and math.isfinite(rec["value"])):
+        bad.append(f"value {rec.get('value')!r}")
+    if d.get("device") != torch.cuda.get_device_name(0):
+        bad.append(f"device {d.get('device')!r}")
+    for where in (rec, d, d.get("training") or {},
+                  d.get("realtime_batch") or {}):
+        if "error" in where:
+            bad.append(f"error {where['error']}")
+    if bad:
+        fail(f"bench {tag}: " + "; ".join(bad) + f"\n{json.dumps(rec)}")
+    return rec, _launch_line(proc.stdout, f"bench {tag}"), secs
+
+
+def _need(counts, names, tag):
+    """Every kernel in ``names`` launched; every training launch a
+    tensor-core launch."""
+    for name in names:
+        c = counts.get(name, {})
+        if c.get("launches", 0) <= 0:
+            fail(f"bench {tag} launched no {name}: {counts}")
+        if "tc_launches" in c and c["tc_launches"] != c["launches"]:
+            fail(f"bench {tag}: {name} ran off the tensor cores: {c}")
+
+
+def phase_bench(report):
+    """Phase 13; returns the launches of the bench runs by kernel."""
+    import torch
+    t_phase = time.perf_counter()
+    timing = _big_models(report)
+    torch.cuda.empty_cache()
+    runs = {}
+    total = {n: {} for n in _PORT_KERNELS}
+    with _work_dir("chip_smoke_bench") as work:
+        for tag, over in BENCH_RUNS:
+            rec, counts, secs = _bench_run(tag, over,
+                                           os.path.join(work, "dump"))
+            mode = over.get("BENCH_MODE", "synthesis")
+            _need(counts, {"synthesis": ("generate",),
+                           "train": ("train_fwd", "train_bwd"),
+                           "latency": ("generate",)}[mode], tag)
+            if tag == "synthesis flagship":
+                _need(counts, ("train_fwd", "train_bwd"), tag)
+            _add_counts(total, counts)
+            runs[tag] = dict(record=rec, launches=counts, s=secs)
+            d = rec["detail"]
+            extra = ""
+            if mode == "synthesis":
+                rt = d["realtime_batch"]
+                extra = (f"B={d['batch']} x {d['samples_per_utt']} samples, "
+                         f"wall {d['wall_s_per_iter']} s (min "
+                         f"{d['wall_s_min']}, max {d['wall_s_max']}), "
+                         f"{d['per_stream_realtime_x']}x per stream")
+                if rt:
+                    extra += (f"; B={rt['batch']}: {rt['audio_sec_per_sec']} "
+                              f"audio-s/s, {rt['per_stream_realtime_x']}x per "
+                              f"stream")
+                if d["training"]:
+                    tr = d["training"]
+                    extra += (f"; train B={tr['batch']}: {tr['value']} "
+                              f"samples/s, step {tr['step_s']} s (min "
+                              f"{tr['step_s_min']}, max {tr['step_s_max']}),"
+                              f" MFU {tr['mfu']}")
+            elif mode == "train":
+                extra = (f"B={d['batch']} {d['pipeline']}: step "
+                         f"{d['step_s']} s (min {d['step_s_min']}, max "
+                         f"{d['step_s_max']}), {d['step_tflops']} TFLOP a "
+                         f"step, {d['achieved_tflops_per_s']} TFLOP/s, MFU "
+                         f"{d['mfu']} of {d['peak_tflops']} TFLOP/s")
+            else:
+                extra = (f"first audio {d['first_audio_latency_ms']} ms, "
+                         f"{d['total_audio_s']} s of audio in {d['wall_s']} "
+                         f"s, segments of {d['segment_samples']} samples")
+            print(f"[bench] {tag}: {rec['metric']} {rec['value']} "
+                  f"{rec['unit']}; {extra}; {d['device']}, "
+                  f"{d['power_limit']}; launches {counts}; {secs:.1f} s",
+                  flush=True)
+    flag = runs["synthesis flagship"]["record"]
+    served = [r for r in report["serving"] if r["B"] == 256][-1]
+    ratio = flag["value"] / served["audio_s_per_s"]
+    print(f"[bench] flagship B=256: bench {flag['value']} audio-s/s, phase 3 "
+          f"{served['audio_s_per_s']:.4f} audio-s/s (ratio {ratio:.3f}, "
+          f"limit 1 +- {BENCH_AGREE})", flush=True)
+    report["bench"] = dict(models=timing, runs=runs, launches=total,
+                           phase3_ratio=ratio,
+                           total_s=time.perf_counter() - t_phase)
+    if abs(ratio - 1.0) > BENCH_AGREE:
+        fail(f"the bench's flagship B=256 value {flag['value']} and phase "
+             f"3's {served['audio_s_per_s']:.4f} differ by more than "
+             f"{BENCH_AGREE:.0%}: one of them is not synchronised")
+    return total
+
+
+# ----------------------------------------------------------------------
+# phase 14: the sampled-audio quality check
+# ----------------------------------------------------------------------
+# The heads phase 14 holds to the JAX script's thresholds. mulaw256 passed
+# in every run on the card; mol and gaussian pass in a minority of runs on
+# both the kernels and the plain layer loop (ROADMAP Queue C: an open fault
+# of the port until shown otherwise), so they are run by hand and recorded
+# in PERF.md.
+QUALITY_HEADS = ("mulaw256",)
+# The negative control: the same check of mulaw256 with the backward built
+# with bwd_x_shift (every layer's x_l read one position late) must fail.
+QUALITY_FAULT = ("mulaw256", "bwd_x_shift")
+QUALITY_TIMEOUT_S = 900
+
+
+def _fault_gradients(report):
+    """One backward of the stack at the quality model's widths (12 layers,
+    64/128/64, cin 40; B=8, T=4096, bf16, dropout 0.05) in the healthy
+    build twice and in each fault build: dx0 and dc (no atomic sums in
+    them) repeat exactly in the healthy build; each fault moves dx0 by more
+    than 1e-4 of its largest value. The weight gradients (atomic sums) are
+    printed."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.scripts.synthetic_e2e import make_config
+    spec = spec_from_config(make_config("mol"))
+    L, R, G, S, cin = (spec.layers, spec.residual_channels,
+                       spec.gate_channels, spec.skip_out_channels,
+                       spec.cin_channels)
+    B, T, bf = 8, 4096, torch.bfloat16
+    rs = np.random.RandomState(0)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (rs.randn(*s) * sc).astype(np.float32)).cuda()
+    x0, c = t(B, T, R, sc=0.5).to(bf), t(B, T, cin).to(bf)
+    w_in = t(L, 3 * R, G, sc=(3 * R) ** -0.5).to(bf)
+    w_cond = t(L, cin, G, sc=cin ** -0.5).to(bf)
+    w_og = t(L, G // 2, R + S, sc=(G // 2) ** -0.5).to(bf)
+    b_in, b_og, dskips = t(L, G, sc=0.1), t(L, R + S, sc=0.1), t(B, T, S)
+    kw = dict(dils=spec.dilations, k=spec.kernel_size, drop=0.05, seed=7)
+    _, xs = ct.train_fwd(x0, c, None, w_in, b_in, w_cond, w_og, b_og, **kw)
+
+    def grads(fault):
+        ct.set_fault(fault)
+        try:
+            return ct.train_bwd(dskips, xs, c, None, w_in, b_in, w_cond,
+                                w_og, b_og, **kw)
+        finally:
+            ct.set_fault("none")
+
+    ok, ok2 = grads("none"), grads("none")
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    names = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og", "db_og")
+    repeat = {n: rel(a, b) for n, a, b in zip(names, ok2, ok) if b is not None}
+    exact = torch.equal(ok[0], ok2[0]) and torch.equal(ok[1], ok2[1])
+    out = dict(healthy_repeat=repeat, healthy_exact=exact, faults={})
+    print(f"[quality] fault builds, one backward at the quality model's "
+          f"widths (B={B}, T={T}, bf16, dropout 0.05): healthy twice dx0, dc "
+          f"bitwise equal {exact}; weight gradients (atomic sums) rel "
+          + ", ".join(f"{n} {v:.1e}" for n, v in repeat.items()
+                      if n not in ("dx0", "dc")), flush=True)
+    bad = [] if exact else ["the healthy build does not repeat dx0, dc"]
+    for fault in ("bwd_mask_tshift", "bwd_x_shift"):
+        g = grads(fault)
+        diff = {n: rel(a, b) for n, a, b in zip(names, g, ok) if b is not None}
+        out["faults"][fault] = diff
+        print(f"[quality] fault {fault}: rel change "
+              + ", ".join(f"{n} {v:.2e}" for n, v in diff.items()),
+              flush=True)
+        if not diff["dx0"] > 1e-4:
+            bad.append(f"{fault} moves dx0 by only {diff['dx0']:.2e}")
+    report["fault_gradients"] = out
+    if bad:
+        fail("fault builds: " + "; ".join(bad))
+
+
+def _quality_run(heads, fault):
+    """``quality_check`` for ``heads`` with the backward's ``fault`` in a
+    subprocess (this script's --run-module, which adds the launch counts):
+    (exit code, {head: record}, launches, seconds, output's tail). Fails
+    past QUALITY_TIMEOUT_S or where a head gave no record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    tag = "quality check" + ("" if fault == "none" else f" ({fault})")
+    with _work_dir("chip_smoke_quality") as work:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(_self_cmd(
+                "--run-module", "wavenet_vocoder_tpu_torch.scripts.quality_check",
+                "--heads", ",".join(heads), "--fault", fault, "--out-dir",
+                work), cwd=root, env=env, capture_output=True, text=True,
+                timeout=QUALITY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"{tag} past {QUALITY_TIMEOUT_S} s")
+        secs = time.perf_counter() - t0
+    records = {}
+    for x in proc.stdout.splitlines():
+        if x.startswith('{"head"'):
+            rec = json.loads(x)
+            records[rec["head"]] = rec
+        if x.startswith(("loss-drop check", "rollouts:", "step ")):
+            print(f"[quality] {x}", flush=True)
+    tail = f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}"
+    for head, rec in records.items():
+        print(f"[quality] {head}, fault {rec['fault']}: loss "
+              f"{rec['loss_first']} -> {rec['loss_final']}, F0 "
+              f"{rec['f0_gen']} Hz (target {rec['f0_ref']}), mel corr "
+              f"{rec['mel_corr']} (margin {rec['mel_margin']}), rollouts "
+              f"{rec['rollouts']}; train {rec['train_s']} s, generation "
+              f"{rec['gen_s']} s; exit {proc.returncode}", flush=True)
+    if sorted(records) != sorted(heads):
+        fail(f"{tag} exited {proc.returncode} with heads "
+             f"{sorted(records)}:\n{tail}")
+    counts = _launch_line(proc.stdout, tag)
+    _need(counts, ("train_fwd", "train_bwd", "generate"), tag)
+    return proc.returncode, records, counts, secs, tail
+
+
+def phase_quality(report):
+    """Phase 14; returns the healthy quality check's launches by kernel."""
+    t_phase = time.perf_counter()
+    _fault_gradients(report)
+    rc, heads, counts, secs, tail = _quality_run(QUALITY_HEADS, "none")
+    if rc != 0:
+        fail(f"quality check exited {rc}:\n{tail}")
+    print(f"[quality] phase 14: {', '.join(heads)} pass the JAX script's "
+          f"thresholds in {secs:.1f} s; launches {counts}", flush=True)
+    # the negative control; its launches are not the path's
+    head, fault = QUALITY_FAULT
+    frc, frecs, _, fsecs, ftail = _quality_run((head,), fault)
+    print(f"[quality] negative control: {head} with {fault} exits {frc} in "
+          f"{fsecs:.1f} s (must be 1: the net fails the faulted build)",
+          flush=True)
+    if (frc != 1 or frecs[head]["fault"] != fault
+            or f"\n{head}: FAIL (" not in ftail):
+        fail(f"the quality net does not fail {head} under {fault} (exit "
+             f"{frc}):\n{ftail}")
+    report["quality"] = dict(heads=heads, launches=counts, s=secs,
+                             negative_control=dict(head=head, fault=fault,
+                                                   rc=frc, s=fsecs,
+                                                   record=frecs[head]),
+                             total_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -2447,6 +2828,28 @@ def summary_line(report) -> str:
                  f"shards {[len(x) for x in md['evaluation']['manifests']]}"
                  f" equal {md['evaluation']['equal']}/{EVAL_UTTS}; phase "
                  f"{md['total_s']:.1f} s")
+    bn = report["bench"]
+    for tag, run in bn["runs"].items():
+        rec = run["record"]
+        mfu = rec["detail"].get("mfu")
+        parts.append(f"bench {tag} {rec['value']} {rec['unit']}"
+                     + (f" (MFU {mfu})" if mfu is not None else ""))
+    tr = bn["runs"]["synthesis flagship"]["record"]["detail"]["training"]
+    parts.append(f"bench compact train B={tr['batch']} {tr['value']} "
+                 f"samples/s (MFU {tr['mfu']}); flagship vs phase 3 "
+                 f"{bn['phase3_ratio']:.3f}")
+    for name, t in bn["models"].items():
+        parts.append(f"generate {name} B=256 {t['us_per_step']:.1f} us/step "
+                     f"({t['bound_ms'] / t['ms']:.1%} of bound)")
+    for head, rec in report["quality"]["heads"].items():
+        parts.append(f"quality {head}: corr {rec['mel_corr']} F0 "
+                     f"{rec['f0_gen']} Hz loss {rec['loss_first']} -> "
+                     f"{rec['loss_final']}")
+    nc = report["quality"]["negative_control"]
+    rec = nc["record"]
+    parts.append(f"quality {nc['head']} under {nc['fault']}: exit {nc['rc']},"
+                 f" corr {rec['mel_corr']} F0 {rec['f0_gen']} Hz loss "
+                 f"{rec['loss_first']} -> {rec['loss_final']}")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -2522,6 +2925,23 @@ def main() -> int:
             key = line["name"][3:]
             line["multi_device_launches"] = md[key]["launches"]
             line["multi_device_tc_launches"] = md[key]["tc_launches"]
+        torch.cuda.empty_cache()
+        phase = "bench"
+        bench = phase_bench(report)
+        phase = "quality"
+        quality = phase_quality(report)
+        for line, key in ((kernel_line, "generate"), (train_lines[0], "train_fwd"),
+                          (train_lines[1], "train_bwd"), (mel_line, "logmel")):
+            for tag, counts in (("bench", bench), ("quality", quality)):
+                c = counts.get(key, {})
+                line[f"{tag}_launches"] = c.get("launches", 0)
+                if "tc_launches" in c:
+                    line[f"{tag}_tc_launches"] = c["tc_launches"]
+        for name, t in report["bench"]["models"].items():
+            kernel_line[f"ms_{name}"] = t["ms"]
+            kernel_line[f"plain_ms_{name}"] = t["plain_ms"]
+            kernel_line[f"bound_ms_{name}"] = t["bound_ms"]
+            kernel_line[f"bound_by_{name}"] = t["bound_by"]
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

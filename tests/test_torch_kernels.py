@@ -704,3 +704,34 @@ def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
         w = wavfile.read(os.path.join(out, "intermediate", sub,
                                       f"step{step:09d}_predicted.wav"))[1]
         assert len(w) == cfg.max_time_steps and np.isfinite(w).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", ["bwd_mask_tshift", "bwd_x_shift"])
+def test_fault_builds_corrupt_the_gradients(cuda, fault, dtype):
+    """The backward's fault builds (cuda_train.FAULTS: what the quality
+    check builds to show that it can fail) change dx0 by more than 1e-4 of
+    its largest value, and the healthy build repeats dx0 and dc exactly
+    (neither is an atomic sum). At the flagship width, dropout 0.3, so both
+    faults act."""
+    dt = getattr(torch, dtype)
+    inputs, dskips, dils = _stack_inputs("flagship", dt, False, True, B=2,
+                                         T=300)
+    kw = dict(dils=dils, k=3, drop=0.3, seed=7)
+    _, xs = ct.train_fwd(*inputs, **kw)
+    x0, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
+    args = (dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og)
+
+    def grads(name):
+        ct.set_fault(name)
+        try:
+            return ct.train_bwd(*args, **kw)
+        finally:
+            ct.set_fault("none")
+
+    ok, ok2, bad = grads("none"), grads("none"), grads(fault)
+    torch.cuda.synchronize()
+    assert torch.equal(ok[0], ok2[0]) and torch.equal(ok[1], ok2[1])
+    assert torch.isfinite(bad[0]).all()
+    assert _rel_err(bad[0], ok[0]) > 1e-4, fault

@@ -59,6 +59,20 @@
 //     takes them.
 //   * bf16 widths: R a multiple of 8, G of 16 and S even (the wrapper
 //     checks).
+//   * Fault builds (a check that the quality net can fail; never a training
+//     path): WN_FAULT_BWD_MASK_TSHIFT regenerates the dropout mask one
+//     position late (keep_bit at t+1; needs dropout > 0);
+//     WN_FAULT_BWD_X_SHIFT reads every layer's x_l one position late
+//     (x_l[t-1] for x_l[t]) wherever the backward recomputes z or stages
+//     the dW_in taps, at any dropout. The counterparts of the JAX kernel's
+//     WN_FAULT bwd_mask_tshift and bwd_bnd_roll (which rolls every layer's
+//     boundary stash; this port keeps no boundary stash to roll).
+#ifdef WN_FAULT_BWD_MASK_TSHIFT
+#define WN_MASK_T_SHIFT 1
+#endif
+#ifdef WN_FAULT_BWD_X_SHIFT
+#define WN_XS_T_SHIFT(a) 1
+#endif
 #include "train_common.cuh"
 #include "train_mma.cuh"
 
@@ -459,7 +473,8 @@ __global__ void __launch_bounds__(kThreads) bwd_wgrad_tc(TrainArgs a) {
       if (q < pend && ch < M) {
         if (which == 0) {
           const int j = ch / R, rr = ch - j * R;
-          const int bq = (int)(q / a.T), t = (int)(q - (long long)bq * a.T) - (a.k - 1 - j) * a.d;
+          const int bq = (int)(q / a.T),
+                    t = (int)(q - (long long)bq * a.T) - (a.k - 1 - j) * a.d - WN_XS_T_SHIFT(a);
           if (t >= 0) {
             src = xs + ((long long)bq * a.T + t) * R + rr;
             n = 8;

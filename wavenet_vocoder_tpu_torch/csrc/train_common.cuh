@@ -86,18 +86,30 @@ __device__ __forceinline__ uint32_t mix_bits(uint32_t x) {
 // with the model's R (key_R). The row key is the global batch row b + b0 (the
 // JAX kernels' [seed, row offset] pair); the time key is the absolute time
 // plus H (the JAX kernels' window offset).
+// Fault builds of the backward (train_bwd.cu under WN_FAULT_BWD_*) move the
+// mask's time key and every layer's reads of x_l by a position; both are 0
+// in every other build.
+#ifndef WN_MASK_T_SHIFT
+#define WN_MASK_T_SHIFT 0
+#endif
+#ifndef WN_XS_T_SHIFT
+#define WN_XS_T_SHIFT(a) 0
+#endif
+
 __device__ __forceinline__ bool keep_bit(const TrainArgs& a, int b, int t, int r) {
   const uint32_t bkey = mix_bits((uint32_t)(b + a.b0) ^ a.seed);
-  const uint32_t idx =
-      ((uint32_t)(t + a.H) * (uint32_t)a.L + (uint32_t)a.l) * (uint32_t)a.key_R + (uint32_t)r;
+  const uint32_t idx = ((uint32_t)(t + WN_MASK_T_SHIFT + a.H) * (uint32_t)a.L + (uint32_t)a.l) *
+                           (uint32_t)a.key_R +
+                       (uint32_t)r;
   return (mix_bits(bkey ^ idx) >> 8) < a.thresh;
 }
 
 // The conv input of layer l at (b, t, r) on the f32 path: the stashed x_l,
 // dropped and rescaled. Zero for t < 0 (causal padding).
 __device__ __forceinline__ float conv_input(const TrainArgs& a, int b, int t, int r) {
-  if (t < 0) return 0.0f;
-  const float v = ldf(a.xs_l, ((long long)b * a.T + t) * a.R + r);
+  const int tx = t - WN_XS_T_SHIFT(a);
+  if (tx < 0) return 0.0f;
+  const float v = ldf(a.xs_l, ((long long)b * a.T + tx) * a.R + r);
   return a.has_drop ? (keep_bit(a, b, t, r) ? v * a.inv_keep : 0.0f) : v;
 }
 

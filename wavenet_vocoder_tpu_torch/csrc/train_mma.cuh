@@ -294,7 +294,7 @@ __device__ __forceinline__ void issue_z_operand(const TrainArgs& a, const ZLayou
     int n = 0;
     if (tm < a.T) {
       if (col < z.kR) {
-        const int j = col / R, r = col - j * R, t = tm - (a.k - 1 - j) * a.d;
+        const int j = col / R, r = col - j * R, t = tm - (a.k - 1 - j) * a.d - WN_XS_T_SHIFT(a);
         if (t >= 0) {
           src = xs + ((long long)b * a.T + t) * R + r;
           n = 8;

@@ -35,6 +35,26 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 # variant build: the products compiled out (a timing aid; outputs mean nothing)
 NO_PRODUCTS = ("WN_NO_PRODUCTS",)
+# Fault builds of the backward (csrc/train_bwd.cu): deliberate gradient bugs
+# that the sampled-audio quality check must catch. bwd_mask_tshift
+# regenerates the dropout mask one position late (needs dropout > 0);
+# bwd_x_shift reads every layer's x_l one position late.
+FAULTS = {"none": (),
+          "bwd_mask_tshift": ("WN_FAULT_BWD_MASK_TSHIFT",),
+          "bwd_x_shift": ("WN_FAULT_BWD_X_SHIFT",)}
+# The fault every train_bwd launch of the process is built with: "none",
+# except where the quality check sets another (set_fault). A faulted build
+# is a library of its own, so a healthy one is never replaced.
+FAULT = "none"
+
+
+def set_fault(name: str) -> None:
+    """Build every later ``train_bwd`` launch with the fault ``name``
+    (a key of FAULTS; "none" restores the healthy kernels)."""
+    global FAULT
+    if name not in FAULTS:
+        raise ValueError(f"fault {name!r}: one of {sorted(FAULTS)}")
+    FAULT = name
 
 
 class TrainArgs(ctypes.Structure):
@@ -293,7 +313,7 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
     Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
     all f32; dc, dgb and dw_cond are None where c, gb are absent. The
     weight and bias gradients are f32 atomic sums. ``_defines`` launches a
-    variant build (``NO_PRODUCTS``)."""
+    variant build (``NO_PRODUCTS``); the module's FAULT adds its defines."""
     L, B, T, R = xs.shape
     pad = _padding(R, w_in, w_og, k)
     if pad is not None:     # run at the kernels' widths, slice back
@@ -335,7 +355,8 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
                     ("dw_in", dw_in), ("db_in", db_in), ("dw_cond", dw_cond),
                     ("dw_og", dw_og), ("db_og", db_og)):
         setattr(args, name, _ptr(a))
-    kernels = [_fn("train_bwd", n, tuple(_defines)) for n in
+    defines = tuple(_defines) + FAULTS[FAULT]
+    kernels = [_fn("train_bwd", n, defines) for n in
                ("wn_train_bwd_dz", "wn_train_bwd_wgrad", "wn_train_bwd_dx")]
     for l in range(L - 1, -1, -1):
         args.l, args.d = l, dils[l]
