@@ -150,6 +150,25 @@ Phases (each failure ends the run with a non-zero exit):
                 (``quality_launches`` on the kernels line); then the same
                 check of mulaw256 on the bwd_x_shift fault build, which
                 must fail (exit 1): the net can fail on the port.
+ 15. parallel-optim — (a) each of the 11 optimizers ``make_optimizer``
+                maps: one update from the gradients of a flagship fused
+                bf16 B=8 step, on the card in f32 against the CPU in f64
+                (OPT_TOL of the largest update), then OPT_STEPS flagship
+                steps on the tensor-core kernels (finite, the last loss
+                below the first; host ms a step); (b) remat on the
+                flagship's plain layer loop (bf16, B=8, T=10240): off,
+                whole and "dots" with deterministic cuDNN, loss bitwise
+                equal and gradients within 1e-6, peak memory and step time
+                each; (c) two gloo ranks on the card with the model axis 2
+                (``chip_smoke.py --tp-rank``): two f32 plain SGD steps,
+                then two bf16 fused ones on the kernels with gathered
+                weights, each against one process within STEP_TOL (losses,
+                grad norms, first-step gradients, the parameters' updates;
+                whole), the ranks' parameters bitwise equal; (d)
+                ``entry.dryrun_multichip(4)``, four gloo ranks sharing the
+                card, every rank launching the training and generation
+                kernels. ``[tail]`` lines for each; the kernels line counts
+                the phase's launches as ``phase15_launches``.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -2743,6 +2762,378 @@ def phase_quality(report):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 15: the optimizers, remat, tensor parallelism and the dry run
+# ----------------------------------------------------------------------
+# every name make_optimizer maps, with a learning rate that moves the
+# flagship's bf16 weights in 20 steps (the Config's 1e-3 where it does)
+OPT_LR = {"Adam": 1e-3, "AdamW": 1e-3, "Adamax": 1e-3, "NAdam": 1e-3,
+          "RAdam": 1e-3, "SGD": 1e-2, "RMSprop": 1e-3, "Adagrad": 5e-2,
+          "Adadelta": 1.0, "Lamb": 1e-3, "Adafactor": 1e-2}
+OPT_STEPS = 20
+OPT_TOL = 1e-5          # one update, card vs CPU f64, of the largest update
+REMAT_STEPS = 3
+TP_RANKS, TP_STEPS, TP_B = 2, 2, 4
+# (c) steps with SGD: its update is lr x the gradient, so the parameters are
+# held as the gradients are (Adam's update of a gradient that is rounding
+# noise is a full step of random sign; the optimizers are (a)'s)
+TP_OPT = dict(optimizer="SGD", optimizer_params={"lr": 1e-2})
+
+
+def _params_after_one_update(name, params, grads, device, dtype):
+    """One update of optimizer ``name`` (make_optimizer's mapping, fresh
+    state) on copies of ``params`` with ``grads``, on device in dtype."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.training.train_state import make_optimizer
+    ps = [torch.nn.Parameter(p.detach().to(device, dtype).clone())
+          for p in params]
+    for p, g in zip(ps, grads):
+        p.grad = g.detach().to(device, dtype).clone()
+    opt, _ = make_optimizer(Config(optimizer=name, optimizer_params={
+        "lr": OPT_LR[name], "momentum": 0.9 if name == "SGD" else 0.0}), ps)
+    opt.step()
+    return [p.detach() for p in ps]
+
+
+def _optimizers(report):
+    """(a): each optimizer's update on the card against the CPU in f64, then
+    OPT_STEPS flagship steps on the tensor-core kernels."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    cfg = Config(fused_train=True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(cfg, cfg.batch_size).items()}
+    state = create_train_state(cfg)
+    step, _ = make_train_step(cfg)
+    step(state, batch)           # the gradients of one bf16 fused B=8 step
+    params = list(state.model.parameters())
+    grads = [p.grad.detach().clone() for p in params]
+    out = {}
+    for name in OPT_LR:
+        gpu = _params_after_one_update(name, params, grads, "cuda",
+                                       torch.float32)
+        ref = _params_after_one_update(name, params, grads, "cpu",
+                                       torch.float64)
+        worst = 0.0
+        for p0, a, b in zip(params, gpu, ref):
+            p0 = p0.detach().cpu().double()
+            upd = float((b - p0).abs().max())
+            # an f32 parameter holds its update to half an ulp of itself
+            ulp = float(p0.abs().max()) * 2.0 ** -24
+            err = float((a.cpu().double() - b).abs().max())
+            worst = max(worst, (err - ulp) / max(upd, 1e-30))
+        o_cfg = Config(fused_train=True, optimizer=name, optimizer_params={
+            "lr": OPT_LR[name], "momentum": 0.9 if name == "SGD" else 0.0})
+        st = create_train_state(o_cfg)          # the init of cfg.seed
+        o_step, _ = make_train_step(o_cfg)
+        losses, ms = [], []
+        for i in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = o_step(st, batch)
+            losses.append(float(m["loss"]))          # synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(update_err=worst, losses=losses,
+                         host_ms=float(np.median(ms[5:])),
+                         optimizer=type(st.optimizer).__name__)
+        print(f"[tail] 15 (a) {name} ({out[name]['optimizer']}, lr "
+              f"{OPT_LR[name]}): one update card f32 vs CPU f64, max |diff| "
+              f"(less half an f32 ulp of the parameter) / max |update| "
+              f"{worst:.2e} (tol {OPT_TOL}); {OPT_STEPS} steps loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; step median "
+              f"{out[name]['host_ms']:.1f} ms (steps 6-{OPT_STEPS}, host "
+              f"clock around a synchronised step)", flush=True)
+        del st
+        if not worst <= OPT_TOL:
+            fail(f"{name}: the card's update differs from the CPU's by "
+                 f"{worst:.2e} of the largest update")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"{name}: {OPT_STEPS} steps did not lower the loss: "
+                 f"{losses}")
+    report["optimizers"] = out
+    del state, params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat(report):
+    """(b): the flagship's plain layer loop, bf16, B=8, T=10240, with remat
+    off, whole and "dots": loss bitwise equal, gradients within 1e-6 of the
+    largest value (deterministic cuDNN), peak memory and step time."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    out, ref = {}, None
+    cfg0 = Config()
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in train_batch(cfg0, cfg0.batch_size).items()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for tag, remat, policy in (("off", False, ""), ("whole", True, ""),
+                                   ("dots", True, "dots")):
+            cfg = Config(remat=remat, remat_policy=policy)
+            state = create_train_state(cfg)     # the init of cfg.seed
+            step, _ = make_train_step(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, losses = [], []
+            for i in range(REMAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                losses.append(m["loss"].detach().clone())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grads = {n: p.grad.detach().float().clone()
+                             for n, p in state.model.named_parameters()}
+            peak = torch.cuda.max_memory_allocated()
+            res = dict(loss=float(losses[0]), peak_gb=peak / 1e9,
+                       step_ms=float(np.median(ms[1:])), ms=ms)
+            if ref is None:
+                ref = (losses[0], grads)
+            else:
+                scale = max(float(g.abs().max()) for g in ref[1].values())
+                res["loss_equal"] = bool(torch.equal(losses[0], ref[0]))
+                res["grad_err"] = max(
+                    float((grads[n] - g).abs().max()) for n, g in
+                    ref[1].items()) / scale
+            out[tag] = res
+            print(f"[tail] 15 (b) remat {tag}: flagship plain loop bf16 B=8 "
+                  f"T=10240, loss {res['loss']:.6f}"
+                  + ("" if tag == "off" else
+                     f" (bitwise equal to off: {res['loss_equal']}; "
+                     f"gradients max |diff| / max |grad| "
+                     f"{res['grad_err']:.2e}, tol 1e-6)")
+                  + f"; peak memory {res['peak_gb']:.2f} GB "
+                  f"(max_memory_allocated); step median {res['step_ms']:.1f}"
+                  f" ms", flush=True)
+            del state, step, grads, losses
+            torch.cuda.empty_cache()
+            if tag != "off" and not (res["loss_equal"]
+                                     and res["grad_err"] <= 1e-6):
+                fail(f"remat {tag} changes the loss or the gradients")
+    report["remat"] = out
+    return out
+
+
+def _gathered(model, groups, grads=False):
+    """Every parameter (or its gradient) of a cut model, whole, on the CPU."""
+    from wavenet_vocoder_tpu_torch.models.layers import all_gather_slices
+    from wavenet_vocoder_tpu_torch.parallel.sharding import (
+        wavenet_param_shardings)
+    rules = wavenet_param_shardings(model)
+    out = {}
+    for n, p in model.named_parameters():
+        t = (p.grad if grads else p).detach()
+        if groups is not None and rules[n] is not None:
+            t = all_gather_slices(t, rules[n], groups.model)
+        out[n] = t.float().cpu()
+    return out
+
+
+def tp_steps(groups, out_dir, tag):
+    """TP_STEPS f32 steps of the flagship's plain layer loop, then TP_STEPS
+    bf16 steps of its fused stack (each from the init of cfg.seed, SGD), on
+    TP_B rows of phase 6's batch; the blocks cut over the model group when
+    ``groups`` is given. Writes each leg's first-step gradients and final
+    parameters (whole) to out_dir; returns losses, norms and launches."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    # deterministic convolutions: one process repeats itself, and what
+    # differs is the ranks' summation order
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for leg in ("plain f32", "fused bf16"):
+            res[leg] = _tp_leg(leg, groups, out_dir, tag)
+    return res
+
+
+def _tp_leg(leg, groups, out_dir, tag):
+    """One leg of tp_steps: its losses, norms and launches."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+    from wavenet_vocoder_tpu_torch.parallel.sharding import shard_train_state
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    cfg = (Config(compute_dtype="", **TP_OPT) if leg == "plain f32"
+           else Config(fused_train=True, **TP_OPT))
+    state = create_train_state(cfg)
+    if groups is None:
+        torch.save(_gathered(state.model, None),
+                   os.path.join(out_dir, f"{tag}.{leg[:5]}.init.pt"))
+    else:
+        shard_train_state(state, groups)
+    step, _ = make_train_step(cfg, group=None if groups is None
+                              else groups.data)
+    batch = train_batch(cfg, TP_B)
+    before = (ct.train_fwd.launches, ct.train_bwd.launches)
+    losses, norms = [], []
+    for i in range(TP_STEPS):
+        m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            torch.save(_gathered(state.model, groups, grads=True),
+                       os.path.join(out_dir, f"{tag}.{leg[:5]}.grads.pt"))
+    torch.save(_gathered(state.model, groups),
+               os.path.join(out_dir, f"{tag}.{leg[:5]}.params.pt"))
+    res = dict(losses=losses, grad_norms=norms, launched={
+        "train_fwd": ct.train_fwd.launches - before[0],
+        "train_bwd": ct.train_bwd.launches - before[1]})
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_worker(rank, port, out_dir):
+    """One of phase 15 (c)'s ranks: gloo on cuda:0, the model axis 2."""
+    import torch.distributed as dist
+
+    from wavenet_vocoder_tpu_torch.parallel import initialize_distributed
+    from wavenet_vocoder_tpu_torch.parallel.distributed import (
+        parallel_groups)
+    initialize_distributed(f"127.0.0.1:{port}", TP_RANKS, rank,
+                           local_device_ids="0", backend="gloo",
+                           timeout_s=MD_TIMEOUT_S)
+    res = tp_steps(parallel_groups(TP_RANKS), out_dir, f"rank{rank}")
+    res["jax_loaded"] = ("jax" in sys.modules
+                         or "wavenet_vocoder_tpu" in sys.modules)
+    with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _tensor_parallel(report, work, total):
+    """(c): two gloo ranks on the card with the model axis 2 against one
+    process, within phase 6's STEP_TOL."""
+    import torch
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([_self_cmd("--tp-rank", str(r), "--md-port", str(port),
+                      "--md-dir", work) for r in range(TP_RANKS)],
+           "phase 15 (c) ranks")
+    ranks_s = time.perf_counter() - t0
+    res = [json.load(open(os.path.join(work, f"tp{r}.json")))
+           for r in range(TP_RANKS)]
+    if any(r["jax_loaded"] for r in res):
+        fail("a phase 15 (c) rank imported JAX")
+    single = tp_steps(None, work, "single")
+    out = {}
+    for leg, one in single.items():
+        tol = STEP_TOL["float32" if "f32" in leg else "bfloat16"]
+        got = res[0][leg]
+        load = lambda tag, kind: torch.load(os.path.join(
+            work, f"{tag}.{leg[:5]}.{kind}.pt"))
+        gs, g0 = load("single", "grads"), load("rank0", "grads")
+        scale = {n: float(g.abs().max()) for n, g in gs.items()}
+        floor = 1e-6 * max(scale.values())
+        grad_rel = {n: float((g0[n] - g).abs().max()) / max(scale[n], floor)
+                    for n, g in gs.items()}
+        ps, p0, p1 = (load(t, "params") for t in ("single", "rank0", "rank1"))
+        # the parameters by the same measure, on their updates
+        init = load("single", "init")
+        upd = {n: float((p - init[n]).abs().max()) for n, p in ps.items()}
+        ufloor = 1e-6 * max(upd.values())
+        param_rel = {n: float((p0[n] - p).abs().max()) / max(upd[n], ufloor)
+                     for n, p in ps.items()}
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                        one["losses"])]
+        norm_rel = [abs(a - b) / abs(b) for a, b in zip(got["grad_norms"],
+                                                        one["grad_norms"])]
+        equal = all(torch.equal(p0[n], p1[n]) for n in p0)
+        wg = max(grad_rel.items(), key=lambda kv: kv[1])
+        wp = max(param_rel.items(), key=lambda kv: kv[1])
+        out[leg] = dict(loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                        worst_grad_leaf=wg, worst_param_leaf=wp,
+                        ranks_equal=equal, launched=[r[leg]["launched"]
+                                                     for r in res],
+                        single_launched=one["launched"])
+        print(f"[tail] 15 (c) tensor parallel, {leg}: {TP_RANKS} gloo ranks "
+              f"on cuda:0 (model axis {TP_RANKS}) vs one process, flagship "
+              f"B={TP_B} T=10240, {TP_STEPS} steps: loss rel "
+              f"{[f'{v:.2e}' for v in loss_rel]} (tol {tol['loss']}), grad "
+              f"norm rel {[f'{v:.2e}' for v in norm_rel]} (tol "
+              f"{tol['grad_norm']} at step 1, x10 after); step-1 gradients "
+              f"worst leaf {wg[0]} {wg[1]:.2e} (tol {tol['leaf']}); "
+              f"parameters after {TP_STEPS} SGD steps, max |diff| / max "
+              f"|update| worst {wp[0]} {wp[1]:.2e} (tol {tol['leaf']}); "
+              f"ranks' "
+              f"gathered parameters bitwise equal {equal}; launches "
+              f"{out[leg]['launched']} (one process "
+              f"{one['launched']}); ranks took {ranks_s:.1f} s", flush=True)
+        if not (max(loss_rel) <= tol["loss"]
+                and norm_rel[0] <= tol["grad_norm"]
+                and max(norm_rel) <= 10 * tol["grad_norm"]
+                and wg[1] <= tol["leaf"] and wp[1] <= tol["leaf"] and equal):
+            fail(f"tensor parallelism ({leg}) disagrees with one process "
+                 "beyond STEP_TOL")
+        for r in res:
+            _add_counts(total, {k: dict(launches=v) for k, v in
+                                r[leg]["launched"].items()})
+    if not all(v > 0 for v in res[0]["fused bf16"]["launched"].values()):
+        fail("the tensor-parallel fused leg launched no training kernel")
+    report["tensor_parallel"] = out
+    return out
+
+
+def _dryrun(report, total):
+    """(d): entry.dryrun_multichip(4), four gloo ranks sharing the card."""
+    from wavenet_vocoder_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    res = dryrun_multichip(4)
+    secs = time.perf_counter() - t0
+    launched = [r["launches"] for r in res["ranks"]]
+    for c in launched:
+        _add_counts(total, {k: dict(launches=v) for k, v in c.items()})
+    print(f"[tail] 15 (d) dryrun_multichip(4): backend {res['backend']}, "
+          f"mesh {res['mesh']}, loss {res['loss']:.4f}, fused loss "
+          f"{res['fused_loss']:.4f}, synthesis {res['synth']}; launches by "
+          f"rank {launched}; {secs:.1f} s", flush=True)
+    if res["backend"] != "gloo" or not all(
+            c["train_fwd"] > 0 and c["train_bwd"] > 0 and c["generate"] > 0
+            for c in launched):
+        fail(f"dryrun_multichip(4) did not run its kernels on every rank: "
+             f"{launched}")
+    report["dryrun"] = dict(res, s=secs)
+    return res
+
+
+def phase_parallel_optim(report):
+    """Phase 15; returns its launches by kernel (this process's and its
+    subprocesses')."""
+    import torch
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    _optimizers(report)
+    _remat(report)
+    total = {k: dict(v) for k, v in kernel_counts().items()}
+    with _work_dir("chip_smoke_tp") as work:
+        _tensor_parallel(report, work, total)
+    torch.cuda.empty_cache()
+    _dryrun(report, total)
+    report["phase15_s"] = time.perf_counter() - t0
+    print(f"[tail] phase 15 in {report['phase15_s']:.1f} s; launches "
+          f"{total}", flush=True)
+    for k in ("train_fwd", "train_bwd", "generate"):
+        if not total[k]["launches"]:
+            fail(f"phase 15 launched no {k}")
+    return total
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -2850,6 +3241,18 @@ def summary_line(report) -> str:
     parts.append(f"quality {nc['head']} under {nc['fault']}: exit {nc['rc']},"
                  f" corr {rec['mel_corr']} F0 {rec['f0_gen']} Hz loss "
                  f"{rec['loss_first']} -> {rec['loss_final']}")
+    for name, o in report["optimizers"].items():
+        parts.append(f"{name} update err {o['update_err']:.1e}, 20-step loss "
+                     f"{o['losses'][0]:.3f} -> {o['losses'][-1]:.3f}, step "
+                     f"{o['host_ms']:.1f} ms")
+    for tag, r in report["remat"].items():
+        parts.append(f"remat {tag}: peak {r['peak_gb']:.2f} GB, step "
+                     f"{r['step_ms']:.1f} ms")
+    for leg, t in report["tensor_parallel"].items():
+        parts.append(f"TP {leg}: loss rel {max(t['loss_rel']):.1e}, grad "
+                     f"norm rel {t['grad_norm_rel'][0]:.1e}")
+    parts.append(f"dryrun_multichip(4) {report['dryrun']['s']:.1f} s; phase "
+                 f"15 {report['phase15_s']:.1f} s")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -2860,6 +3263,7 @@ def main() -> int:
     ap.add_argument("--md-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--md-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--md-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--run-module", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2879,6 +3283,8 @@ def main() -> int:
         return run_module(args.run_module)
     if args.md_rank is not None:
         return md_rank_worker(args.md_rank, args.md_port, args.md_dir)
+    if args.tp_rank is not None:
+        return tp_rank_worker(args.tp_rank, args.md_port, args.md_dir)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     report = {}
@@ -2942,6 +3348,13 @@ def main() -> int:
             kernel_line[f"plain_ms_{name}"] = t["plain_ms"]
             kernel_line[f"bound_ms_{name}"] = t["bound_ms"]
             kernel_line[f"bound_by_{name}"] = t["bound_by"]
+        torch.cuda.empty_cache()
+        phase = "parallel-optim"
+        p15 = phase_parallel_optim(report)
+        for line, key in ((kernel_line, "generate"),
+                          (train_lines[0], "train_fwd"),
+                          (train_lines[1], "train_bwd"), (mel_line, "logmel")):
+            line["phase15_launches"] = p15.get(key, {}).get("launches", 0)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

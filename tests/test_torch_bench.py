@@ -200,8 +200,7 @@ def test_module_entry_fails_without_a_card():
 
 @pytest.mark.parametrize("name,value", [
     ("BENCH_VARIANT", "split_taps"), ("BENCH_SPLIT_TAPS", "1"),
-    ("BENCH_UNROLL", "2"), ("BENCH_VMEM_MB", "64"), ("BENCH_REMAT", "1"),
-    ("BENCH_REMAT_POLICY", "dots_saveable")])
+    ("BENCH_UNROLL", "2"), ("BENCH_VMEM_MB", "64")])
 def test_unported_tpu_options_raise(small, name, value):
     small.setenv(name, value)
     with pytest.raises(NotImplementedError, match=name):
@@ -214,6 +213,28 @@ def test_ported_defaults_of_those_options_pass(small):
     small.setenv("BENCH_UNROLL", "1")
     small.setenv("BENCH_REMAT", "0")
     bench.refuse_unported()
+
+
+@pytest.mark.parametrize("policy", ["", "dots"])
+def test_train_mode_remat_cpu(small, capsys, monkeypatch, policy):
+    """BENCH_REMAT=1 (and BENCH_REMAT_POLICY) go to Config(remat=,
+    remat_policy=), as the JAX bench passes them, and the train mode runs
+    on the plain layer loop with them."""
+    small.setenv("BENCH_MODE", "train")
+    small.setenv("BENCH_BATCH", "2")
+    small.setenv("BENCH_ITERS", "1")
+    small.setenv("BENCH_BLOCKS", "1")
+    small.setenv("BENCH_FUSED", "0")
+    small.setenv("BENCH_REMAT", "1")
+    small.setenv("BENCH_REMAT_POLICY", policy)
+    seen = []
+    monkeypatch.setattr(bench, "_config", lambda **o: seen.append(o) or
+                        Config(**{**SMALL, **o}))
+    rec = bench.main()
+    assert _one_json_line(capsys) == rec
+    assert np.isfinite(rec["detail"]["loss"])
+    assert seen[0]["remat"] is True and seen[0]["remat_policy"] == policy
+    assert seen[0]["fused_train"] is False
 
 
 def test_unknown_model_and_engine_raise(small):

@@ -45,10 +45,15 @@ def test_make_mesh_shapes():
 
 
 def test_make_mesh_refuses_tensor_parallel_and_repeats():
-    with pytest.raises(NotImplementedError, match="shard_params_tp"):
-        make_mesh({"data": 4, "model": 2}, devices=EIGHT)
-    with pytest.raises(NotImplementedError, match="wavenet_param_shardings"):
-        make_mesh({"data": 1, "model": -1}, devices=EIGHT[:2])
+    """A model axis builds (tensor parallelism runs over processes,
+    parallel/sharding.py); a device listed twice is still refused."""
+    mesh = make_mesh({"data": 4, "model": 2}, devices=EIGHT)
+    assert mesh.shape == {"data": 4, "model": 2}
+    assert list(mesh.devices[1]) == EIGHT[2:4]
+    assert make_mesh({"data": 1, "model": -1},
+                     devices=EIGHT[:2]).shape == {"data": 1, "model": 2}
+    with pytest.raises(ValueError, match="model"):
+        mesh.axis_devices("data")
     with pytest.raises(ValueError, match="more than once"):
         make_mesh({"data": 2}, devices=[EIGHT[0], EIGHT[0]])
 
@@ -194,3 +199,67 @@ def test_dataset_shard_matches_jax_and_partitions(tmp_path):
     for i, s in enumerate(shards):
         assert ([u.wave_path for u in s.utterances]
                 == [u.wave_path for u in jds.shard(i, 3).utterances])
+
+
+def test_param_shardings_follow_the_jax_rules():
+    """``wavenet_param_shardings`` cuts the parameters the JAX package's
+    rules shard over "model", along the same axis (the port's axes reverse
+    a conv kernel's: JAX (K, In, Out)); everything else is replicated."""
+    import jax
+
+    from wavenet_vocoder_tpu.config import Config as JaxConfig
+    from wavenet_vocoder_tpu.models.wavenet import (
+        init_wavenet, spec_from_config as jax_spec_from_config)
+    from wavenet_vocoder_tpu.parallel.sharding import (
+        make_mesh as jax_make_mesh, wavenet_param_shardings as jax_rules)
+    from wavenet_vocoder_tpu_torch.compat.from_jax import state_dict_from_jax
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.wavenet import (
+        WaveNet, spec_from_config)
+    from wavenet_vocoder_tpu_torch.parallel.sharding import (
+        PARTITION_DIM, wavenet_param_shardings)
+    kw = dict(layers=2, stacks=1, residual_channels=8, gate_channels=16,
+              skip_out_channels=8, cin_channels=4, gin_channels=3)
+    jspec = jax_spec_from_config(JaxConfig(**kw))
+    params = init_wavenet(jax.random.PRNGKey(0), jspec)
+    mesh = jax_make_mesh({"data": 4, "model": 2}, devices=jax.devices()[:8])
+    shardings = jax_rules(params, mesh)
+    # each leaf filled with its "model" axis in the JAX layout (-1: none)
+    marks = jax.tree.map(
+        lambda s, a: np.full(np.shape(a), float(
+            list(s.spec).index("model") if "model" in tuple(s.spec)
+            else -1), np.float32), shardings, params)
+    spec = spec_from_config(Config(**kw))
+    port_marks = state_dict_from_jax(marks, spec)
+    rules = wavenet_param_shardings(WaveNet(spec))
+    assert sorted(rules) == sorted(port_marks)
+    cut = 0
+    for name, kind in rules.items():
+        jax_axis = float(port_marks[name].reshape(-1)[0])
+        if kind is None:
+            assert jax_axis == -1.0, name
+            continue
+        cut += 1
+        ndim = port_marks[name].dim()
+        want = PARTITION_DIM[kind]
+        # JAX axis a of an n-axis kernel is port axis n - 1 - a; g and b
+        # are (Out,) in JAX and port axis 0
+        got = ndim - 1 - jax_axis if name.endswith("weight_v") else jax_axis
+        assert got == want, (name, kind, jax_axis)
+    # per block: conv (v, g, b), cond_c and cond_g (v, g), out and skip (v)
+    assert cut == 2 * (3 + 2 + 2 + 1 + 1)
+
+
+def test_shard_slice_keeps_glu_pairs():
+    """COLUMN takes the same channels of both GLU halves, ROW a contiguous
+    slice of the input axis; gathering the slices in rank order gives the
+    whole tensor back."""
+    from wavenet_vocoder_tpu_torch.models.layers import (
+        COLUMN, ROW, gather_slices, shard_slice)
+    t = torch.arange(16.0).reshape(8, 2)
+    assert shard_slice(t, COLUMN, 1, 2)[:, 0].tolist() == [4, 6, 12, 14]
+    for kind, x in ((COLUMN, t), (ROW, t.t().contiguous())):
+        parts = [shard_slice(x, kind, r, 2) for r in range(2)]
+        assert torch.equal(gather_slices(parts, kind), x)
+    assert shard_slice(torch.arange(12.0).reshape(1, 12, 1), ROW, 2,
+                       3).reshape(-1).tolist() == [8, 9, 10, 11]

@@ -49,9 +49,7 @@ from wavenet_vocoder_tpu_torch.ops import losses as tlosses
 from wavenet_vocoder_tpu_torch.ops import mixture as tmix
 from wavenet_vocoder_tpu_torch.training import lrschedule as tlr
 from wavenet_vocoder_tpu_torch.training.train_state import (
-    _UNMAPPED,
     create_train_state,
-    make_optimizer,
     make_train_step,
 )
 
@@ -314,12 +312,19 @@ TRAIN = dict(input_type="raw", quantize_channels=256, out_channels=30,
              optimizer_params={"lr": 1e-3, "eps": 1e-5, "weight_decay": 0.0})
 
 
-def _batch(B=2, T=96, seed=0):
+def _batch(B=2, T=96, seed=0, classes=None):
+    """Scalar input and target; one-hot input and class targets when
+    ``classes`` is given."""
     rs = np.random.RandomState(seed)
     x = rs.uniform(-0.5, 0.5, (B, T, 1)).astype(np.float32)
-    return {"x": x, "y": x.copy(),
-            "c": rs.randn(B, T, 8).astype(np.float32),
-            "input_lengths": np.asarray([T, T - 7], np.int32)}
+    batch = {"x": x, "y": x.copy(),
+             "c": rs.randn(B, T, 8).astype(np.float32),
+             "input_lengths": np.asarray([T, T - 7], np.int32)}
+    if classes:
+        ids = rs.randint(0, classes, (B, T))
+        batch.update(x=np.eye(classes, dtype=np.float32)[ids],
+                     y=ids.astype(np.int32))
+    return batch
 
 
 def _state_pair(kw):
@@ -348,6 +353,8 @@ def _check_states(jstate, tstate, spec_cfg):
             _close(tstate.ema[name], a, 0, 4e-4, "ema " + name)
 
 
+ONEHOT = dict(input_type="mulaw-quantize", quantize_channels=64,
+              out_channels=64)
 TRAIN_CASES = {
     "fused-constant": dict(fused_train=True),
     "fused-noam": dict(fused_train=True,
@@ -362,6 +369,34 @@ TRAIN_CASES = {
                                            "weight_decay": 1e-3}),
     "adadelta": dict(optimizer="Adadelta",
                      optimizer_params={"lr": 1.0, "eps": 1e-6}),
+    # the optax optimizers of training/optimizers.py; weight decay where
+    # the JAX table ignores it (Adamax, NAdam, RAdam, Adafactor), chains
+    # it (RMSprop, Adagrad) and applies it inside (Lamb)
+    "adamax-decay": dict(optimizer="Adamax",
+                         optimizer_params={"lr": 1e-3, "eps": 1e-5,
+                                           "weight_decay": 0.01}),
+    "nadam-clip": dict(optimizer="NAdam", clip_thresh=0.05),
+    "radam-decay": dict(optimizer="RAdam",
+                        optimizer_params={"lr": 1e-3, "eps": 1e-5,
+                                          "weight_decay": 0.01}),
+    "rmsprop-centered-momentum-decay": dict(
+        optimizer="RMSprop", optimizer_params={
+            "lr": 1e-3, "eps": 1e-5, "alpha": 0.9, "momentum": 0.5,
+            "centered": True, "weight_decay": 1e-3}),
+    "adagrad-decay-clip": dict(optimizer="Adagrad", clip_thresh=0.05,
+                               optimizer_params={"lr": 1e-2,
+                                                 "weight_decay": 1e-3}),
+    # Lamb's trust ratio and Adafactor's first step (g / |g|) scale every
+    # tensor's update to the tensor's size, so a tensor whose gradient is
+    # rounding noise moves by a full step in a random direction. The scalar
+    # input's first_conv.weight_v is one (one element an output channel:
+    # weight norm projects its gradient out), so these two run on one-hot
+    # input (mulaw-quantize, 64 classes)
+    "lamb-decay-clip": dict(ONEHOT, optimizer="Lamb", clip_thresh=0.5,
+                            fused_train=True,
+                            optimizer_params={"lr": 1e-3, "eps": 1e-5,
+                                              "weight_decay": 0.01}),
+    "adafactor": dict(ONEHOT, optimizer="Adafactor", clip_thresh=0.5),
 }
 
 
@@ -373,7 +408,8 @@ def test_train_step_matches_jax(case):
     jcfg, tcfg, jstate, tstate = _state_pair(kw)
     jstep, _ = jax_make_train_step(jcfg)
     tstep, _ = make_train_step(tcfg)
-    batch = _batch()
+    batch = _batch(classes=kw["out_channels"] if "quantize" in
+                   kw["input_type"] else None)
     jbatch = jax.tree.map(jnp.asarray, batch)
     rng = jax.random.PRNGKey(0)
     gen = torch.Generator().manual_seed(0)
@@ -478,13 +514,6 @@ def test_lr_schedules_match_jax(name):
     ts = tlr.make_schedule(name, 2e-3, kwargs)
     for step in (0, 1, 6, 7, 39, 40, 41, 300):   # JAX computes in f32
         _close(ts(step), js(step), 1e-5, 0, f"step {step}")
-
-
-@pytest.mark.parametrize("name", sorted(_UNMAPPED))
-def test_unmapped_optimizer_raises(name):
-    cfg = Config(optimizer=name)
-    with pytest.raises(ValueError, match="not mapped"):
-        make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))])
 
 
 def test_apply_wavenet_bf16_fused_close_to_jax():

@@ -28,7 +28,10 @@ field as null, with ``"device": "cpu"``.
 
 The TPU options of the JAX bench that have no counterpart here
 (``BENCH_VARIANT`` or ``BENCH_SPLIT_TAPS`` other than the fused kernel,
-``BENCH_UNROLL``, ``BENCH_VMEM_MB``, ``BENCH_REMAT``) raise.
+``BENCH_UNROLL``, ``BENCH_VMEM_MB``) raise. ``BENCH_REMAT`` and
+``BENCH_REMAT_POLICY`` go to ``Config(remat=, remat_policy=)`` as in the
+JAX bench: recomputation in the backward of the plain layer loop
+(``BENCH_FUSED=0``); the fused kernels ignore it.
 """
 from __future__ import annotations
 
@@ -73,10 +76,6 @@ UNPORTED = (
      "no counterpart in csrc/generate.cu"),
     ("BENCH_VMEM_MB", ("",), "the scoped-VMEM limit is a TPU compiler "
      "setting"),
-    ("BENCH_REMAT", ("", "0"), "remat (recompute in the backward) is not "
-     "ported"),
-    ("BENCH_REMAT_POLICY", ("",), "remat (recompute in the backward) is not "
-     "ported"),
 )
 
 
@@ -189,7 +188,9 @@ def bench_train(device: torch.device) -> dict:
     pipeline = bool(_env("BENCH_PIPELINE", 0))
     B = _env("BENCH_BATCH", 32)
     fused = bool(_env("BENCH_FUSED", 1))
-    cfg = _config(fused_train=fused, dropout=_env("BENCH_DROPOUT", 0.0),
+    cfg = _config(remat=bool(_env("BENCH_REMAT", 0)),
+                  remat_policy=os.environ.get("BENCH_REMAT_POLICY", ""),
+                  fused_train=fused, dropout=_env("BENCH_DROPOUT", 0.0),
                   batch_size=B, num_workers=4)
     T = cfg.max_time_steps
     batch = _on(train_batch(cfg, B), device)

@@ -116,9 +116,10 @@ class Config:
     test_eval_epoch_interval: int = 50
     save_optimizer_state: bool = True
 
-    # -- Additions of the JAX package (no reference equivalent). The port
-    # keeps them so that one preset JSON loads in both packages; its
-    # synthesis slice reads none of them. --
+    # -- Additions of the JAX package (no reference equivalent); one
+    # preset JSON loads in both packages. remat/remat_policy: recompute
+    # each block of the plain layer loop in the backward ("dots" keeps the
+    # products' outputs). --
     compute_dtype: str = "bfloat16"
     remat: bool = False
     fused_train: bool = False

@@ -14,6 +14,17 @@ equals up to that epsilon.
 
 Public functions take and return channels-last ``(B, T, C)`` tensors; the
 modules transpose to torch's ``(B, C, T)`` internally.
+
+Gate-channel tensor parallelism (``parallel/sharding.shard_params_tp``)
+cuts a block's convolutions over a model group of processes: ``conv``,
+``conv1x1c`` and ``conv1x1g`` column-parallel (rank r holds gate channels
+[r G/2m, (r+1) G/2m) of each GLU half, so GLU stays local), ``conv1x1_out``
+and ``conv1x1_skip`` row-parallel over the same G/2 slice. The collectives
+are Megatron's f and g operators as autograd Functions: what a
+column-parallel product reads is copied in (identity forward, all-reduce
+backward), the out/skip partial sums are reduced out (all-reduce forward,
+identity backward) before their biases are added once. The row-parallel
+weight norm sums its partial squared norms over the group (both ways).
 """
 from __future__ import annotations
 
@@ -21,19 +32,120 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 _SQRT_HALF = math.sqrt(0.5)
 
+# how a convolution is cut under tensor parallelism: its output channels in
+# GLU pairs (weight_v, weight_g, bias), or its input channels (weight_v)
+COLUMN, ROW = "column", "row"
 
-def _norm_except_dim0(v: torch.Tensor) -> torch.Tensor:
+
+# ----------------------------------------------------------------------
+# collectives over the model group, with their gradients
+# ----------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    """f: identity forward; the gradient summed over the group (each rank
+    holds the part that went through its slice of the gate channels)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous()
+        dist.all_reduce(dy, group=ctx.group)
+        return dy, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: the partial sums summed over the group; the gradient passes as
+    it is (what follows is replicated, so every rank holds all of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def shard_slice(t: torch.Tensor, kind: str, rank: int, size: int
+                ) -> torch.Tensor:
+    """Rank ``rank``'s slice of a whole tensor: COLUMN takes channels
+    [r n, (r+1) n) of each half of axis 0 (n = half / size), ROW the r-th
+    contiguous part of axis 1."""
+    if kind == COLUMN:
+        a, b = t.chunk(2, dim=0)
+        return torch.cat([a.chunk(size, 0)[rank], b.chunk(size, 0)[rank]])
+    return t.chunk(size, dim=1)[rank]
+
+
+def gather_slices(parts, kind: str) -> torch.Tensor:
+    """The whole tensor from every rank's slice, in rank order (the
+    inverse of :func:`shard_slice`)."""
+    if kind == COLUMN:
+        halves = [p.chunk(2, dim=0) for p in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+    return torch.cat(parts, dim=1)
+
+
+def all_gather_slices(x: torch.Tensor, kind: str, group) -> torch.Tensor:
+    """The whole tensor from every rank's slice ``x``. An all-reduce of
+    zeros holding each rank's slice in its place, not an all-gather: gloo
+    reduces tensors on a GPU but does not gather them (adding zeros is
+    exact)."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    buf = x.new_zeros((size,) + tuple(x.shape))
+    buf[rank] = x
+    dist.all_reduce(buf, group=group)
+    return gather_slices(list(buf.unbind(0)), kind)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The whole tensor from the ranks' slices; the gradient is this
+    rank's slice of the whole tensor's gradient (every rank computes all
+    of it from the same inputs, so nothing is summed)."""
+
+    @staticmethod
+    def forward(ctx, x, kind, group):
+        ctx.kind, ctx.rank = kind, dist.get_rank(group)
+        ctx.size = dist.get_world_size(group)
+        return all_gather_slices(x, kind, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return shard_slice(dy, ctx.kind, ctx.rank, ctx.size).contiguous(), \
+            None, None
+
+
+def copy_to_model(x, group):
+    return x if group is None or x is None else _CopyToModel.apply(x, group)
+
+
+def _norm_except_dim0(v: torch.Tensor, group=None) -> torch.Tensor:
     dims = tuple(range(1, v.dim()))
-    return torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-12)
+    sq = torch.sum(v * v, dim=dims, keepdim=True)
+    if group is not None:
+        # a row-parallel kernel's squared norm: its addends and its sum are
+        # both used by cut products, so it is summed both ways
+        sq = _ReduceFromModel.apply(copy_to_model(sq, group), group)
+    return torch.sqrt(sq + 1e-12)
 
 
 class _WeightNormMixin:
-    """Folds ``weight_g * weight_v / ||weight_v||`` on demand."""
+    """Folds ``weight_g * weight_v / ||weight_v||`` on demand. Under tensor
+    parallelism ``tp`` is (COLUMN or ROW, the model group) and the
+    parameters hold this rank's slice."""
+
+    tp = None
 
     def weight_norm_init(self, w: torch.Tensor) -> None:
         self.weight_v = nn.Parameter(w)
@@ -42,9 +154,35 @@ class _WeightNormMixin:
         self.weight_g = nn.Parameter(g)
 
     def effective_weight(self) -> torch.Tensor:
+        """This rank's slice of the folded weight (all of it without tensor
+        parallelism); a row-parallel slice's norm is the whole kernel's."""
         if "weight" in self._parameters:
             return self.weight
-        return self.weight_v * (self.weight_g / _norm_except_dim0(self.weight_v))
+        if self.tp is None or self.tp[0] == COLUMN:
+            return self.weight_v * (self.weight_g
+                                    / _norm_except_dim0(self.weight_v))
+        # row-parallel: g is whole, but each rank's slice of the kernel
+        # gives only its part of g's gradient
+        group = self.tp[1]
+        return self.weight_v * (copy_to_model(self.weight_g, group)
+                                / _norm_except_dim0(self.weight_v, group))
+
+    def full_weight(self) -> torch.Tensor:
+        """The whole folded weight: under tensor parallelism gathered from
+        the model group (v and a column-parallel g, the norm then taken
+        over all of v), with a gradient that is this rank's slice."""
+        if self.tp is None:
+            return self.effective_weight()
+        kind, group = self.tp
+        v = _GatherFromModel.apply(self.weight_v, kind, group)
+        g = (_GatherFromModel.apply(self.weight_g, kind, group)
+             if kind == COLUMN else self.weight_g)
+        return v * (g / _norm_except_dim0(v))
+
+    def full_bias(self) -> Optional[torch.Tensor]:
+        if self.tp is None or self.tp[0] == ROW or self.bias is None:
+            return self.bias
+        return _GatherFromModel.apply(self.bias, self.tp[0], self.tp[1])
 
 
 class WNConv1d(_WeightNormMixin, nn.Module):
@@ -158,9 +296,21 @@ class ResidualConv1dGLU(nn.Module):
         if dropout > 0.0:
             keep = 1.0 - dropout
             x_in = torch.where(keep_mask > 0, x / keep, torch.zeros_like(x))
-        h = self.gated(causal_conv(self.conv, x_in), c, g_proj)
-        s = conv1x1(self.conv1x1_skip, h)
-        out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF
+        if self.conv.tp is None:
+            h = self.gated(causal_conv(self.conv, x_in), c, g_proj)
+            s = conv1x1(self.conv1x1_skip, h)
+            out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF
+            return out, s
+        # tensor parallel: c and g come copied in by the model
+        group = self.conv.tp[1]
+        h = self.gated(causal_conv(self.conv, copy_to_model(x_in, group)),
+                       c, g_proj)
+        R = self.conv1x1_out.out_channels
+        w = torch.cat([self.conv1x1_out.effective_weight()[:, :, 0],
+                       self.conv1x1_skip.effective_weight()[:, :, 0]])
+        y = _ReduceFromModel.apply(h @ w.t().to(h.dtype), group)
+        out = (y[..., :R] + self.conv1x1_out.bias.to(h.dtype) + x) * _SQRT_HALF
+        s = y[..., R:] + self.conv1x1_skip.bias.to(h.dtype)
         return out, s
 
     def step(self, taps: torch.Tensor, ct: Optional[torch.Tensor] = None,

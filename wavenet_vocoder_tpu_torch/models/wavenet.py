@@ -12,18 +12,25 @@ input is one-hot (B, T, out_channels) (reference: wavenet.py:119-122).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.models.layers import (
     ResidualConv1dGLU,
     WNConv1d,
     conv1x1,
+    copy_to_model,
     remove_weight_norm,
 )
 from wavenet_vocoder_tpu_torch.models.upsample import (
@@ -51,10 +58,12 @@ def receptive_field_size(total_layers: int, num_cycles: int, kernel_size: int,
 
 @dataclass(frozen=True)
 class WaveNetSpec:
-    """Static model structure: the JAX package's spec without its remat
-    knobs (remat, remat_policy), which the port does not read.
+    """Static model structure, the JAX package's spec.
     ``fused_train`` runs the residual stack of the batch forward through
-    the fused training stack (``ops/fused_train.py``)."""
+    the fused training stack (``ops/fused_train.py``). ``remat``
+    recomputes each block of the plain layer loop in the backward
+    (``remat_policy == "dots"`` keeps the products' outputs and recomputes
+    the elementwise work; any other value the whole block)."""
     out_channels: int = 256
     layers: int = 20
     stacks: int = 2
@@ -75,6 +84,8 @@ class WaveNetSpec:
     scalar_input: bool = False
     use_speaker_embedding: bool = False
     output_distribution: str = "Logistic"
+    remat: bool = False
+    remat_policy: str = ""
     fused_train: bool = False
 
     def __post_init__(self):
@@ -135,6 +146,8 @@ def spec_from_config(cfg: Config) -> WaveNetSpec:
         scalar_input=cfg.is_scalar_input,
         use_speaker_embedding=cfg.use_speaker_embedding,
         output_distribution=cfg.output_distribution,
+        remat=cfg.remat,
+        remat_policy=cfg.remat_policy,
         fused_train=cfg.fused_train,
     )
 
@@ -181,6 +194,14 @@ class WaveNet(nn.Module):
                 raise ValueError(spec.upsample_net)
         else:
             self.upsample_net = None
+
+    @property
+    def model_group(self):
+        """The process group the residual blocks are cut over by gate-
+        channel tensor parallelism (``parallel.sharding.shard_params_tp``),
+        or None."""
+        tp = self.conv_layers[0].conv.tp
+        return None if tp is None else tp[1]
 
     # conditioning helpers, shared by the batch forward and the decoders
     def embed_global(self, g: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -258,15 +279,50 @@ class WaveNet(nn.Module):
 
         B, R, L = x.shape[0], self.spec.residual_channels, self.spec.layers
         H = stack_receptive(self.spec.dilations, self.spec.kernel_size)
+        remat = self.spec.remat and torch.is_grad_enabled()
+        if self.model_group is not None:
+            # read by the column-parallel products of every block: their
+            # gradients are summed over the model group once, here
+            c = copy_to_model(c, self.model_group)
+            g_exp = copy_to_model(g_exp, self.model_group)
         skips = None
         for l, blk in enumerate(self.conv_layers):
-            m = None
-            if drop > 0:
-                m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, b0=b0, t0=H,
-                                 keep=1.0 - drop, device=x.device)
-            x, h = blk(x, c, g_exp, dropout=drop, keep_mask=m)
+            def run(x, c, g_exp, blk=blk, l=l):
+                # the mask is a hash of (seed, row, time, layer, channel),
+                # so a recomputation draws it again bit for bit
+                m = None
+                if drop > 0:
+                    m = dropout_mask(seed, B=B, T=T, R=R, L=L, l=l, b0=b0,
+                                     t0=H, keep=1.0 - drop, device=x.device)
+                return blk(x, c, g_exp, dropout=drop, keep_mask=m)
+            if remat:
+                x, h = checkpoint(run, x, c, g_exp, use_reentrant=False,
+                                  **_remat_context(self.spec.remat_policy))
+            else:
+                x, h = run(x, c, g_exp)
             skips = h if skips is None else skips + h
         return self.head(skips).float()
+
+
+# the products whose outputs remat_policy "dots" keeps (the counterpart of
+# jax.checkpoint_policies.dots_saveable)
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str) -> dict:
+    """``checkpoint`` keywords: selective checkpointing that saves the
+    products under "dots", nothing (a whole recompute) otherwise, as
+    ``jax.checkpoint(policy=None)``."""
+    if policy != "dots":
+        return {}
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
 
 
 def make_generation_fast(model: WaveNet) -> WaveNet:

@@ -83,21 +83,24 @@ def dropout_mask(seed: int, *, B: int, T: int, R: int, L: int, l: int,
 # packing
 # ----------------------------------------------------------------------
 def _w1x1(conv) -> torch.Tensor:
-    return conv.effective_weight()[:, :, 0].t()          # (In, Out)
+    return conv.full_weight()[:, :, 0].t()               # (In, Out)
 
 
 def pack_block_weights(blocks, spec, dtype=torch.float32):
     """Stack the blocks' folded weights for the fused stack; differentiable,
-    so gradients reach ``weight_g`` and ``weight_v``.
+    so gradients reach ``weight_g`` and ``weight_v``. Under tensor
+    parallelism each block's slices are gathered from the model group (the
+    kernels take whole weights, as JAX's ``shard_map`` hands them
+    replicated ones) and each rank keeps its slice of their gradients.
 
     Returns w_in (L, k*R, G) — row j*R + r is tap j (j=0 the oldest,
     (k-1-j)*d back) and input channel r — b_in (L, G), w_cond (L, cin, G)
     or None, w_og (L, G/2, R+S) = [out | skip], b_og (L, R+S). Weights in
     ``dtype``, biases f32."""
     k, R = spec.kernel_size, spec.residual_channels
-    w_in = torch.stack([blk.conv.effective_weight().permute(2, 1, 0)
+    w_in = torch.stack([blk.conv.full_weight().permute(2, 1, 0)
                         .reshape(k * R, -1) for blk in blocks]).to(dtype)
-    b_in = torch.stack([blk.conv.bias for blk in blocks]).float()
+    b_in = torch.stack([blk.conv.full_bias() for blk in blocks]).float()
     w_cond = None
     if spec.has_local_conditioning:
         w_cond = torch.stack([_w1x1(blk.conv1x1c) for blk in blocks]).to(dtype)

@@ -15,7 +15,13 @@ a ``torch.distributed`` process group (NCCL between GPUs, gloo on the CPU):
     (``training.train_state.make_train_step(group=)``), which is what
     ``global_batch_from_local`` and XLA's reduction give the JAX step;
   * ``replicate_global`` broadcasts a state from rank 0, the counterpart of
-    ``multihost_utils.broadcast_one_to_all``.
+    ``multihost_utils.broadcast_one_to_all``;
+  * a mesh with a ``model`` axis (``parallel_groups``) lays the ranks out
+    as the JAX mesh lays out its devices, (data, model) in row-major order,
+    and joins one process group per data row (the model group: the ranks
+    that share a data shard and cut the gate channels between them) and
+    one per model column (the data group: the ranks that hold the same
+    slices and sum their gradients).
 
 Tested with 2 processes on the CPU over gloo (tests/test_torch_distributed.py).
 """
@@ -23,7 +29,8 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -216,3 +223,38 @@ def replicate_global(state, counters: Optional[Dict[str, int]] = None,
     state.step = p["step"]
     return p["counters"]
 
+
+
+@dataclass(frozen=True)
+class ParallelGroups:
+    """This rank's place in a (data, model) mesh of processes: the data
+    group (ranks holding the same model slices, over which gradients and
+    mask counts are summed) and the model group (ranks holding the same
+    batch rows, over which the gate channels are cut; None when the model
+    axis is 1), with this rank's index and the size of each."""
+    data: Any
+    model: Any
+    data_rank: int
+    data_size: int
+    model_rank: int
+    model_size: int
+
+
+def parallel_groups(model: int) -> ParallelGroups:
+    """Join the process groups of a mesh of (world / model, model) ranks,
+    rank = data index * model + model index (every rank must call this, in
+    the same order). ``model`` 1 gives the world as the data group."""
+    rank, world = process_info()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide "
+                         f"{world} processes")
+    data = world // model
+    if model == 1:
+        group = dist.group.WORLD if dist.is_initialized() else None
+        return ParallelGroups(group, None, rank, world, 0, 1)
+    data_groups = [dist.new_group([d * model + m for d in range(data)])
+                   for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)])
+                    for d in range(data)]
+    d, m = divmod(rank, model)
+    return ParallelGroups(data_groups[m], model_groups[d], d, data, m, model)

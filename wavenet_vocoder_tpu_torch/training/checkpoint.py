@@ -38,6 +38,7 @@ import torch
 from wavenet_vocoder_tpu_torch.compat.from_jax import state_dict_from_jax
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.parallel.distributed import is_primary
+from wavenet_vocoder_tpu_torch.parallel.sharding import gather_train_state
 
 _FORMAT = "wavenet-tpu-ckpt"
 _VERSION = 1
@@ -159,7 +160,11 @@ def save_checkpoint(directory: str, state, *, global_step: int,
     Every file is written atomically; an interrupt mid-save leaves prior
     checkpoints intact. Under data parallelism only the primary process
     writes (every rank holds the same state); the others return the path
-    the primary writes."""
+    the primary writes. A state cut by tensor parallelism is gathered
+    first (every rank of its model group must call this), so the files
+    hold the whole model, optimizer state and EMA, as one process writes
+    them."""
+    state = gather_train_state(state)
     if not is_primary():
         return checkpoint_path(directory, global_step)
     os.makedirs(directory, exist_ok=True)

@@ -21,7 +21,12 @@ so every rank holds the same state; only the primary writes hparams.json,
 checkpoints, metrics and eval audio. With ``use_mesh`` and several GPUs in
 one process, the loop spawns one worker per GPU (the JAX loop meshes all
 local devices there); with ``use_mesh=False`` it trains on one of them and
-says so.
+says so. A ``model`` axis above 1 in ``cfg.mesh_axes`` (as the JAX loop
+reads it) cuts the residual blocks' gate channels over that many ranks
+(``parallel.sharding.shard_train_state``): the ranks of one model group
+feed the same rows, the corpus and the batch split over the data axis, and
+checkpoints and eval audio come from the gathered state (every rank takes
+part in the gather; the primary writes).
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device, to_devic
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
 from wavenet_vocoder_tpu_torch.parallel import distributed as pdist
+from wavenet_vocoder_tpu_torch.parallel.sharding import (
+    gather_train_state,
+    shard_train_state,
+)
 from wavenet_vocoder_tpu_torch.synthesis import batch_wavegen, resolve_device
 from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt_lib
 from wavenet_vocoder_tpu_torch.training.train_state import (
@@ -331,12 +340,19 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
     print(f"Receptive field: {spec.receptive_field} samples "
           f"({spec.receptive_field / cfg.sample_rate * 1000:.1f} ms)")
 
+    groups = None
     if world > 1:
+        groups = pdist.parallel_groups(int(cfg.mesh_axes.get("model", 1)))
+        if cfg.batch_size % groups.data_size:
+            raise ValueError(f"global batch {cfg.batch_size} not divisible "
+                             f"by the data axis ({groups.data_size})")
         loaders = get_data_loaders(
             data_root, cfg, speaker_id,
-            batch_size=pdist.local_batch_size(cfg.batch_size),
-            process_shard=(rank, world))
-        print(f"Training data-parallel: rank {rank} of {world} on {device}")
+            batch_size=cfg.batch_size // groups.data_size,
+            process_shard=(groups.data_rank, groups.data_size))
+        print(f"Training over a (data {groups.data_size}, model "
+              f"{groups.model_size}) mesh: rank {rank} of {world} on "
+              f"{device}")
     else:
         loaders = get_data_loaders(data_root, cfg, speaker_id)
     state = create_train_state(cfg, device=device)
@@ -350,12 +366,13 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                            reset_optimizer=reset_optimizer)
     if world > 1:
         counters = pdist.replicate_global(state, counters)
+        shard_train_state(state, groups)
     global_step = counters["global_step"]
     global_epoch = counters["global_epoch"]
     global_test_step = counters["global_test_step"]
 
     train_step, eval_step = make_train_step(
-        cfg, group=dist.group.WORLD if in_group else None)
+        cfg, group=None if groups is None else groups.data)
     checked = False
     writer = MetricWriter(log_event_path or
                           os.path.join(checkpoint_dir, "log"), enabled=primary)
@@ -405,40 +422,44 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
                                           time.time() - t0, global_step)
                         else:
                             loss = None
-                        if (primary and
-                                global_step % cfg.checkpoint_interval == 0):
+                        if global_step % cfg.checkpoint_interval == 0:
+                            # every rank: a cut state is gathered first
                             ckpt_lib.save_checkpoint(
                                 checkpoint_dir, state,
                                 global_step=global_step,
                                 global_epoch=global_epoch,
                                 global_test_step=global_test_step,
                                 save_optimizer_state=cfg.save_optimizer_state)
-                        if (primary and
-                                global_step % cfg.train_eval_interval == 0):
-                            save_eval_audio(state, cfg, host, eval_dir,
+                        if global_step % cfg.train_eval_interval == 0:
+                            whole = gather_train_state(state)
+                            if primary:
+                                save_eval_audio(
+                                    whole, cfg, host, eval_dir, global_step,
+                                    step_generator(cfg, 1, global_step,
+                                                   device), device)
+                                save_states(whole, cfg, host, eval_dir,
                                             global_step,
-                                            step_generator(cfg, 1, global_step,
-                                                           device), device)
-                            save_states(state, cfg, host, eval_dir,
-                                        global_step,
-                                        step_generator(cfg, 2, global_step,
-                                                       device))
+                                            step_generator(cfg, 2,
+                                                           global_step,
+                                                           device))
                         if global_step >= max_steps:
                             break
                     else:
                         loss = float(eval_step(state, batch)["loss"])
                         global_test_step += 1
                         writer.scalar("dev/loss", loss, global_test_step)
-                        if (primary and not test_evaluated
+                        if (not test_evaluated
                                 and global_epoch % cfg.test_eval_epoch_interval
                                 == 0):
                             # file names use the train step (reference:
                             # train.py:753-756)
                             test_evaluated = True
-                            save_eval_audio(state, cfg, host, eval_dir,
-                                            global_step,
-                                            step_generator(cfg, 3, global_step,
-                                                           device), device)
+                            whole = gather_train_state(state)
+                            if primary:
+                                save_eval_audio(
+                                    whole, cfg, host, eval_dir, global_step,
+                                    step_generator(cfg, 3, global_step,
+                                                   device), device)
                     if loss is not None:
                         running += loss
                         n_batches += 1
@@ -454,10 +475,9 @@ def train_loop(cfg: Config, data_root: str, checkpoint_dir: str, *,
         print("Interrupted — saving final checkpoint "
               "(reference: train.py:1101-1110)")
     finally:
-        if primary:
-            ckpt_lib.save_checkpoint(
-                checkpoint_dir, state, global_step=global_step,
-                global_epoch=global_epoch, global_test_step=global_test_step,
-                save_optimizer_state=cfg.save_optimizer_state)
+        ckpt_lib.save_checkpoint(
+            checkpoint_dir, state, global_step=global_step,
+            global_epoch=global_epoch, global_test_step=global_test_step,
+            save_optimizer_state=cfg.save_optimizer_state)
         writer.close()
     return state

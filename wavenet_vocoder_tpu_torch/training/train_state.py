@@ -7,18 +7,19 @@ returns a new state, the port's ``train_step`` updates the ``TrainState``
 it is given in place: the model's parameters, the optimizer's moments, the
 EMA shadow and the step count.
 
-The optimizer follows the JAX package's table (``_make_core_optimizer``)
-mapped onto ``torch.optim``, where torch has the same update: Adam (AdamW
-when weight_decay > 0, as the JAX package maps it to optax.adamw), AdamW,
-SGD (momentum, nesterov; weight decay added to the gradient) and Adadelta.
-The other names the JAX package accepts differ from their torch
-namesakes, or have none, and raise.
+The optimizer follows the JAX package's table (``_make_core_optimizer``):
+Adam (AdamW when weight_decay > 0, as the JAX package maps it to
+optax.adamw), AdamW, SGD (momentum, nesterov; weight decay added to the
+gradient) and Adadelta map onto ``torch.optim``, where torch has optax's
+update; Adamax, NAdam, RAdam, RMSprop, Adagrad, Lamb and Adafactor are
+optax's updates written out in ``training/optimizers.py``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.models.wavenet import (
@@ -33,29 +34,16 @@ from wavenet_vocoder_tpu_torch.ops.losses import (
     sequence_mask,
 )
 from wavenet_vocoder_tpu_torch.parallel.distributed import batch_row_offset
+from wavenet_vocoder_tpu_torch.training import optimizers
 from wavenet_vocoder_tpu_torch.training.lrschedule import make_schedule
-
-# names the JAX package accepts, and why the port does not map them
-_UNMAPPED = {
-    "adamax": "torch's Adamax adds eps inside the max, optax's to the "
-              "denominator",
-    "nadam": "torch's NAdam applies a momentum-decay schedule that "
-             "optax.nadam does not",
-    "radam": "torch's RAdam scales eps by the bias correction, optax's "
-             "does not",
-    "rmsprop": "optax adds eps inside the square root, torch outside",
-    "adagrad": "optax starts the accumulator at 0.1 and adds eps inside "
-               "the square root",
-    "lamb": "torch.optim has no Lamb",
-    "adafactor": "torch's Adafactor is not optax's (factored moments, "
-                 "update clipping and step-size rules differ)",
-}
 
 
 class TrainState:
     """The model, its optimizer, the LR schedule, the EMA shadow (name ->
     tensor, or None) and the number of steps taken. ``train_step`` updates
-    all of them in place."""
+    all of them in place. ``parallel``: the ``ParallelGroups`` of a state
+    cut by ``parallel.sharding.shard_train_state`` (this rank's slices of
+    the model, its optimizer state and its EMA), else None."""
 
     def __init__(self, model: WaveNet, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float],
@@ -65,13 +53,20 @@ class TrainState:
         self.schedule = schedule
         self.ema = ema
         self.step = step
+        self.parallel = None
 
 
 def make_optimizer(cfg: Config, params) -> Tuple[torch.optim.Optimizer,
                                                  Callable[[int], float]]:
     """Optimizer by name with the config's schedule (reference:
-    train.py:1083-1085). The lr is set from the schedule before each
-    update; clipping is done by ``train_step``."""
+    train.py:1083-1085), mapped as the JAX package's
+    ``_make_core_optimizer`` maps the name and ``optimizer_params`` onto
+    optax: what it ignores for a name (weight decay for Adamax, NAdam and
+    RAdam; everything but the schedule for Adafactor) is ignored here too.
+    ``params``: a model (the speaker embedding is then marked as kept in
+    the JAX package's axis order, ``optimizers.Adafactor``) or an iterable
+    of tensors. The lr is set from the schedule before each update;
+    clipping is done by ``train_step``."""
     p = dict(cfg.optimizer_params)
     init_lr = float(p.get("lr", 1e-3))
     schedule = make_schedule(cfg.lr_schedule, init_lr,
@@ -82,29 +77,101 @@ def make_optimizer(cfg: Config, params) -> Tuple[torch.optim.Optimizer,
     betas = (float(betas[0]), float(betas[1]))
     momentum = float(p.get("momentum", 0.0))
     key = cfg.optimizer.lower()
-    params = list(params)
+    if isinstance(params, torch.nn.Module):
+        embeds = {id(m.weight) for m in params.modules()
+                  if isinstance(m, torch.nn.Embedding)}
+        params = list(params.parameters())
+        params = [{"params": params,
+                   "same_layout": [id(q) in embeds for q in params]}]
+    else:
+        params = list(params)
     lr = schedule(0)
     if key == "adam" and weight_decay == 0.0:
         opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
     elif key in ("adam", "adamw"):
         opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
                                 weight_decay=weight_decay)
+    elif key in ("adamax", "nadam", "radam"):
+        cls = {"adamax": optimizers.Adamax, "nadam": optimizers.NAdam,
+               "radam": optimizers.RAdam}[key]
+        opt = cls(params, lr=lr, betas=betas, eps=eps)
     elif key == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=momentum,
                               nesterov=bool(p.get("nesterov", False)),
                               weight_decay=weight_decay)
+    elif key == "rmsprop":
+        opt = optimizers.RMSprop(
+            params, lr=lr, decay=float(p.get("alpha", 0.99)), eps=eps,
+            momentum=momentum or None,
+            centered=bool(p.get("centered", False)),
+            weight_decay=weight_decay)
+    elif key == "adagrad":
+        opt = optimizers.Adagrad(params, lr=lr,
+                                 eps=float(p.get("eps", 1e-10)),
+                                 weight_decay=weight_decay)
     elif key == "adadelta":
         opt = torch.optim.Adadelta(params, lr=lr,
                                    rho=float(p.get("rho", 0.9)), eps=eps,
                                    weight_decay=weight_decay)
-    elif key in _UNMAPPED:
-        raise ValueError(f"optimizer {cfg.optimizer!r} is not mapped in the "
-                         f"PyTorch port: {_UNMAPPED[key]}; supported: Adam, "
-                         "AdamW, SGD, Adadelta")
+    elif key == "lamb":
+        opt = optimizers.Lamb(params, lr=lr, betas=betas, eps=eps,
+                              weight_decay=weight_decay)
+    elif key == "adafactor":
+        opt = optimizers.Adafactor(params, lr=lr)
     else:
-        raise ValueError(f"Unsupported optimizer: {cfg.optimizer!r}; "
-                         "supported: Adam, AdamW, SGD, Adadelta")
+        raise ValueError(
+            f"Unsupported optimizer: {cfg.optimizer!r}; supported: Adam, "
+            "AdamW, Adamax, NAdam, RAdam, SGD, RMSprop, Adagrad, Adadelta, "
+            "Lamb, Adafactor (reference accepts any torch.optim name, "
+            "train.py:1083-1085)")
     return opt, schedule
+
+
+def _partitions(optimizer):
+    """(which parameters are a slice of a logical tensor, the model group)
+    of an optimizer over a tensor-parallel model; (None, None) otherwise."""
+    group = getattr(optimizer, "model_group", None)
+    if group is None:
+        return None, None
+    return [d is not None for g in optimizer.param_groups
+            for d in g.get("partition_dim") or [None] * len(g["params"])
+            ], group
+
+
+def _all_reduce_into(tensors, extra, group):
+    """Sum ``tensors`` (and the 0-dim ``extra``, returned) over ``group`` in
+    one flat buffer, in place."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]
+                     + ([] if extra is None else [extra[None]]))
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    n = sum(t.numel() for t in tensors)
+    torch._foreach_copy_(tensors, [
+        v.view_as(t) for v, t in
+        zip(flat[:n].split([t.numel() for t in tensors]), tensors)])
+    return None if extra is None else flat[-1]
+
+
+def clip_by_global_norm(grads, clip_thresh: float, partitioned=None,
+                        model_group=None) -> torch.Tensor:
+    """The global norm of ``grads`` (the optimizer's order), and the
+    gradients scaled in place by thresh / max(norm, thresh) when
+    ``clip_thresh`` > 0 (optax.clip_by_global_norm, not
+    ``clip_grad_norm_``'s formula). Under tensor parallelism the norm is
+    the logical model's: the squares of the ``partitioned`` gradients are
+    summed over ``model_group``, the replicated ones counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        sq = norms * norms
+        mask = torch.tensor(partitioned, device=sq.device)
+        shards = sq[mask].sum()
+        dist.all_reduce(shards, group=model_group)
+        norm = torch.sqrt(sq[~mask].sum() + shards)
+    if clip_thresh > 0:
+        thresh = float(clip_thresh)
+        torch._foreach_mul_(grads, thresh / torch.clamp(norm, min=thresh))
+    return norm
 
 
 def create_train_state(cfg: Config, *, model: Optional[WaveNet] = None,
@@ -120,7 +187,7 @@ def create_train_state(cfg: Config, *, model: Optional[WaveNet] = None,
         model = WaveNet(spec_from_config(cfg),
                         generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(device)
-    opt, schedule = make_optimizer(cfg, model.parameters())
+    opt, schedule = make_optimizer(cfg, model)
     ema = None
     if cfg.exponential_moving_average:
         ema = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -207,6 +274,10 @@ def make_train_step(cfg: Config, group=None):
     clip, the optimizer and the EMA then see identical values on every
     rank, and dropout is keyed on the global rows. Every
     rank must draw the same dropout seed (the same generator state).
+    Under tensor parallelism (a state cut by
+    ``parallel.sharding.shard_train_state``) ``group`` is its data group:
+    the model group's collectives run inside the model and the optimizer,
+    and the grad norm (and clip) is the whole model's.
     """
     import torch.distributed as dist
     criterion = select_criterion(cfg, group)
@@ -237,7 +308,8 @@ def make_train_step(cfg: Config, group=None):
             seed = int(torch.randint(-2 ** 31, 2 ** 31 - 1, (),
                                      generator=generator))
         model.train()
-        params = list(model.parameters())
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
         for p in params:
             p.grad = None
         loss = loss_fn(model, batch, seed, True)
@@ -248,21 +320,20 @@ def make_train_step(cfg: Config, group=None):
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
         loss = loss.detach()
+        partitioned, model_group = _partitions(state.optimizer)
+        if model_group is not None:
+            # every rank of the model group holds all of a replicated
+            # tensor's gradient; kernels whose sums use atomics make the
+            # copies differ in their last bits, so they are averaged: the
+            # replicas stay bitwise equal
+            rep = [g for g, cut in zip(grads, partitioned) if not cut]
+            _all_reduce_into(rep, None, model_group)
+            torch._foreach_div_(rep, dist.get_world_size(model_group))
         if group is not None:
             # the ranks' shares summed: the global loss and its gradient
-            flat = torch.cat([g.reshape(-1) for g in grads] + [loss[None]])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-            torch._foreach_copy_(grads, [
-                v.view_as(g) for v, g in
-                zip(flat[:-1].split([g.numel() for g in grads]), grads)])
-            loss = flat[-1]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        if cfg.clip_thresh > 0:
-            # optax.clip_by_global_norm: scale by thresh / max(norm, thresh)
-            thresh = float(cfg.clip_thresh)
-            torch._foreach_mul_(grads,
-                                thresh / torch.clamp(grad_norm, min=thresh))
+            loss = _all_reduce_into(grads, loss, group)
+        grad_norm = clip_by_global_norm(grads, cfg.clip_thresh, partitioned,
+                                        model_group)
         lr = state.schedule(state.step)
         for pg in state.optimizer.param_groups:
             pg["lr"] = lr
