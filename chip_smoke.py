@@ -170,6 +170,34 @@ Phases (each failure ends the run with a non-zero exit):
                 kernels. ``[tail]`` lines for each; the kernels line counts
                 the phase's launches as ``phase15_launches``.
 
+ 16. slice-11 — (a) the flagship ``Config(fused_train=True)`` in bf16, B=8,
+                on the tensor-core kernels: 2 steps, ``save_checkpoint``
+                (which must write the JAX package's layout: keystr paths
+                and 2N + 2 optax leaves of Adam's state), reloaded into a
+                fresh state; step 3 after the reload against step 3
+                without it within STEP_TOL["bfloat16"]; (c) the eager
+                decoder in bf16 (``generate(dtype=torch.bfloat16)``),
+                flagship deterministic, B=32: 32 single steps from its own
+                state against the f32 decoder and against the kernel with
+                the bf16 pack: head outputs and samples within phase 2's
+                bf16 step limit, a sample beyond it only at a near tie of
+                the mixture's argmax (see _bf16_scan); 32-step runs from
+                zero printed beside; (b) two gloo ranks on the card
+                (``chip_smoke.py --syn-rank``) with the flagship's blocks
+                cut over the model axis 2, deterministic, B=4 x 22 mel
+                frames: the kernel engine's samples equal the whole
+                model's bit for bit (equal packs), the scan engine's over
+                SYN_SCAN_T steps within 1e-3, the ranks' outputs bitwise
+                equal; (d) ``egs/run_common_torch.sh`` stages 0-3 in
+                build/chip_smoke_recipe with ``conf/mol_wavenet.json`` on
+                the corpus of ``scripts/make_speech_corpus.py`` (24
+                utterances), ``--max-train-steps`` RECIPE_STEPS, every CLI
+                as ``chip_smoke.py --run-module``: each stage's seconds
+                and launches, a ``*_gen.wav`` for every dev and eval
+                utterance, training and generation kernels launched.
+                ``[tail] 16`` lines; the kernels line counts the phase's
+                launches as ``phase16_launches``.
+
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -2022,9 +2050,12 @@ def _launch_line(out, tag):
 
 
 def run_module(argv):
-    """``--run-module MOD ARGS``: run a CLI module of the port as ``python
-    -m`` would, print its kernel launches, and exit 4 if it imported JAX."""
+    """``--run-module [-m] MOD ARGS``: run a CLI module of the port as
+    ``python -m`` would, print its kernel launches, and exit 4 if it
+    imported JAX."""
     import runpy
+    if argv and argv[0] == "-m":        # as a stand-in for ``python``
+        argv = argv[1:]
     sys.argv = list(argv)
     code = 0
     try:
@@ -3134,6 +3165,377 @@ def phase_parallel_optim(report):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 16: checkpoints in the JAX layout, synthesis on a cut model, the
+# bf16 eager decoder and the recipe at the flagship preset
+# ----------------------------------------------------------------------
+CKPT_B = 8
+SYN_RANKS, SYN_B, SYN_FRAMES = 2, 4, 22     # 22 mel frames: 0.255 s
+SYN_SCAN_T = 64         # the scan engine's steps (a cut: PERF.md section 4)
+SYN_SCAN_TOL = 1e-3     # generation's f32 limit (TOL["float32"])
+BF16_SCAN_B, BF16_SCAN_T = 32, CHECK_STEPS
+RECIPE_UTTS = 24
+RECIPE_STEPS = 60
+RECIPE_PRESET = "conf/mol_wavenet.json"
+
+
+def _ckpt_round_trip(report, work):
+    """(a): two fused bf16 steps, save, load into a fresh state; step 3
+    with and without the reload agree within STEP_TOL["bfloat16"]."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    cfg = Config(fused_train=True)
+    batch = train_batch(cfg, CKPT_B)
+    state = create_train_state(cfg)
+    step, _ = make_train_step(cfg)
+    for _ in range(2):
+        step(state, batch)
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(work, state, global_step=2)
+    save_s = time.perf_counter() - t0
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z["manifest"]).decode())
+        count = int(z["opt_0"])
+    n = len(manifest["param_paths"])
+    keystr = all(p.startswith("['") for p in manifest["param_paths"])
+    fresh = create_train_state(Config(fused_train=True, seed=1))
+    t0 = time.perf_counter()
+    ckpt.load_checkpoint(path, fresh)
+    load_s = time.perf_counter() - t0
+    tol = STEP_TOL["bfloat16"]
+    m_a, m_b = step(state, batch), step(fresh, batch)
+    leaf = leaf_grad_errors(fresh.model, state.model)
+    worst = max(leaf.items(), key=lambda kv: kv[1])
+    loss_rel = abs(float(m_b["loss"]) - float(m_a["loss"])) / abs(
+        float(m_a["loss"]))
+    norm_rel = abs(float(m_b["grad_norm"]) - float(m_a["grad_norm"])) / abs(
+        float(m_a["grad_norm"]))
+    out = dict(n_params=n, n_opt=manifest["n_opt"], keystr=keystr,
+               adam_count=count, loss_rel=loss_rel, grad_norm_rel=norm_rel,
+               worst_leaf=worst, save_s=save_s, load_s=load_s,
+               mb=os.path.getsize(path) / 2 ** 20)
+    print(f"[tail] 16 (a) checkpoint: flagship fused bf16 B={CKPT_B}, 2 "
+          f"steps, saved ({out['mb']:.1f} MB, {save_s:.2f} s) with {n} "
+          f"keystr paths {keystr} and {manifest['n_opt']} optax leaves "
+          f"(2N+2 = {2 * n + 2}, Adam count {count}); reloaded into a "
+          f"fresh state ({load_s:.2f} s); step 3 after the reload vs "
+          f"without: loss rel {loss_rel:.2e} (tol {tol['loss']}), grad norm "
+          f"rel {norm_rel:.2e} (tol {tol['grad_norm']}), worst leaf "
+          f"gradient {worst[0]} {worst[1]:.2e} (tol {tol['leaf']})",
+          flush=True)
+    if not (keystr and manifest["n_opt"] == 2 * n + 2 and count == 2):
+        fail("the checkpoint is not in the JAX layout with Adam's state")
+    if not (loss_rel <= tol["loss"] and norm_rel <= tol["grad_norm"]
+            and worst[1] <= tol["leaf"]):
+        fail("step 3 after the checkpoint's reload disagrees beyond STEP_TOL")
+    report["ckpt_round_trip"] = out
+    del state, fresh
+    torch.cuda.empty_cache()
+
+
+def syn_rank_worker(rank, port, out_dir):
+    """(b)'s ranks: gloo on cuda:0 with the model axis 2; the flagship
+    whole and cut, synthesised in deterministic mode by both engines."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.wavenet import (
+        WaveNet, spec_from_config)
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops.generate import generate
+    from wavenet_vocoder_tpu_torch.parallel import initialize_distributed
+    from wavenet_vocoder_tpu_torch.parallel.distributed import (
+        parallel_groups)
+    from wavenet_vocoder_tpu_torch.parallel.sharding import shard_params_tp
+    initialize_distributed(f"127.0.0.1:{port}", SYN_RANKS, rank,
+                           local_device_ids="0", backend="gloo",
+                           timeout_s=MD_TIMEOUT_S)
+    groups = parallel_groups(SYN_RANKS)
+    cfg = Config()
+    models = [WaveNet(spec_from_config(cfg), generator=torch.Generator(
+        ).manual_seed(cfg.seed)).cuda().eval() for _ in range(2)]
+    whole, cut = models
+    shard_params_tp(cut, groups)
+    c = torch.from_numpy(np.random.RandomState(5).randn(
+        SYN_B, SYN_FRAMES + 2 * cfg.cin_pad, cfg.num_mels).astype(
+        np.float32)).cuda()
+    res, t0 = {}, time.perf_counter()
+    gens = [cg.FusedGenerator(m) for m in models]
+    res["pack_equal"] = all(torch.equal(gens[0].packed[k], gens[1].packed[k])
+                            for k in gens[0].packed)
+    before = cg.generate_steps.launches
+    k_whole, k_cut = (g(c=c, deterministic=True) for g in gens)
+    res["kernel_launches"] = cg.generate_steps.launches - before
+    res["kernel_equal"] = bool(torch.equal(k_whole, k_cut))
+    res["kernel_samples"] = int(k_cut.shape[1])
+    res["kernel_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        c_up = whole.upsample_conditioning(c)[:, :SYN_SCAN_T]
+    s_whole, s_cut = (generate(m, T=SYN_SCAN_T, c_up=c_up,
+                               deterministic=True)["samples"]
+                      for m in models)
+    res["scan_err"] = float((s_whole - s_cut).abs().max())
+    res["scan_s"] = time.perf_counter() - t0
+    res["jax_loaded"] = ("jax" in sys.modules
+                         or "wavenet_vocoder_tpu" in sys.modules)
+    torch.save({"kernel": k_cut.cpu(), "scan": s_cut.cpu()},
+               os.path.join(out_dir, f"syn{rank}.pt"))
+    with open(os.path.join(out_dir, f"syn{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _cut_synthesis(report, work, total):
+    """(b): two gloo ranks on the card, the flagship's blocks cut over the
+    model axis 2: the kernel engine's samples equal the whole model's bit
+    for bit, the scan engine's within SYN_SCAN_TOL; the ranks equal."""
+    import torch
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([_self_cmd("--syn-rank", str(r), "--md-port", str(port),
+                      "--md-dir", work) for r in range(SYN_RANKS)],
+           "phase 16 (b) ranks")
+    secs = time.perf_counter() - t0
+    res = [json.load(open(os.path.join(work, f"syn{r}.json")))
+           for r in range(SYN_RANKS)]
+    outs = [torch.load(os.path.join(work, f"syn{r}.pt"))
+            for r in range(SYN_RANKS)]
+    ranks_equal = all(torch.equal(outs[0][k], o[k]) for o in outs[1:]
+                      for k in outs[0])
+    r0 = res[0]
+    scan_errs = [f"{r['scan_err']:.2e}" for r in res]
+    print(f"[tail] 16 (b) cut-model synthesis: {SYN_RANKS} gloo ranks on "
+          f"cuda:0 (model axis {SYN_RANKS}), flagship deterministic, B="
+          f"{SYN_B}: kernel engine (bf16 pack) {r0['kernel_samples']} "
+          f"samples, packs equal {[r['pack_equal'] for r in res]}, cut == "
+          f"whole bit for bit {[r['kernel_equal'] for r in res]} "
+          f"({r0['kernel_s']:.1f} s); scan engine {SYN_SCAN_T} steps, max "
+          f"|cut - whole| {scan_errs} (tol "
+          f"{SYN_SCAN_TOL}; {r0['scan_s']:.1f} s); ranks' outputs bitwise "
+          f"equal {ranks_equal}; launches {[r['kernel_launches'] for r in res]}"
+          f"; {secs:.1f} s", flush=True)
+    if any(r["jax_loaded"] for r in res):
+        fail("a phase 16 (b) rank imported JAX")
+    if not (all(r["pack_equal"] and r["kernel_equal"] for r in res)
+            and all(r["scan_err"] <= SYN_SCAN_TOL for r in res)
+            and ranks_equal):
+        fail("synthesis of the cut model differs from the whole model's")
+    for r in res:
+        _add_counts(total, {"generate": dict(launches=r["kernel_launches"])})
+    report["cut_synthesis"] = dict(ranks=res, ranks_equal=ranks_equal, s=secs)
+
+
+def _bf16_scan(report):
+    """(c): the eager decoder in bf16 (JAX's semantics: every activation,
+    the ring buffers and the fed-back input in bf16) against phase 2's
+    bf16 step limits: single steps from its own state against the f32
+    decoder and against the kernel with the bf16 pack (the eager ring
+    buffers are the kernel's ring, layer after layer). Held: the head's
+    outputs within 2e-2 of the f32 decoder's largest; every sample within
+    2e-2, except where the mixture's argmax is a near tie in the bf16
+    decoder's own outputs (top two within 2 x the largest difference of a
+    mixture logit between the bf16 and f32 decoders); the share of such
+    flips is printed beside phase 2's 1/512 (a budget set for two
+    versions that round at the same points; not held here). 32-step runs
+    from zero against both are printed: they part by design."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops.generate import generate
+    _, model = _flagship_model("cuda", 0)
+    spec = model.spec
+    nr_mix = spec.out_channels // 3
+    c = torch.from_numpy(np.random.RandomState(6).randn(
+        BF16_SCAN_B, 2 + 2 * spec.cin_pad, spec.cin_channels).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        c_up = model.upsample_conditioning(c)[:, :BF16_SCAN_T]
+    tol, bf = TOL["bfloat16"], torch.bfloat16
+    packed = cg.pack_weights(model, dtype=bf)
+    t0 = time.perf_counter()
+    before = cg.generate_steps.launches
+    state, logits, margins = None, [], []
+    diffs = {"f32 decoder": [], "bf16 pack kernel": []}
+    for j in range(BF16_SCAN_T):
+        kw = dict(T=1, c_up=c_up[:, j:j + 1], deterministic=True,
+                  state=state, return_state=True, output="both")
+        a, b = generate(model, dtype=bf, **kw), generate(model, **kw)
+        logits.append((a["logits"][:, 0], b["logits"][:, 0]))
+        top = a["logits"][:, 0, :nr_mix].topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        diffs["f32 decoder"].append(
+            (a["samples"] - b["samples"]).abs()[:, 0, 0])
+        x_cur, buffers, _ = state or (
+            None, [torch.zeros(BF16_SCAN_B, (spec.kernel_size - 1) * d,
+                               spec.residual_channels, device="cuda")
+                   for d in spec.dilations], 0)
+        if x_cur is None:
+            x_cur = cg.default_initial_input(spec, BF16_SCAN_B, device="cuda")
+        ring = torch.cat([buf.transpose(0, 1) for buf in buffers]).to(bf)
+        k_out = torch.empty(BF16_SCAN_B, 1, device="cuda")
+        cg.generate_steps(
+            packed, spec, ring.contiguous(),
+            x_cur.clone(memory_format=torch.contiguous_format), k_out,
+            c_up[:, j:j + 1].to(bf).clone(
+                memory_format=torch.contiguous_format), None, t0=j, seed=7,
+            deterministic=True)
+        diffs["bf16 pack kernel"].append(
+            (a["samples"][:, 0, 0] - k_out[:, 0]).abs())
+        state = a["state"]
+    torch.cuda.synchronize()
+    lb = torch.stack([x for x, _ in logits], dim=1)
+    lf = torch.stack([y for _, y in logits], dim=1)
+    logit_err = float((lb - lf).abs().max()) / float(lf.abs().max())
+    delta = float((lb - lf)[..., :nr_mix].abs().max())
+    tie = torch.stack(margins, dim=1) <= 2 * delta
+    out = dict(launches=cg.generate_steps.launches - before,
+               scan_s=time.perf_counter() - t0, logit_rel=logit_err,
+               tie_margin=2 * delta, ties=int(tie.sum()))
+    run = dict(T=BF16_SCAN_T, c_up=c_up, deterministic=True)
+    scan_bf = generate(model, dtype=bf, **run)["samples"][..., 0]
+    runs = {"f32 decoder": generate(model, **run)["samples"][..., 0],
+            "bf16 pack kernel": cg.FusedGenerator(
+                model, weight_dtype=bf, chunk=BF16_SCAN_T)(**run)}
+    bad = [] if logit_err <= tol else ["head outputs"]
+    print(f"[tail] 16 (c) bf16 eager decoder: flagship deterministic, B="
+          f"{BF16_SCAN_B}, {BF16_SCAN_T} single steps from its own state: "
+          f"head outputs vs the f32 decoder's max |diff| / max |output| "
+          f"{logit_err:.2e} (tol {tol}); near ties (mixture top two within "
+          f"{2 * delta:.3e}) at {out['ties']} of {tie.numel()} steps",
+          flush=True)
+    for tag, d in diffs.items():
+        step = torch.stack(d, dim=1)
+        beyond = ~(step <= tol)
+        flips = int(beyond.sum())
+        unexplained = int((beyond & ~tie).sum())
+        ok = step[~beyond]
+        err, parted, first = _before_parting((scan_bf - runs[tag]).abs(),
+                                             tol)
+        out[tag] = dict(step_err=float(ok.max()) if ok.numel() else 0.0,
+                        step_flips=flips, unexplained=unexplained,
+                        steps=step.numel(), run_err=err, run_parted=parted,
+                        run_first_parting=first)
+        v = out[tag]
+        print(f"[tail] 16 (c) vs the {tag}: samples max |diff| "
+              f"{v['step_err']:.2e} (tol {tol}); {flips} of {v['steps']} "
+              f"beyond, all at near ties: {unexplained == 0} (phase 2's "
+              f"budget {BF16_MAX_FLIPS * v['steps']:.1f}, not held); one "
+              f"{BF16_SCAN_T}-step run from zero (not held): max |diff| "
+              f"before parting {err:.2e}, streams parted {parted}/"
+              f"{BF16_SCAN_B}, first at step {first}", flush=True)
+        if unexplained or v["step_err"] > tol:
+            bad.append(tag)
+    if bad or not out["launches"]:
+        fail(f"the bf16 eager decoder leaves phase 2's bf16 step limits: "
+             f"{bad}")
+    report["bf16_scan"] = out
+    return out["launches"]
+
+
+def _recipe(report, work, total):
+    """(d): egs/run_common_torch.sh stages 0-3 with the mol_wavenet.json
+    preset on the speech-shaped corpus, each stage timed; every CLI runs
+    through ``--run-module`` so that its launches are counted."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    wavs = os.path.join(work, "wavs")
+    subprocess.run([sys.executable, os.path.join(root, "scripts",
+                                                 "make_speech_corpus.py"),
+                    wavs, "--n", str(RECIPE_UTTS)], check=True,
+                   capture_output=True)
+    recipe = os.path.join(work, "mol")
+    shutil.copytree(os.path.join(root, "egs", "mol", "conf"),
+                    os.path.join(recipe, "conf"))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               preset=RECIPE_PRESET,
+               PYTHON=f"{sys.executable} {os.path.abspath(__file__)} "
+                      "--run-module",
+               train_args=f"--max-train-steps {RECIPE_STEPS}")
+    stages, counts = {}, {k: 0 for k in _PORT_KERNELS}
+    for stage in range(4):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", "-c", ". " + os.path.join(root, "egs",
+                                               "run_common_torch.sh")
+             + f" --stage {stage} --stop-stage {stage} --db-root {wavs}"
+             " --num-workers 1"],
+            cwd=recipe, env=env, capture_output=True, text=True,
+            timeout=LOOP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"recipe stage {stage} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        launched = {k: 0 for k in _PORT_KERNELS}
+        for line in proc.stdout.splitlines():
+            if line.startswith("[run-module] kernel launches "):
+                c = json.loads(line[len("[run-module] kernel launches "):])
+                for k in _PORT_KERNELS:
+                    launched[k] += c[k]["launches"]
+                _add_counts(total, c)
+        for k in _PORT_KERNELS:
+            counts[k] += launched[k]
+        stages[stage] = dict(s=secs, launches=launched)
+        print(f"[tail] 16 (d) recipe stage {stage}: {secs:.1f} s, launches "
+              f"{launched}", flush=True)
+    expdir = os.path.join(recipe, "exp", "ljspeech_mol_wavenet")
+    missing = {}
+    for split in ("dev", "eval"):
+        utts = [f for f in os.listdir(os.path.join(recipe, "dump", "norm",
+                                                   split))
+                if f.endswith("-feats.npy")]
+        gen = os.listdir(os.path.join(expdir, "generated", split))
+        n_gen = sum(f.endswith("_gen.wav") for f in gen)
+        if not utts or n_gen < len(utts):
+            missing[split] = (len(utts), n_gen)
+        stages.setdefault("wavs", {})[split] = (len(utts), n_gen)
+    print(f"[tail] 16 (d) recipe egs/mol {RECIPE_PRESET}, {RECIPE_UTTS} "
+          f"utterances, {RECIPE_STEPS} train steps: stages "
+          f"{[round(stages[s]['s'], 1) for s in range(4)]} s, "
+          f"(utterances, *_gen.wav) {stages['wavs']}, launches {counts}",
+          flush=True)
+    if missing:
+        fail(f"recipe stage 3 left utterances without *_gen.wav: {missing}")
+    if not (counts["train_fwd"] and counts["train_bwd"]
+            and counts["generate"]):
+        fail(f"the recipe launched no training or generation kernel: {counts}")
+    report["recipe"] = dict(stages=stages, launches=counts)
+
+
+def phase_slice11(report):
+    """Phase 16; returns its launches by kernel (this process's and its
+    subprocesses')."""
+    import torch
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    with _work_dir("chip_smoke_ckpt") as work:
+        _ckpt_round_trip(report, work)
+    _bf16_scan(report)
+    total = {k: dict(v) for k, v in kernel_counts().items()}
+    torch.cuda.empty_cache()
+    with _work_dir("chip_smoke_cut") as work:
+        _cut_synthesis(report, work, total)
+    with _work_dir("chip_smoke_recipe") as work:
+        _recipe(report, work, total)
+    report["phase16_s"] = time.perf_counter() - t0
+    print(f"[tail] phase 16 in {report['phase16_s']:.1f} s; launches "
+          f"{total}", flush=True)
+    for k in ("train_fwd", "train_bwd", "generate"):
+        if not total[k]["launches"]:
+            fail(f"phase 16 launched no {k}")
+    return total
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -3253,6 +3655,20 @@ def summary_line(report) -> str:
                      f"norm rel {t['grad_norm_rel'][0]:.1e}")
     parts.append(f"dryrun_multichip(4) {report['dryrun']['s']:.1f} s; phase "
                  f"15 {report['phase15_s']:.1f} s")
+    ck, bs = report["ckpt_round_trip"], report["bf16_scan"]
+    parts.append(f"checkpoint round trip step 3 loss rel {ck['loss_rel']:.1e}"
+                 f", grad norm rel {ck['grad_norm_rel']:.1e}")
+    parts.append(f"cut-model synthesis kernel equal "
+                 f"{all(r['kernel_equal'] for r in report['cut_synthesis']['ranks'])}"
+                 f", scan err {max(r['scan_err'] for r in report['cut_synthesis']['ranks']):.1e}")
+    for tag in ("f32 decoder", "bf16 pack kernel"):
+        v = bs[tag]
+        parts.append(f"bf16 eager decoder vs {tag}: step err "
+                     f"{v['step_err']:.1e}, {v['step_flips']}/{v['steps']} "
+                     f"beyond ({v['unexplained']} not at near ties)")
+    st = report["recipe"]["stages"]
+    parts.append(f"recipe stages {[round(st[s]['s'], 1) for s in range(4)]} "
+                 f"s; phase 16 {report['phase16_s']:.1f} s")
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -3264,6 +3680,7 @@ def main() -> int:
     ap.add_argument("--md-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--md-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--syn-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--run-module", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3285,6 +3702,8 @@ def main() -> int:
         return md_rank_worker(args.md_rank, args.md_port, args.md_dir)
     if args.tp_rank is not None:
         return tp_rank_worker(args.tp_rank, args.md_port, args.md_dir)
+    if args.syn_rank is not None:
+        return syn_rank_worker(args.syn_rank, args.md_port, args.md_dir)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     report = {}
@@ -3355,6 +3774,13 @@ def main() -> int:
                           (train_lines[0], "train_fwd"),
                           (train_lines[1], "train_bwd"), (mel_line, "logmel")):
             line["phase15_launches"] = p15.get(key, {}).get("launches", 0)
+        torch.cuda.empty_cache()
+        phase = "slice-11"
+        p16 = phase_slice11(report)
+        for line, key in ((kernel_line, "generate"),
+                          (train_lines[0], "train_fwd"),
+                          (train_lines[1], "train_bwd"), (mel_line, "logmel")):
+            line["phase16_launches"] = p16.get(key, {}).get("launches", 0)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

@@ -96,7 +96,22 @@ def test_npz_format_names_and_no_pickle(tmp_path):
         manifest = json.loads(bytes(z["manifest"]).decode())
     assert "param_0" in names and "opt_0" in names
     assert manifest["format"] == "wavenet-tpu-ckpt" and manifest["version"] == 1
-    assert manifest["param_paths"] == list(state.model.state_dict())
+    # the JAX params tree's keystr paths, in its leaf order, and Adam's
+    # state as optax's leaves: count, mu, nu, the schedule's count
+    jparams = jax_create_train_state(JaxConfig(**TINY)).params
+    flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
+    assert manifest["param_paths"] == [jax.tree_util.keystr(k)
+                                       for k, _ in flat]
+    n = len(flat)
+    assert manifest["has_opt"] and manifest["n_opt"] == 2 * n + 2
+    assert "opt_keys" not in manifest
+    with np.load(path, allow_pickle=False) as z:
+        assert z["opt_0"].shape == () and int(z["opt_0"]) == 2
+        assert int(z[f"opt_{2 * n + 1}"]) == 2
+        for i, (_, leaf) in enumerate(flat):
+            assert z[f"param_{i}"].shape == leaf.shape
+            assert z[f"opt_{1 + i}"].shape == leaf.shape         # mu
+            assert z[f"opt_{1 + n + i}"].shape == leaf.shape     # nu
 
 
 def test_round_trip_resumes_training_exactly(tmp_path):
@@ -289,16 +304,27 @@ def test_jax_written_checkpoint_gives_the_jax_forward(tmp_path, ema):
 
 
 def test_jax_written_checkpoint_into_a_train_state(tmp_path, capsys):
-    """``load_checkpoint`` on a JAX checkpoint restores params, the EMA twin
-    and the counters, keeps the fresh optimizer and says so."""
+    """``load_checkpoint`` on a JAX checkpoint restores params, the EMA twin,
+    the counters and Adam's state: optax's count, mu and nu become each
+    parameter's ``step``, ``exp_avg`` and ``exp_avg_sq`` in torch axes."""
     jcfg, cfg = JaxConfig(**COND), Config(**COND)
     jstate = _jax_trained(jcfg)
     jax_ckpt.save_checkpoint(str(tmp_path), jstate, global_step=2)
     state = create_train_state(cfg, device="cpu")
     _, counters = ckpt.load_checkpoint(ckpt.latest_path(str(tmp_path)), state)
     assert counters["global_step"] == 2 and state.step == 2
-    assert "optimizer starts fresh" in capsys.readouterr().out
-    assert not state.optimizer.state_dict()["state"]
+    assert "NOTE" not in capsys.readouterr().out
+    adam = jstate.opt_state[0][0]
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state[p]
+        assert int(st["step"]) == int(adam.count) == 2
+    blk = state.model.conv_layers[0]
+    np.testing.assert_array_equal(
+        state.optimizer.state[blk.conv.weight_v]["exp_avg"].numpy(),
+        np.asarray(adam.mu["blocks"][0]["conv"]["v"]).T)
+    np.testing.assert_array_equal(
+        state.optimizer.state[blk.conv1x1c.weight_g]["exp_avg_sq"].numpy(),
+        np.asarray(adam.nu["blocks"][0]["cond_c"]["g"])[:, None, None])
     want, _ = ckpt.load_params(ckpt.latest_path(str(tmp_path)),
                                state.model.spec)
     want_ema, _ = ckpt.load_params(ckpt.latest_path(str(tmp_path), ema=True),
@@ -307,6 +333,53 @@ def test_jax_written_checkpoint_into_a_train_state(tmp_path, capsys):
         assert torch.equal(p, want[k])
         assert torch.equal(state.ema[k], want_ema[k])
     assert any(not torch.equal(want[k], want_ema[k]) for k in want)
+
+
+@pytest.mark.parametrize("reader", ["load_checkpoint", "params_tree",
+                                    "restore_parts"])
+@pytest.mark.parametrize("ema", [False, True], ids=["params", "ema_twin"])
+def test_port_written_checkpoint_in_the_jax_readers(tmp_path, capsys, reader,
+                                                    ema):
+    """A checkpoint the port writes is what the JAX package writes: its
+    ``load_checkpoint`` (params, EMA twin and Adam's state in place),
+    ``params_tree`` and ``restore_parts`` (every tensor) give the port's
+    forward within 1e-5."""
+    jcfg, cfg = JaxConfig(**COND), Config(**COND)
+    state = _trained_state_cond(cfg)
+    ckpt.save_checkpoint(str(tmp_path), state, global_step=1)
+    path = jax_ckpt.latest_path(str(tmp_path))
+    jstate = jax_create_train_state(jcfg)
+    n_leaves = len(jax.tree.leaves(jstate.params))
+    if reader == "load_checkpoint":
+        jstate, counters = jax_ckpt.load_checkpoint(path, jstate)
+        assert counters["global_step"] == 1
+        params = jstate.ema_params if ema else jstate.params
+        adam = jstate.opt_state[0][0]
+        assert int(adam.count) == 1
+        # Adam's moments sit on the leaves they belong to
+        jv = np.asarray(adam.nu["blocks"][1]["conv"]["v"])
+        tv = state.optimizer.state[
+            state.model.conv_layers[1].conv.weight_v]["exp_avg_sq"]
+        np.testing.assert_array_equal(jv, tv.numpy().T)
+    elif reader == "params_tree":
+        params = jax_ckpt.params_tree(jax_ckpt.load_params(
+            jax_ckpt.latest_path(str(tmp_path), ema=ema)))
+    else:
+        params = jax_ckpt.restore_parts(
+            jax_ckpt.latest_path(str(tmp_path), ema=ema), jstate.params)
+        assert f"restored {n_leaves} tensors" in capsys.readouterr().out
+    b = _batch(seed=5)
+    c = np.random.RandomState(6).randn(2, 64 // 4 + 2, 4).astype(np.float32)
+    model = state.model
+    if ema:
+        model = WaveNet(model.spec)
+        model.load_state_dict(ckpt._ema_state_dict(state))
+    with torch.no_grad():
+        ours = model.eval()(torch.from_numpy(b["x"]),
+                            torch.from_numpy(c)).numpy()
+    ref = np.asarray(apply_wavenet(params, jax_spec_from_config(jcfg),
+                                   jnp.asarray(b["x"]), c=jnp.asarray(c)))
+    assert float(np.max(np.abs(ours - ref))) < 1e-5
 
 
 def test_port_written_checkpoint_reads_back_through_the_jax_importer(tmp_path):
@@ -330,3 +403,109 @@ def test_port_written_checkpoint_reads_back_through_the_jax_importer(tmp_path):
     ref = np.asarray(apply_wavenet(params, jspec, jnp.asarray(b["x"]),
                                    c=jnp.asarray(c)))
     assert float(np.max(np.abs(ours - ref))) < 1e-5
+
+
+def _write_pre_jax_layout(path, state, counters):
+    """A checkpoint as the port wrote it before it wrote the JAX layout:
+    ``state_dict()`` names and torch axes, its own optimizer state in
+    ``opt_i`` under ``opt_keys``."""
+    sd = state.model.state_dict()
+    arrays = {f"param_{i}": v.numpy() for i, v in enumerate(sd.values())}
+    keys = []
+    for idx, st in sorted(state.optimizer.state_dict()["state"].items()):
+        for name, value in sorted(st.items()):
+            arrays[f"opt_{len(keys)}"] = value.numpy()
+            keys.append([int(idx), name])
+    manifest = {"format": "wavenet-tpu-ckpt", "version": 1,
+                "param_paths": list(sd), "has_opt": True,
+                "n_opt": len(keys), "opt_keys": keys, **counters}
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
+                                       dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def test_port_file_of_the_earlier_layout_still_resumes(tmp_path):
+    """A port checkpoint with ``state_dict()`` names in ``param_paths``
+    (the layout before the port wrote JAX's) loads: params, Adam's state
+    and counters, so the resumed step equals the saved run's."""
+    cfg = Config(**TINY)
+    state = _trained_state(cfg, steps=2)
+    path = str(tmp_path / "checkpoint_step000000002.npz")
+    _write_pre_jax_layout(path, state, {"global_step": 2, "global_epoch": 1,
+                                        "global_test_step": 0})
+    fresh = create_train_state(cfg, device="cpu")
+    _, counters = ckpt.load_checkpoint(path, fresh)
+    assert counters["global_step"] == 2 and counters["global_epoch"] == 1
+    _assert_same_params(fresh.model, state.model)
+    sd, _ = ckpt.load_params(path, spec_from_config(cfg))
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(sd[k], v)
+    train_step, _ = make_train_step(cfg)
+    m_a = train_step(state, _batch(seed=7))
+    m_b = train_step(fresh, _batch(seed=7))
+    assert float(m_a["loss"]) == float(m_b["loss"])
+    _assert_same_params(fresh.model, state.model)
+
+
+def test_adafactor_state_stays_the_ports(tmp_path, capsys):
+    """Adafactor's state does not map to optax's: the port's file holds
+    none for JAX (``has_opt`` false) and keeps the port's own, so a port
+    run resumes exactly; a JAX Adafactor file leaves the port's optimizer
+    fresh with a NOTE that names it."""
+    kw = dict(TINY, optimizer="Adafactor")
+    cfg = Config(**kw)
+    state = _trained_state(cfg, steps=2)
+    ckpt.save_checkpoint(str(tmp_path / "port"), state, global_step=2)
+    path = ckpt.latest_path(str(tmp_path / "port"))
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z["manifest"]).decode())
+        assert not manifest["has_opt"] and "opt_0" not in z.files
+        assert manifest["opt_keys"] and "port_opt_0" in z.files
+    fresh = create_train_state(cfg, device="cpu")
+    ckpt.load_checkpoint(path, fresh)
+    train_step, _ = make_train_step(cfg)
+    m_a = train_step(state, _batch(seed=7))
+    m_b = train_step(fresh, _batch(seed=7))
+    assert float(m_a["loss"]) == float(m_b["loss"])
+    _assert_same_params(fresh.model, state.model)
+    # the JAX package reads the file and starts its Adafactor afresh
+    jstate = jax_create_train_state(JaxConfig(**kw))
+    jax_ckpt.load_checkpoint(path, jstate)
+    # a JAX Adafactor file into the port
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax"), _jax_trained(
+        JaxConfig(**kw)), global_step=2)
+    other = create_train_state(cfg, device="cpu")
+    capsys.readouterr()
+    ckpt.load_checkpoint(ckpt.latest_path(str(tmp_path / "jax")), other)
+    out = capsys.readouterr().out
+    assert "NOTE" in out and "Adafactor" in out and "starts fresh" in out
+    assert not other.optimizer.state_dict()["state"]
+
+
+SPEAKERS = dict(COND, gin_channels=3, use_speaker_embedding=True,
+                n_speakers=4, upsample_net="UpsampleNetwork",
+                upsample_params={"upsample_scales": [2, 2],
+                                 "upsample_activation": "LeakyReLU"})
+
+
+@pytest.mark.parametrize("kw", [TINY, COND, SPEAKERS],
+                         ids=["tiny", "conv_in_upsample", "speakers"])
+def test_to_jax_equals_the_jax_importer(kw):
+    """``compat/to_jax.to_jax`` of the port's state dict is the JAX
+    importer's params tree (``params_from_state_dict``) flattened as
+    ``jax.tree_util.tree_flatten_with_path``: the same keystr paths in the
+    same order, the same arrays bit for bit."""
+    from wavenet_vocoder_tpu.compat.torch_import import params_from_state_dict
+    from wavenet_vocoder_tpu_torch.compat.to_jax import to_jax
+    cfg = Config(**kw)
+    model = WaveNet(spec_from_config(cfg),
+                    generator=torch.Generator().manual_seed(3))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    flat, _ = jax.tree_util.tree_flatten_with_path(params_from_state_dict(
+        sd, jax_spec_from_config(JaxConfig(**kw))))
+    got = to_jax(sd)
+    assert [p for p, _ in got] == [jax.tree_util.keystr(k) for k, _ in flat]
+    for (path, a), (_, b) in zip(got, flat):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=path)
+        assert a.shape == np.shape(b) and a.dtype == np.asarray(b).dtype

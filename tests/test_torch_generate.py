@@ -44,7 +44,8 @@ from wavenet_vocoder_tpu_torch.models.wavenet import (
     spec_from_config,
 )
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
-from wavenet_vocoder_tpu_torch.ops.generate import generate
+from wavenet_vocoder_tpu_torch.ops.generate import (
+    default_initial_input, generate)
 
 torch.set_num_threads(1)
 
@@ -523,3 +524,77 @@ print(len(names))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 14
+
+
+# ----------------------------------------------------------------------
+# the bf16 eager decoder (generate(dtype=)) against JAX's bf16 scan
+# ----------------------------------------------------------------------
+BF16_STEP_TOL = 2e-2
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_bf16_eager_decoder_matches_jax_bf16_scan(head, with_g):
+    """``generate(dtype=torch.bfloat16)`` against JAX's ``generate(dtype=
+    jnp.bfloat16)`` (its ``_generate_scan``), deterministic, step by step
+    as phase 2 holds bf16 packs: every step starts both sides from the
+    port's state (the f32 carry each returns) and compares that step.
+    The head's outputs agree within 2e-2 of the run's largest |output|
+    (bf16 rounds at other points in XLA's fused ops than in torch's); the
+    fed-back sample is equal (codes) or within 2e-2 (scalars), except
+    where the argmax it takes (the class, or the mixture's component) is
+    a near tie in JAX's outputs, closer than twice that limit."""
+    kw = dict(HEADS[head], **(GLOBAL if with_g else {}))
+    params, jspec, model = _pair(3, **kw)
+    c, g = _inputs(jspec, T=32)
+    state, outs, refs, samples, ref_samples = None, [], [], [], []
+    for t in range(c.shape[1]):
+        ct = c[:, t:t + 1]
+        o = generate(model, c=_t(ct), g=_t(g), deterministic=True,
+                     dtype=torch.bfloat16, output="both", state=state,
+                     return_state=True)
+        jstate = None if state is None else (
+            _j(state[0].numpy()), tuple(_j(b.numpy()) for b in state[1]),
+            state[2])
+        r = jax_generate(params, jspec, jax.random.PRNGKey(2), c=_j(ct),
+                         g=_j(g), deterministic=True, dtype=jnp.bfloat16,
+                         output="both", state=jstate, return_state=True)
+        assert o["samples"].dtype == torch.float32
+        assert all(b.dtype == torch.float32 for b in o["state"][1])
+        outs.append(o["logits"].numpy()[:, 0])
+        refs.append(np.asarray(r["logits"])[:, 0])
+        samples.append(o["samples"].numpy()[:, 0])
+        ref_samples.append(np.asarray(r["samples"])[:, 0])
+        state = o["state"]
+    out, ref = np.stack(outs, 1), np.stack(refs, 1)      # (B, T, C)
+    tol = BF16_STEP_TOL * float(np.abs(ref).max())
+    assert float(np.abs(out - ref).max()) <= tol
+    s, rs = np.stack(samples, 1), np.stack(ref_samples, 1)
+    if jspec.scalar_input and jspec.out_channels == 2:
+        np.testing.assert_allclose(s, rs, atol=BF16_STEP_TOL, rtol=0)
+        return
+    logits = ref if not jspec.scalar_input else ref[..., :ref.shape[-1] // 3]
+    top = np.sort(logits, -1)
+    tie = top[..., -1] - top[..., -2] <= 2 * tol
+    if jspec.scalar_input:
+        ok = np.abs(s - rs)[..., 0] <= BF16_STEP_TOL
+    else:
+        ok = s.argmax(-1) == rs.argmax(-1)
+    assert np.all(ok | tie), np.argwhere(~(ok | tie))
+
+
+def test_bf16_generate_follows_f32():
+    """The bf16 decoder is the f32 one in another precision: teacher
+    forced with the f32 run's inputs, its head outputs stay within 2e-2 of
+    the f32 decoder's largest (mol, categorical)."""
+    for head in ("mol", "categorical"):
+        _, jspec, model = _pair(5, **HEADS[head])
+        c, _ = _inputs(jspec, T=32)
+        f32 = generate(model, c=_t(c), deterministic=True, output="both")
+        x0 = default_initial_input(model.spec, 2)[:, None]
+        fed = torch.cat([x0, f32["samples"][:, :-1]], dim=1)
+        bf = generate(model, c=_t(c), deterministic=True, output="both",
+                      dtype=torch.bfloat16, test_inputs=fed)
+        scale = float(f32["logits"].abs().max())
+        assert float((bf["logits"] - f32["logits"]).abs().max()) <= \
+            BF16_STEP_TOL * scale

@@ -30,7 +30,8 @@ from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
 from wavenet_vocoder_tpu_torch.ops.cuda_generate import FusedGenerator
 from wavenet_vocoder_tpu_torch.ops.generate import generate
 from wavenet_vocoder_tpu_torch.streaming import StreamingSynthesizer
-from wavenet_vocoder_tpu_torch.synthesis import Synthesizer
+from wavenet_vocoder_tpu_torch.synthesis import (
+    Synthesizer, _decode, pad_mel_context)
 
 torch.set_num_threads(1)
 
@@ -259,3 +260,24 @@ def test_stream_raises_without_gpu(monkeypatch):
     cfg, model = _setup(**MOL)
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingSynthesizer(model, cfg)
+
+
+@pytest.mark.parametrize("kw", [MOL, MULAW], ids=["mol", "mulaw"])
+def test_bf16_scan_stream_equals_offline(kw):
+    """``StreamingSynthesizer(engine="scan", dtype=torch.bfloat16)``
+    equals the bf16 eager decoder over the whole mel, sample for sample:
+    the carry comes back in f32 and goes in as bf16 unchanged."""
+    cfg, model = _setup(**kw)
+    mel = np.random.RandomState(0).randn(2, 12, 5).astype(np.float32)
+    got, _ = _stream(model, cfg, mel, 7, [3, 4, 5], "scan",
+                     dtype=torch.bfloat16)
+    c = torch.from_numpy(pad_mel_context(mel, cfg.cin_pad))
+    samples = generate(model, c=c, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(7))["samples"]
+    want = _decode(cfg, samples)
+    assert got.shape == want.shape == (2, 48)
+    np.testing.assert_array_equal(got, want)
+    if kw is MOL:       # the dtype reached the decoder (mu-law's 48
+        # categorical draws come out the same in f32)
+        f32, _ = _stream(model, cfg, mel, 7, [3, 4, 5], "scan")
+        assert not np.array_equal(got, f32)

@@ -67,6 +67,22 @@ LOOP_CFG = dict(input_type="raw", quantize_channels=256, out_channels=30,
                                   "weight_decay": 0.0},
                 mesh_axes={"data": -1, "model": 2})
 WORLDS = {"model2": (2, 2), "data2-model2": (4, 2)}
+# the plain layer loop in bf16 under the model axis (world "model2"): its
+# f and g collectives reduce bf16 tensors. At the flagship's widths, where
+# phase 6's bf16 STEP_TOL was set (one bf16 step is within 1e-3 of the f32
+# one's grad norm there, not at TP's narrow widths), on the bench's batch
+# (B=8, T=10240), one step from one state, as phase 6 holds its limits:
+# the loss, the grad norm and every leaf's gradient against its largest
+# value. SGD, as chip_smoke.py's phase 15 (c): Adam
+# turns a gradient that is bf16 rounding noise into a full step of random
+# sign.
+BF16_CASE = dict(optimizer="SGD", optimizer_params={"lr": 1e-2},
+                 compute_dtype="bfloat16", fused_train=False,
+                 max_time_steps=10240)
+BF16_B = 8
+BF16_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "leaf": 0.1}
+# synthesis of entry.dryrun_config()'s model, deterministic
+SYNTH_B, SYNTH_T = 2, 64
 
 
 def make_batch(B=8, T=96):
@@ -121,6 +137,72 @@ def run_steps(case, batch, groups=None, ckpt_dir=None):
     snap.update({"ema." + k: v.detach().numpy().copy()
                  for k, v in whole.ema.items()})
     return out, snap
+
+
+def run_bf16_steps(groups=None):
+    """One plain-loop bf16 SGD step of the flagship under BF16_CASE on the
+    bench's batch: its loss and grad norm, the whole gradients and the
+    whole parameters after it."""
+    from wavenet_vocoder_tpu_torch.bench import train_batch
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.layers import all_gather_slices
+    from wavenet_vocoder_tpu_torch.parallel.sharding import (
+        shard_train_state, wavenet_param_shardings)
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    cfg = Config(**BF16_CASE)
+    batch = train_batch(cfg, BF16_B)
+    state = create_train_state(cfg, device="cpu")
+    rules = wavenet_param_shardings(state.model)
+    if groups is not None:
+        shard_train_state(state, groups)
+
+    def whole(grads):
+        out = {}
+        for n, p in state.model.named_parameters():
+            t = (p.grad if grads else p).detach()
+            if groups is not None and rules[n] is not None:
+                t = all_gather_slices(t, rules[n], groups.model)
+            out[("grad." if grads else "") + n] = t.numpy().copy()
+        return out
+
+    step, _ = make_train_step(cfg)
+    gen = torch.Generator().manual_seed(0)
+    m = step(state, batch, gen)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    return out, {**whole(grads=True), **whole(grads=False)}
+
+
+def run_synthesis(groups=None):
+    """Deterministic synthesis of ``entry.dryrun_config()``'s model (the
+    init of its seed), its blocks cut over the model group when given:
+    SYNTH_T steps of the eager decoder (logits and samples), the kernel
+    engine's packed weights and its samples (its plain version here)."""
+    from wavenet_vocoder_tpu_torch.entry import dryrun_config
+    from wavenet_vocoder_tpu_torch.models.wavenet import (
+        WaveNet, spec_from_config)
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    from wavenet_vocoder_tpu_torch.ops.generate import generate
+    from wavenet_vocoder_tpu_torch.parallel.sharding import shard_params_tp
+    cfg = dryrun_config()
+    model = WaveNet(spec_from_config(cfg),
+                    generator=torch.Generator().manual_seed(cfg.seed)).eval()
+    if groups is not None:
+        shard_params_tp(model, groups)
+    frames = SYNTH_T // cfg.hop_size + 1 + 2 * cfg.cin_pad
+    c = torch.from_numpy(np.random.RandomState(3).randn(
+        SYNTH_B, frames, cfg.cin_channels).astype(np.float32))
+    with torch.no_grad():
+        c_up = model.upsample_conditioning(c)[:, :SYNTH_T]
+    out = generate(model, T=SYNTH_T, c_up=c_up, deterministic=True,
+                   output="both")
+    gen = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=32)
+    res = {"logits": out["logits"].numpy(),
+           "samples": out["samples"].numpy(),
+           "fused": gen(T=SYNTH_T, c_up=c_up, deterministic=True).numpy()}
+    res.update({"packed." + k: v.detach().numpy()
+                for k, v in gen.packed.items()})
+    return res
 
 
 def _opt_tensors(seed=0):
@@ -198,6 +280,11 @@ def worker_main(argv):
         np.savez(os.path.join(args.work, f"opt-{name}.rank{args.rank}.npz"),
                  *run_optimizer(name, groups))
     if args.world == 2:
+        res["bf16"], arrays = run_bf16_steps(groups)
+        np.savez(os.path.join(args.work, f"bf16.rank{args.rank}.npz"),
+                 **arrays)
+        np.savez(os.path.join(args.work, f"synth.rank{args.rank}.npz"),
+                 **run_synthesis(groups))
         from wavenet_vocoder_tpu_torch.config import Config
         from wavenet_vocoder_tpu_torch.training.loop import train_loop
         state = train_loop(Config(**LOOP_CFG), os.path.join(args.work, "dump"),
@@ -257,6 +344,8 @@ def runs(tmp_path_factory):
         out["single"] = {case: run_steps(case, batch) for case in CASES}
         out["single_opt"] = {n: run_optimizer(n) for n in ("Lamb",
                                                            "Adafactor")}
+        out["single_bf16"] = run_bf16_steps()
+        out["single_synth"] = run_synthesis()
     finally:
         torch.set_num_threads(threads)
     return out
@@ -325,14 +414,11 @@ def test_checkpoint_of_a_cut_state_loads_unsharded_in_both_packages(runs,
     """The checkpoint written from the cut Lamb/fused state after two steps
     holds the whole model: it loads into an unsharded port state (equal to
     one process's parameters and EMA within 5e-6), and the JAX package
-    reads it (``load_params``, then its importer of the port's names,
-    as tests/test_torch_loop.py does): its forward equals the port's
-    within 1e-4."""
+    reads it (``load_params``, then ``params_tree`` of its keystr paths):
+    its forward equals the port's within 1e-4."""
     import jax
     import jax.numpy as jnp
 
-    from wavenet_vocoder_tpu.compat.torch_import import (
-        params_from_state_dict)
     from wavenet_vocoder_tpu.config import Config as JaxConfig
     from wavenet_vocoder_tpu.models.wavenet import (
         apply_wavenet, spec_from_config as jax_spec_from_config)
@@ -355,8 +441,7 @@ def test_checkpoint_of_a_cut_state_loads_unsharded_in_both_packages(runs,
     jspec = jax_spec_from_config(JaxConfig(**kw))
     payload = jax_ckpt.load_params(path)
     assert payload.counters["global_step"] == STEPS
-    params = params_from_state_dict(
-        dict(zip(payload.param_paths, payload.params_flat)), jspec)
+    params = jax_ckpt.params_tree(payload)
     b = make_batch(B=2)
     want = np.asarray(apply_wavenet(
         params, jspec, jnp.asarray(b["x"]), c=jnp.asarray(b["c"]),
@@ -400,6 +485,58 @@ def test_train_loop_reads_a_model_axis(runs, tmp_path):
         assert sorted(a) == sorted(b)
         for k in a:
             assert float((a[k] - b[k]).abs().max()) <= 5e-6, (ema, k)
+
+
+def test_bf16_plain_loop_under_a_model_axis(runs):
+    """The plain layer loop in bf16 with the blocks cut over two ranks
+    (its collectives reduce bf16 tensors) against one process, one step
+    from one state within phase 6's bf16 STEP_TOL: the loss, the grad
+    norm and every parameter's gradient (max |diff| over the leaf's
+    largest value, as ``chip_smoke.leaf_grad_errors``); the ranks'
+    gathered parameters after the step bitwise equal."""
+    work = runs["model2"]["work"]
+    want, ref = runs["single_bf16"]
+    first = np.load(work / "bf16.rank0.npz")
+    for r, rank in enumerate(runs["model2"]["ranks"]):
+        got = rank["bf16"]
+        assert _rel(got["loss"], want["loss"]) <= BF16_TOL["loss"]
+        assert _rel(got["grad_norm"], want["grad_norm"]) <= BF16_TOL[
+            "grad_norm"]
+        arrays = np.load(work / f"bf16.rank{r}.npz")
+        assert sorted(arrays.files) == sorted(ref)
+        scale = {k: float(np.abs(v).max()) for k, v in ref.items()
+                 if k.startswith("grad.")}
+        # phase 6's floor: no scale below 1e-6 of the largest leaf's (the
+        # gradient of first_conv.weight_v is rounding noise, ~1e-11)
+        floor = 1e-6 * max(scale.values())
+        for k, v in ref.items():
+            if k in scale:
+                err = float(np.abs(arrays[k] - v).max())
+                assert err <= BF16_TOL["leaf"] * max(scale[k], floor), (
+                    r, k, err, scale[k])
+            else:
+                np.testing.assert_array_equal(arrays[k], first[k], err_msg=k)
+
+
+def test_synthesis_of_a_cut_model_computes_the_whole_model(runs):
+    """Deterministic synthesis with the blocks cut over two ranks: the
+    eager decoder's logits within 1e-5 of the whole model's and its
+    samples equal; the kernel engine packs the whole weights (equal to
+    the whole model's pack) and gives the whole model's samples; both
+    ranks' outputs bitwise equal."""
+    work = runs["model2"]["work"]
+    want = runs["single_synth"]
+    first = dict(np.load(work / "synth.rank0.npz"))
+    for r in range(2):
+        got = dict(np.load(work / f"synth.rank{r}.npz"))
+        assert sorted(got) == sorted(want)
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, first[k], err_msg=k)
+        assert float(np.abs(got["logits"] - want["logits"]).max()) <= 1e-5
+        np.testing.assert_array_equal(got["samples"], want["samples"])
+        for k in want:
+            if k.startswith("packed.") or k == "fused":
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_dryrun_multichip_on_the_cpu(capsys):

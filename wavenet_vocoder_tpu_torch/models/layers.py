@@ -229,11 +229,11 @@ def conv_step(conv: WNConv1d, taps: torch.Tensor) -> torch.Tensor:
 
     taps: (B, K, In), oldest..newest, i.e. taps[:, j] = x[t-(K-1-j)*d].
     """
-    w = conv.effective_weight()                    # (Out, In, K)
+    w = conv.effective_weight().to(taps.dtype)     # (Out, In, K)
     b, k, cin = taps.shape
     w_flat = w.permute(2, 1, 0).reshape(k * cin, -1)   # (K*In, Out)
     y = taps.reshape(b, k * cin) @ w_flat
-    return y if conv.bias is None else y + conv.bias
+    return y if conv.bias is None else y + conv.bias.to(taps.dtype)
 
 
 def remove_weight_norm(module: nn.Module) -> nn.Module:
@@ -298,17 +298,26 @@ class ResidualConv1dGLU(nn.Module):
             x_in = torch.where(keep_mask > 0, x / keep, torch.zeros_like(x))
         if self.conv.tp is None:
             h = self.gated(causal_conv(self.conv, x_in), c, g_proj)
-            s = conv1x1(self.conv1x1_skip, h)
-            out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF
-            return out, s
+            return self._out_skip(h, x)
         # tensor parallel: c and g come copied in by the model
         group = self.conv.tp[1]
         h = self.gated(causal_conv(self.conv, copy_to_model(x_in, group)),
                        c, g_proj)
+        return self._out_skip(h, x)
+
+    def _out_skip(self, h: torch.Tensor, x: torch.Tensor):
+        """(residual out, skip) from the GLU output h and the block input
+        x. Under tensor parallelism h is this rank's slice of the gate
+        channels: the joined out|skip product's partial sums are reduced
+        over the model group once, then each bias is added once."""
+        if self.conv.tp is None:
+            s = conv1x1(self.conv1x1_skip, h)
+            out = (conv1x1(self.conv1x1_out, h) + x) * _SQRT_HALF
+            return out, s
         R = self.conv1x1_out.out_channels
         w = torch.cat([self.conv1x1_out.effective_weight()[:, :, 0],
                        self.conv1x1_skip.effective_weight()[:, :, 0]])
-        y = _ReduceFromModel.apply(h @ w.t().to(h.dtype), group)
+        y = _ReduceFromModel.apply(h @ w.t().to(h.dtype), self.conv.tp[1])
         out = (y[..., :R] + self.conv1x1_out.bias.to(h.dtype) + x) * _SQRT_HALF
         s = y[..., R:] + self.conv1x1_skip.bias.to(h.dtype)
         return out, s
@@ -316,8 +325,10 @@ class ResidualConv1dGLU(nn.Module):
     def step(self, taps: torch.Tensor, ct: Optional[torch.Tensor] = None,
              g_proj: Optional[torch.Tensor] = None):
         """One AR step. taps: (B, K, R), taps[:, -1] is x_t; g_proj is the
-        time-invariant ``conv1x1g(g)``, computed once per generation."""
+        time-invariant ``conv1x1g(g)``, computed once per generation. A
+        block cut by tensor parallelism runs the forward's collectives, so
+        every rank of the model group computes the whole block."""
+        if self.conv.tp is not None:
+            taps = copy_to_model(taps, self.conv.tp[1])
         h = self.gated(conv_step(self.conv, taps), ct, g_proj)
-        s = conv1x1(self.conv1x1_skip, h)
-        out = (conv1x1(self.conv1x1_out, h) + taps[:, -1]) * _SQRT_HALF
-        return out, s
+        return self._out_skip(h, taps[:, -1])

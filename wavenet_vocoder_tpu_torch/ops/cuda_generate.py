@@ -52,19 +52,21 @@ _M32 = 0xFFFFFFFF
 # packing
 # ----------------------------------------------------------------------
 def _w1x1(conv) -> torch.Tensor:
-    return conv.effective_weight()[:, :, 0].t()          # (In, Out)
+    return conv.full_weight()[:, :, 0].t()               # (In, Out)
 
 
 def _bias(conv, n: int, device) -> torch.Tensor:
     if conv.bias is None:
         return torch.zeros(n, device=device)
-    return conv.bias.float()
+    return conv.full_bias().float()
 
 
 @torch.no_grad()
 def pack_weights(model: WaveNet, *, dtype=torch.bfloat16
                  ) -> Dict[str, torch.Tensor]:
     """Fold weight norm and stack per-layer weights, on the model's device.
+    The weights are whole: a model cut by tensor parallelism gathers them
+    within its model group (every rank of it must call this).
 
     Shapes (L layers, R residual, G gate, G2 = G/2, S skip, k taps):
       w_first (C_in, R); w_in (L, k*R + cin, G) — rows [0, k*R) the conv
@@ -77,7 +79,7 @@ def pack_weights(model: WaveNet, *, dtype=torch.bfloat16
     k, R = spec.kernel_size, spec.residual_channels
     w_in, b_in, w_og, b_og = [], [], [], []
     for blk in model.conv_layers:
-        w = blk.conv.effective_weight().permute(2, 1, 0).reshape(k * R, -1)
+        w = blk.conv.full_weight().permute(2, 1, 0).reshape(k * R, -1)
         if blk.conv1x1c is not None:
             w = torch.cat([w, _w1x1(blk.conv1x1c)], dim=0)
         w_in.append(w)

@@ -97,7 +97,8 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
              deterministic: bool = False,
              generator: Optional[torch.Generator] = None,
              state: Optional[Tuple] = None,
-             return_state: bool = False) -> Dict[str, torch.Tensor]:
+             return_state: bool = False,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Autoregressive generation on the model's device
     (reference: wavenet.py:215-343).
 
@@ -110,7 +111,14 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
     key off the absolute step and ``generator`` carries on where it stood,
     so chunked calls equal one long call (see
     ``streaming.StreamingSynthesizer``). The given state is not modified;
-    a resumed call takes no test_inputs.
+    a resumed call takes no test_inputs. dtype: compute dtype of the
+    per-step network (e.g. torch.bfloat16; its weights are the f32 folded
+    ones rounded to it): the input fed back, the conditioning, the test
+    inputs and the ring buffers are held in it; the head's outputs and
+    sampling stay f32, as does the returned state (JAX's
+    ``_generate_scan(dtype=)``). A model cut by tensor parallelism
+    computes the whole model (its blocks' steps reduce over the model
+    group); every rank of the group must call this.
     Returns {"samples": (B, T, C_emit)} and/or {"logits": (B, T,
     out_channels)}, and with ``return_state`` {"state": (x_in, buffers,
     t_offset + T)}.
@@ -148,25 +156,31 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
     if T is None:
         raise ValueError("T must be given when no conditioning/test inputs")
 
+    dt = dtype or torch.float32
     g_vec = model.embed_global(g)
     # time-invariant global-conditioning projections, computed once
     g_gate = (None if g_vec is None else
-              [conv1x1(blk.conv1x1g, g_vec.float()) for blk in model.conv_layers])
+              [conv1x1(blk.conv1x1g, g_vec.to(dt))
+               for blk in model.conv_layers])
     if initial_input is None:
-        x_in = default_initial_input(spec, B, device=device)
+        x_in = default_initial_input(spec, B, device=device).to(dt)
     else:
-        x_in = to_dev(initial_input).reshape(B, -1).float()
+        x_in = to_dev(initial_input).reshape(B, -1).to(dt)
+    if c_up is not None:
+        c_up = c_up.to(dt)
+    if test_inputs is not None:
+        test_inputs = test_inputs.to(dt)
 
     k = spec.kernel_size
     if state is None:
-        buffers = init_buffers(spec, B, device=device)
+        buffers = init_buffers(spec, B, device=device, dtype=dt)
     else:
-        buffers = [to_dev(b).float().clone() for b in buffers0]
+        buffers = [to_dev(b).to(dt).clone() for b in buffers0]
     samples, logits = [], []
     for i in range(T):
         t = t_off + i                       # absolute step
         if test_inputs is not None and i < test_inputs.shape[1]:
-            x_in = test_inputs[:, i].float()
+            x_in = test_inputs[:, i]
         ct = None if c_up is None else c_up[:, i]
         x = conv1x1(model.first_conv, x_in)
         skips = 0.0
@@ -182,6 +196,7 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
         x_in, emitted = _sample_next(
             spec, out, log_scale_min=log_scale_min,
             deterministic=deterministic, generator=generator)
+        x_in = x_in.to(dt)
         samples.append(emitted)
         logits.append(out)
     res: Dict[str, torch.Tensor] = {}
@@ -190,6 +205,7 @@ def generate(model: WaveNet, *, T: Optional[int] = None,
     if output in ("logits", "both"):
         res["logits"] = torch.stack(logits, dim=1)
     if return_state:
-        res["state"] = (x_in.float(), buffers, t_off + T)
+        res["state"] = (x_in.float(), [b.float() for b in buffers],
+                        t_off + T)
     return res
 

@@ -21,8 +21,10 @@ the dilated conv and the conditioning 1x1s column-parallel over the gate
 channels (in GLU pairs), out and skip row-parallel over G/2 with their g
 kept whole, everything else replicated. The blocks then compute with
 collectives over the model group (``models/layers.py``), which equals
-replicated execution. ``gather_train_state`` puts the slices back together
-(for checkpoints, which both packages read, and for synthesis).
+replicated execution, in the batch forward and in the decoders' steps
+alike (``ops.cuda_generate.pack_weights`` gathers whole weights), so a cut
+model synthesises what the whole one does. ``gather_train_state`` puts the
+slices back together (for checkpoints, which both packages read).
 """
 from __future__ import annotations
 

@@ -66,6 +66,9 @@ class StreamingSynthesizer:
         on the model's device.
       * :meth:`reset` rewinds ``generator`` to where it stood at
         construction, so a restarted stream repeats its random numbers.
+      * ``dtype`` is engine ``"scan"``'s compute dtype
+        (``ops.generate.generate(dtype=)``; None: f32); engine ``"cuda"``
+        takes ``weight_dtype``.
       * g (global conditioning) is fixed per stream at construction.
     """
 
@@ -74,7 +77,7 @@ class StreamingSynthesizer:
                  batch: int = 1, g: Optional[np.ndarray] = None,
                  engine: str = "cuda", chunk: Optional[int] = None,
                  weight_dtype=torch.bfloat16, deterministic: bool = False,
-                 device=None):
+                 device=None, dtype: Optional[torch.dtype] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         self.cfg = cfg
@@ -84,6 +87,7 @@ class StreamingSynthesizer:
         self.spec = model.spec
         self.batch = batch
         self._deterministic = deterministic
+        self._dtype = dtype
         self._generator = generator
         self._gen_state = None if generator is None else generator.get_state()
         self._g = None if g is None else torch.as_tensor(
@@ -207,7 +211,7 @@ class StreamingSynthesizer:
                            state=self._state, return_state=True,
                            log_scale_min=self.cfg.log_scale_min,
                            deterministic=self._deterministic,
-                           generator=self._generator)
+                           generator=self._generator, dtype=self._dtype)
             samples, self._state = out["samples"], out["state"]
         self._emitted = b
         return self._decode(samples.cpu().numpy())

@@ -1,8 +1,8 @@
 """Checkpoint / resume (reference: train.py:852-970).
 
 The port's counterpart of ``wavenet_vocoder_tpu/training/checkpoint.py``,
-with the same file names and the same format, so the two packages read each
-other's weights:
+with the same file names and the same format, so the two packages read
+each other's checkpoints:
 
   * ``checkpoint_step%09d[_ema].npz`` and ``checkpoint_latest[_ema].npz``;
   * format ``wavenet-tpu-ckpt`` v1: flat numpy arrays ``param_i`` /
@@ -12,16 +12,31 @@ other's weights:
     corrupt an existing checkpoint, and readers fall back from a corrupted
     ``checkpoint_latest`` to the newest intact step file.
 
-The port writes its ``state_dict()`` names as ``param_paths``. A checkpoint
-written by the JAX package carries ``jax.tree_util.keystr`` paths
-(``['blocks'][0]['conv']['v']``); those are parsed here without JAX and the
-rebuilt tree goes through ``compat/from_jax.py:state_dict_from_jax``.
+What is written is what the JAX package writes: ``param_paths`` are the
+JAX params tree's ``jax.tree_util.keystr`` paths
+(``['blocks'][0]['conv']['v']``), ``param_i`` its leaves in JAX's order
+and axes (``compat/to_jax.py``), and ``opt_i`` optax's state leaves
+(``jax.tree.leaves(opt_state)``) for the optimizer ``make_optimizer``
+built, with ``has_opt``/``n_opt`` as JAX sets them. The optimizer's state
+maps one to one where its update is optax's (``_optax_layout``): torch's
+Adam and AdamW (``step``, ``exp_avg``, ``exp_avg_sq`` as optax's
+``ScaleByAdamState(count, mu, nu)`` and the schedule's count), SGD
+(``momentum_buffer`` as ``trace``), Adadelta (``square_avg``,
+``acc_delta`` as ``e_g``, ``e_x``), and the port's Adamax, NAdam, RAdam,
+Lamb, RMSprop and Adagrad. Adafactor's state does not map: its file holds
+no optax state (``has_opt`` false, so JAX starts it afresh) and keeps the
+port's own under ``opt_keys`` ([parameter index, state name]) and
+``port_opt_i``, so a port run resumes it exactly.
 
-Kept different on purpose: optimizer state is the port's own
-(``torch.optim`` tensors; the manifest's ``opt_keys`` name them), so a JAX
-checkpoint's optax state is not carried and ``load_checkpoint`` on one keeps
-the fresh optimizer and says so. Legacy pickle checkpoints of the JAX
-package hold pickled JAX arrays; the port refuses them.
+The loader reads three kinds of file, told apart by their paths: the
+JAX package's and the port's (keystr paths; the rebuilt tree goes through
+``compat/from_jax.py:state_dict_from_jax`` and optax's leaves into the
+optimizer), and the port's files written before it wrote the JAX layout
+(``state_dict()`` names in ``param_paths``, its own optimizer state in
+``opt_i`` under ``opt_keys``). Where optax's state cannot go into the
+optimizer (Adafactor, or a file of another optimizer), the optimizer starts
+fresh and a NOTE names it. Legacy pickle checkpoints of the JAX package
+hold pickled JAX arrays; the port refuses them.
 """
 from __future__ import annotations
 
@@ -36,9 +51,12 @@ import numpy as np
 import torch
 
 from wavenet_vocoder_tpu_torch.compat.from_jax import state_dict_from_jax
+from wavenet_vocoder_tpu_torch.compat.to_jax import (
+    from_jax_array, jax_order, to_jax)
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.parallel.distributed import is_primary
 from wavenet_vocoder_tpu_torch.parallel.sharding import gather_train_state
+from wavenet_vocoder_tpu_torch.training import optimizers
 
 _FORMAT = "wavenet-tpu-ckpt"
 _VERSION = 1
@@ -75,24 +93,91 @@ def _flatten_optimizer(optimizer: torch.optim.Optimizer
     return keys, arrays
 
 
+def _optax_layout(optimizer: torch.optim.Optimizer) -> Optional[List[str]]:
+    """optax's state leaves for the chain the JAX package builds for this
+    optimizer (``train_state.py:_make_core_optimizer``), in
+    ``jax.tree.leaves`` order: "count" (the number of updates: the
+    transform's and the schedule's), or the name of the port's
+    per-parameter state that fills a tree shaped like the params. None
+    where the two states are not one to one."""
+    group = optimizer.param_groups[0]
+    if isinstance(optimizer, torch.optim.Adam):       # AdamW too
+        return ["count", "exp_avg", "exp_avg_sq", "count"]
+    if isinstance(optimizer, (optimizers.Adamax, optimizers.NAdam,
+                              optimizers.RAdam, optimizers.Lamb)):
+        return ["count", "mu", "nu", "count"]
+    if isinstance(optimizer, torch.optim.SGD):
+        return (["momentum_buffer"] if group["momentum"] else []) + ["count"]
+    if isinstance(optimizer, optimizers.RMSprop):
+        return ((["mu"] if group["centered"] else []) + ["nu", "count"]
+                + (["trace"] if group["momentum"] is not None else []))
+    if isinstance(optimizer, optimizers.Adagrad):
+        return ["sum_of_squares", "count"]
+    if isinstance(optimizer, torch.optim.Adadelta):
+        return ["square_avg", "acc_delta", "count"]
+    return None
+
+
+def _fresh_value(group, name: str) -> float:
+    """What optax initialises a state of ``name`` to."""
+    return {"sum_of_squares": group.get("initial_accumulator_value", 0.0),
+            "nu": group.get("initial_scale", 0.0)}.get(name, 0.0)
+
+
+def _named_params(state) -> List[Tuple[str, torch.Tensor, dict]]:
+    """(name, parameter, its param group) in the optimizer's order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [(names[id(p)], p, g) for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
+def _optax_leaves(state) -> Optional[List[np.ndarray]]:
+    """The optimizer's state as optax's leaves (``jax.tree.leaves`` of the
+    JAX package's ``opt_state``), or None where it does not map."""
+    opt = state.optimizer
+    layout = _optax_layout(opt)
+    if layout is None:
+        return None
+    named = _named_params(state)
+    steps = [opt.state[p]["step"] for _, p, _ in named
+             if "step" in opt.state.get(p, {})]
+    count = np.asarray(int(steps[0]) if steps else int(state.step), np.int32)
+    leaves: List[np.ndarray] = []
+    for kind in layout:
+        if kind == "count":
+            leaves.append(count)
+            continue
+        tree = {}
+        for n, p, g in named:
+            v = opt.state.get(p, {}).get(kind)
+            tree[n] = (_np(v) if v is not None else
+                       np.full(p.shape, _fresh_value(g, kind), np.float32))
+        leaves += [a for _, a in to_jax(tree)]
+    return leaves
+
+
 def _write_npz_atomic(path: str, params: Dict[str, torch.Tensor],
-                      optimizer: Optional[torch.optim.Optimizer],
-                      counters: Dict[str, int]) -> None:
+                      opt, counters: Dict[str, int]) -> None:
+    """``opt``: None, or (optax leaves or None, port keys, port arrays)."""
+    leaves = to_jax({n: _np(t) for n, t in params.items()})
     arrays: Dict[str, np.ndarray] = {}
     manifest: Dict[str, Any] = {
         "format": _FORMAT, "version": _VERSION,
-        "param_paths": list(params),
-        "has_opt": optimizer is not None,
+        "param_paths": [k for k, _ in leaves],
+        "has_opt": opt is not None and opt[0] is not None,
         **counters,
     }
-    for i, leaf in enumerate(params.values()):
-        arrays[f"param_{i}"] = _np(leaf)
-    if optimizer is not None:
-        keys, o_flat = _flatten_optimizer(optimizer)
-        manifest["n_opt"] = len(o_flat)
-        manifest["opt_keys"] = keys
-        for i, leaf in enumerate(o_flat):
+    for i, (_, leaf) in enumerate(leaves):
+        arrays[f"param_{i}"] = leaf
+    if manifest["has_opt"]:
+        manifest["n_opt"] = len(opt[0])
+        for i, leaf in enumerate(opt[0]):
             arrays[f"opt_{i}"] = leaf
+    elif opt is not None:
+        # optax's state is not the optimizer's: keep the port's own
+        manifest["opt_keys"] = opt[1]
+        for i, leaf in enumerate(opt[2]):
+            arrays[f"port_opt_{i}"] = leaf
     arrays["manifest"] = np.frombuffer(
         json.dumps(manifest).encode("utf-8"), dtype=np.uint8)
     tmp = path + ".tmp"
@@ -107,16 +192,19 @@ class _Payload:
     """What a checkpoint file holds, as numpy arrays."""
 
     def __init__(self, params_flat, param_paths, opt_flat, opt_keys,
-                 counters):
+                 port_opt_flat, counters):
         self.params_flat = params_flat          # list of np arrays
-        self.param_paths = param_paths          # state_dict names or keystr
+        self.param_paths = param_paths          # keystr or state_dict names
         self.opt_flat = opt_flat                # list of np arrays or None
         self.opt_keys = opt_keys                # [[index, name]] or None
+        self.port_opt_flat = port_opt_flat      # under opt_keys, or None
         self.counters = counters                # dict of ints
 
     @property
-    def from_jax(self) -> bool:
-        """Written by the JAX package: its paths are keystr strings."""
+    def keystr_paths(self) -> bool:
+        """The JAX layout (written by either package): keystr paths, and
+        ``opt_i`` holds optax's leaves. Otherwise a port file from before
+        the port wrote it: ``state_dict()`` names, its own ``opt_i``."""
         return bool(self.param_paths) and all(
             p.startswith("[") for p in self.param_paths)
 
@@ -140,9 +228,13 @@ def _read_payload(path: str) -> _Payload:
         opt_flat = None
         if manifest.get("has_opt"):
             opt_flat = [z[f"opt_{i}"] for i in range(manifest["n_opt"])]
+        keys = manifest.get("opt_keys")
+        port_opt = None
+        if keys is not None and "port_opt_0" in z.files:
+            port_opt = [z[f"port_opt_{i}"] for i in range(len(keys))]
         counters = {k: int(manifest.get(k, 0)) for k in _COUNTERS}
-        return _Payload(params_flat, paths, opt_flat,
-                        manifest.get("opt_keys"), counters)
+        return _Payload(params_flat, paths, opt_flat, keys, port_opt,
+                        counters)
 
 
 def _ema_state_dict(state) -> Dict[str, torch.Tensor]:
@@ -171,7 +263,11 @@ def save_checkpoint(directory: str, state, *, global_step: int,
     counters = {"global_step": int(global_step),
                 "global_epoch": int(global_epoch),
                 "global_test_step": int(global_test_step)}
-    opt = state.optimizer if save_optimizer_state else None
+    opt = None
+    if save_optimizer_state:
+        leaves = _optax_leaves(state)
+        opt = (leaves,) + (([], []) if leaves is not None
+                           else _flatten_optimizer(state.optimizer))
     params = state.model.state_dict()
     path = checkpoint_path(directory, global_step)
     _write_npz_atomic(path, params, opt, counters)
@@ -252,7 +348,7 @@ def params_tree(payload: _Payload):
 def _state_dict(payload: _Payload, spec: WaveNetSpec
                 ) -> Dict[str, torch.Tensor]:
     """The payload's params under the port's names and layouts."""
-    if payload.from_jax:
+    if payload.keystr_paths:
         return state_dict_from_jax(params_tree(payload), spec)
     return {k: torch.from_numpy(np.asarray(v))
             for k, v in zip(payload.param_paths, payload.params_flat)}
@@ -302,11 +398,12 @@ def _ema_twin(path: str) -> Optional[str]:
     return base + "_ema" + ext
 
 
-def _restore_optimizer(optimizer: torch.optim.Optimizer,
-                       payload: _Payload) -> None:
+def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_keys,
+                       arrays) -> None:
+    """The port's own optimizer state ([[index, name]] and arrays)."""
     own = optimizer.state_dict()
     st: Dict[int, Dict[str, torch.Tensor]] = {}
-    for (idx, name), arr in zip(payload.opt_keys, payload.opt_flat):
+    for (idx, name), arr in zip(opt_keys, arrays):
         st.setdefault(int(idx), {})[name] = torch.from_numpy(np.asarray(arr))
     n_params = sum(len(g["params"]) for g in own["param_groups"])
     if any(idx >= n_params for idx in st):
@@ -316,6 +413,46 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer,
                                "param_groups": own["param_groups"]})
 
 
+def _restore_optax(state, leaves: List[np.ndarray], path: str) -> None:
+    """optax's state leaves into the optimizer, through ``_optax_layout``
+    and the params' JAX layout; a NOTE and a fresh optimizer where they
+    do not fit it."""
+    opt = state.optimizer
+    layout = _optax_layout(opt)
+    named = _named_params(state)
+    n_trees = 0 if layout is None else len(layout) - layout.count("count")
+    want = None if layout is None else (len(layout) - n_trees
+                                        + n_trees * len(named))
+    if want != len(leaves):
+        print(f"NOTE: {path} holds {len(leaves)} optax state leaves; the "
+              f"{type(opt).__name__} optimizer's state "
+              + ("does not map to optax's" if layout is None else
+                 f"maps to {want} (another optimizer wrote it)")
+              + ", so the optimizer starts fresh (as with "
+              "reset_optimizer=True)")
+        return
+    order = jax_order([n for n, _, _ in named])
+    by_name = {n: p for n, p, _ in named}
+    index = {id(p): i for i, (_, p, _) in enumerate(named)}
+    count, it = None, iter(leaves)
+    st: Dict[int, Dict[str, torch.Tensor]] = {}
+    for kind in layout:
+        if kind == "count":
+            c = int(next(it))
+            count = c if count is None else count
+            continue
+        for n, _ in order:
+            p = by_name[n]
+            a = from_jax_array(n, next(it), p.shape)
+            st.setdefault(index[id(p)], {})[kind] = torch.from_numpy(
+                a.astype(np.float32))
+    if not isinstance(opt, torch.optim.SGD):       # SGD counts no steps
+        for i in range(len(named)):
+            st.setdefault(i, {})["step"] = torch.tensor(float(count))
+    own = opt.state_dict()
+    opt.load_state_dict({"state": st, "param_groups": own["param_groups"]})
+
+
 def load_checkpoint(path: str, state, *, reset_optimizer: bool = False
                     ) -> Tuple[Any, Dict[str, int]]:
     """Restore params (+optimizer unless reset) + counters into ``state``,
@@ -323,13 +460,15 @@ def load_checkpoint(path: str, state, *, reset_optimizer: bool = False
     payload, path = _read_with_fallback(path)
     model = state.model
     _load_into(model, _state_dict(payload, model.spec))
-    if not reset_optimizer and payload.opt_flat is not None:
-        if payload.opt_keys is None:
-            print(f"NOTE: {path} was written by the JAX package; its optax "
-                  "optimizer state is not carried over, the optimizer starts "
-                  "fresh (as with reset_optimizer=True)")
-        else:
-            _restore_optimizer(state.optimizer, payload)
+    if not reset_optimizer:
+        if payload.keystr_paths and payload.opt_flat is not None:
+            _restore_optax(state, payload.opt_flat, path)
+        elif payload.keystr_paths and payload.port_opt_flat is not None:
+            _restore_optimizer(state.optimizer, payload.opt_keys,
+                               payload.port_opt_flat)
+        elif payload.opt_flat is not None:
+            _restore_optimizer(state.optimizer, payload.opt_keys,
+                               payload.opt_flat)
     if state.ema is not None:
         # resume EMA from the twin file if present, else re-seed from params
         ema_file = _ema_twin(path)
