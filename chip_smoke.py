@@ -30,8 +30,11 @@ Phases (each failure ends the run with a non-zero exit):
                 plain versions: skips and all eight gradients, at B=2,
                 T=3000 (f32 and bf16, dropout 0 and 0.05, one bf16 row with a
                 global-conditioning bias) and at the training path's shape
-                B=8, T=10240 (f32 and bf16); see TRAIN_TOL. bf16 runs the
-                tensor-core kernels, f32 the FMA-tile kernels;
+                B=8, T=10240 (f32 and bf16); and at the quality net's widths
+                (12 layers, 64/128/64, cin 40) at B=8, T=4096 (f32 and bf16,
+                dropout 0 and 0.05); see TRAIN_TOL. Every row launches the
+                backward twice: all eight gradients bitwise equal. bf16 runs
+                the tensor-core kernels, f32 the FMA-tile kernels;
   6. training — ``create_train_state(Config(fused_train=True))`` and
                 ``train_step`` at B=8 on bench.py's batch: one step through
                 the kernels and one through the plain versions from the same
@@ -39,7 +42,12 @@ Phases (each failure ends the run with a non-zero exit):
                 gradient (see STEP_TOL); then 10 kernel steps, whose launch
                 counts are the kernels' launches on the main path, lower
                 the loss; every one of their launches must be a tensor-core
-                launch (``.tc_launches``);
+                launch (``.tc_launches``); then each training path (the
+                kernels and the layer loop, dropout 0.05) takes 2 steps
+                twice from one state, batch and generator: loss,
+                parameters, optimizer state and EMA bitwise equal; and the
+                ops torch warns of under ``use_deterministic_algorithms``
+                (warn only; a check, never the main path) are printed;
   7. train-timing — median step time and samples/s at B=8 and B=32 (CUDA
                 events), a torch.profiler breakdown of one B=8 step by
                 kernel, and each training kernel's time per step at B=8
@@ -141,9 +149,9 @@ Phases (each failure ends the run with a non-zero exit):
                 launches as ``bench_launches`` and gives the big models'
                 launch times (``ms_30L3S``, ``bound_ms_512ch``, ...);
  14. quality  — the sampled-audio quality net: one backward of the stack at
-                the quality model's widths in the healthy build twice (dx0
-                and dc bitwise equal) and in each fault build (dx0 moved by
-                more than 1e-4 of its largest value); then
+                the quality model's widths in the healthy build twice (all
+                eight gradients bitwise equal) and in each fault build (dx0
+                moved by more than 1e-4 of its largest value); then
                 ``wavenet_vocoder_tpu_torch.scripts.quality_check`` for the
                 QUALITY_HEADS (mulaw256; see there) at 1500 steps on the
                 kernels, which must pass the JAX script's thresholds
@@ -175,7 +183,8 @@ Phases (each failure ends the run with a non-zero exit):
                 (which must write the JAX package's layout: keystr paths
                 and 2N + 2 optax leaves of Adam's state), reloaded into a
                 fresh state; step 3 after the reload against step 3
-                without it within STEP_TOL["bfloat16"]; (c) the eager
+                without it: loss, grad norm, every gradient and the state
+                after it bitwise equal; (c) the eager
                 decoder in bf16 (``generate(dtype=torch.bfloat16)``),
                 flagship deterministic, B=32: 32 single steps from its own
                 state against the f32 decoder and against the kernel with
@@ -197,6 +206,15 @@ Phases (each failure ends the run with a non-zero exit):
                 utterance, training and generation kernels launched.
                 ``[tail] 16`` lines; the kernels line counts the phase's
                 launches as ``phase16_launches``.
+ 17. quality-grads — the quality net's mol config (B=8, T=4096, dropout
+                0.05) at its fresh state and after Q_TRAIN_STEPS steps on
+                the kernels: each parameter's gradient on Q_BATCHES batches
+                of its pool through the kernels, the fused stack's plain
+                versions and the layer loop in bf16, against the layer loop
+                in f32 (TF32 off); per leaf e(kernels) <= Q_RATIO x e(plain
+                versions) + Q_SLACK, with e(layer loop) and the mean cosine
+                of each error with the reference printed; the kernels line
+                counts the phase's launches as ``phase17_launches``.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; then
 the card's name and power limit; the last line is
@@ -775,16 +793,27 @@ def phase_timing(report, model):
 # phase 5: the training kernels against their plain versions
 # ----------------------------------------------------------------------
 # Tolerance per output, relative to its largest value. f32: 1e-4 — the same
-# f32 arithmetic summed in another order (weight gradients by atomics, in an
-# order that changes from run to run). bf16: 2e-2 — a one-ulp f32 difference
-# in z can move gated or dz across a bf16 rounding boundary ("flips": the
-# elements beyond 1e-3 of the largest value, printed).
+# f32 arithmetic summed in another order (the weight and bias gradients in a
+# fixed order of their own: position chunks, then groups of 32 positions).
+# bf16: 2e-2 — a one-ulp f32 difference in z can move gated or dz across a
+# bf16 rounding boundary ("flips": the elements beyond 1e-3 of the largest
+# value, printed). Every row also launches the backward twice: all eight
+# gradients must repeat bit for bit.
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-TRAIN_ROWS = [  # (B, T, dtype, dropout, global-conditioning bias)
-    (2, 3000, "float32", 0.0, False), (2, 3000, "float32", 0.05, False),
-    (2, 3000, "bfloat16", 0.0, False), (2, 3000, "bfloat16", 0.05, False),
-    (2, 3000, "bfloat16", 0.0, True),
-    (8, 10240, "float32", 0.0, False), (8, 10240, "bfloat16", 0.0, False)]
+TRAIN_ROWS = [  # (model, B, T, dtype, dropout, global-conditioning bias)
+    ("flagship", 2, 3000, "float32", 0.0, False),
+    ("flagship", 2, 3000, "float32", 0.05, False),
+    ("flagship", 2, 3000, "bfloat16", 0.0, False),
+    ("flagship", 2, 3000, "bfloat16", 0.05, False),
+    ("flagship", 2, 3000, "bfloat16", 0.0, True),
+    ("flagship", 8, 10240, "float32", 0.0, False),
+    ("flagship", 8, 10240, "bfloat16", 0.0, False),
+    # the quality net's widths and batch (12 layers, 64/128/64, cin 40;
+    # synthetic_e2e.make_config), at its dropout 0.05 and mulaw256's 0.0
+    ("quality", 8, 4096, "float32", 0.0, False),
+    ("quality", 8, 4096, "float32", 0.05, False),
+    ("quality", 8, 4096, "bfloat16", 0.0, False),
+    ("quality", 8, 4096, "bfloat16", 0.05, False)]
 GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og",
               "db_og")
 
@@ -818,19 +847,40 @@ def _compare(name, got, want, tol):
                 rel=err / max(scale, 1e-30), flips=flips, ok=ok)
 
 
+def _quality_model(device, seed):
+    """The quality net's mol model (scripts/synthetic_e2e.make_config), its
+    weights from ``seed``."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
+    from wavenet_vocoder_tpu_torch.scripts.synthetic_e2e import make_config
+    model = WaveNet(spec_from_config(make_config("mol")),
+                    generator=torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def _equal(a, b):
+    """Both absent, or the same shape and bits."""
+    import torch
+    return (a is None and b is None) or (
+        a is not None and b is not None and torch.equal(a, b))
+
+
 def phase_train_kernel(report):
     import torch
 
     from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     from wavenet_vocoder_tpu_torch.ops import fused_train as ft
-    _, model = _flagship_model("cuda", 11)
-    spec = model.spec
-    kw0 = dict(dils=spec.dilations, k=spec.kernel_size)
+    models = {"flagship": _flagship_model("cuda", 11)[1],
+              "quality": _quality_model("cuda", 11)}
     rows, failures = [], []
-    for i, (B, T, dname, drop, glob) in enumerate(TRAIN_ROWS):
+    for i, (mname, B, T, dname, drop, glob) in enumerate(TRAIN_ROWS):
+        model = models[mname]
+        spec = model.spec
         dtype = getattr(torch, dname)
         inputs, dskips = _stack_case(model, B, T, dtype, glob, seed=20 + i)
-        kw = dict(kw0, drop=drop, seed=-777 + i)
+        kw = dict(dils=spec.dilations, k=spec.kernel_size, drop=drop,
+                  seed=-777 + i)
         with torch.no_grad():
             skips, xs = ct.train_fwd(*inputs, **kw)
             skips_p, xs_p = ft.fused_res_stack_fwd_plain(*inputs, **kw)
@@ -840,25 +890,33 @@ def phase_train_kernel(report):
             _, c, gb, w_in, b_in, w_cond, w_og, b_og = inputs
             args = (dskips, xs_p, c, gb, w_in, b_in, w_cond, w_og, b_og)
             got = ct.train_bwd(*args, **kw)
+            again = ct.train_bwd(*args, **kw)
             want = ft.fused_res_stack_bwd_plain(*args, **kw)
             torch.cuda.synchronize()
+        unequal = [n for n, a, b in zip(GRAD_NAMES, got, again)
+                   if not _equal(a, b)]
         for name, a, b in zip(GRAD_NAMES, got, want):
             if b is not None:
                 outs.append(_compare(name, a, b, TRAIN_TOL[dname]))
-        del got, want, args, xs_p, inputs
+        del got, again, want, args, xs_p, inputs
         torch.cuda.empty_cache()
-        row = dict(B=B, T=T, dtype=dname, dropout=drop, gb=glob,
-                   tol=TRAIN_TOL[dname], outputs=outs)
+        row = dict(model=mname, B=B, T=T, dtype=dname, dropout=drop, gb=glob,
+                   tol=TRAIN_TOL[dname], outputs=outs,
+                   repeat_bitwise=not unequal)
         rows.append(row)
-        line = (f"[train-kernel] B={B} T={T} {dname} drop={drop} "
+        line = (f"[train-kernel] {mname} B={B} T={T} {dname} drop={drop} "
                 f"gb={'yes' if glob else 'no'} tol {TRAIN_TOL[dname]}: "
                 + ", ".join(f"{o['name']} {o['rel']:.2e}"
                             + (f" ({o['flips']} flips)" if dname == "bfloat16"
-                               else "") for o in outs))
+                               else "") for o in outs)
+                + "; two backward launches bitwise equal: "
+                + ("all eight" if not unequal else f"NOT {unequal}"))
         print(line, flush=True)
         failures += [f"{o['name']}: {line}" for o in outs if not o["ok"]]
+        failures += [f"{n} does not repeat: {line}" for n in unequal]
     report["train_kernel_vs_plain"] = rows
-    path = {r["dtype"]: r for r in rows if r["B"] == 8}
+    path = {r["dtype"]: r for r in rows
+            if r["model"] == "flagship" and r["B"] == 8}
     # at the path's shape: the largest error over the kernel's outputs,
     # absolute and relative to each output's largest value
     err = {}
@@ -897,12 +955,10 @@ def train_batch(cfg, B):
 
 def _plain_stack():
     """The fused stack's plain versions in place of the kernels, for a
-    CUDA tensor too (for this comparison only)."""
-    from unittest import mock
-
-    from wavenet_vocoder_tpu_torch.ops import fused_train as ft
-    return mock.patch.object(ft, "_impl", lambda device: (
-        ft.fused_res_stack_fwd_plain, ft.fused_res_stack_bwd_plain))
+    CUDA tensor too (for these comparisons only; the quality spread's arm
+    "fused-plain")."""
+    from wavenet_vocoder_tpu_torch.scripts.quality_spread import plain_stack
+    return plain_stack()
 
 
 def leaf_grad_errors(model, ref_model):
@@ -911,14 +967,23 @@ def leaf_grad_errors(model, ref_model):
     first_conv.weight_v (one input channel) has a gradient that weight
     norm's projection makes 0 up to rounding, ~1e-9 of the largest, whose
     noise differs between any two runs."""
-    ref = {n: p.grad.float() for n, p in ref_model.named_parameters()}
-    scale = {n: float(g.abs().max()) for n, g in ref.items()}
-    floor = 1e-6 * max(scale.values())
+    return grad_errors({n: p.grad for n, p in model.named_parameters()},
+                       {n: p.grad for n, p in ref_model.named_parameters()})
+
+
+def grad_scale_floor(ref):
+    """1e-6 of the largest of the gradients ``ref`` (name -> tensor)."""
+    return 1e-6 * max(float(g.abs().max()) for g in ref.values())
+
+
+def grad_errors(grads, ref):
+    """leaf_grad_errors on gradients by name."""
+    floor = grad_scale_floor(ref)
     out = {}
-    for name, p in model.named_parameters():
-        err = float((p.grad.float() - ref[name]).abs().max())
-        out[name] = (err / max(scale[name], floor) if math.isfinite(err)
-                     else float("inf"))
+    for name, r in ref.items():
+        err = float((grads[name].float() - r.float()).abs().max())
+        out[name] = (err / max(float(r.abs().max()), floor)
+                     if math.isfinite(err) else float("inf"))
     return out
 
 
@@ -969,7 +1034,71 @@ def _kernel_vs_plain_step(cfg, batch, dname):
     return state, train_step, agree
 
 
+REPEAT_STEPS, REPEAT_DROP = 2, 0.05
+
+
+def _state_tensors(state):
+    """Every tensor a train state carries: parameters, optimizer state, EMA."""
+    import torch
+    out = {f"param {n}": p.detach() for n, p in state.model.named_parameters()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"opt {i} {k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    out.update({f"ema {n}": v for n, v in (state.ema or {}).items()})
+    return out
+
+
+def _repeat_steps(cfg, batch):
+    """REPEAT_STEPS train steps twice from one state, batch and generator
+    seed: the names of the losses and state tensors that differ in any bit
+    (none, on a repeatable step), and the number compared."""
+    import copy
+
+    import torch
+
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    start = create_train_state(cfg)
+    train_step, _ = make_train_step(cfg)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, model=copy.deepcopy(start.model))
+        gen = torch.Generator().manual_seed(5)
+        losses = torch.stack([train_step(state, batch, gen)["loss"]
+                              for _ in range(REPEAT_STEPS)])
+        runs.append(dict(_state_tensors(state), loss=losses))
+    a, b = runs
+    return [k for k in a if not _equal(a[k], b[k])], len(a)
+
+
+def _nondeterministic_ops(cfg, batch):
+    """The warnings of one train step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    torch knows no deterministic form of (a check only; the main path
+    never sets the flag)."""
+    import warnings
+
+    import torch
+
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    state = create_train_state(cfg)
+    train_step, _ = make_train_step(cfg)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_step(state, batch, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:160] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
 def phase_training(report):
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -996,7 +1125,7 @@ def phase_training(report):
     tc_launches = {n: w.tc_launches for n, w in wrappers.items()}
     L = state.model.spec.layers
     expected = {"wn_train_fwd": L * TRAIN_STEPS,
-                "wn_train_bwd": 3 * L * TRAIN_STEPS}
+                "wn_train_bwd": ct.BWD_LAUNCHES_PER_LAYER * L * TRAIN_STEPS}
     print(f"[training] {TRAIN_STEPS} kernel steps: losses "
           + " ".join(f"{v:.4f}" for v in losses)
           + f"; launches {launches} (expected {expected}), of them on the "
@@ -1014,6 +1143,27 @@ def phase_training(report):
     if not np.mean(losses[5:]) < losses[0]:
         fail(f"loss did not fall: mean of steps 6-10 {np.mean(losses[5:])}"
              f" vs step 1 {losses[0]}")
+    # repeatability: each training path twice from one state, batch and
+    # generator (dropout on, so the mask and the generator take part)
+    repeat, ops = {}, {}
+    for path, fused in (("kernels", True), ("layer loop", False)):
+        rcfg = dataclasses.replace(cfg, fused_train=fused, dropout=REPEAT_DROP)
+        differ, n = _repeat_steps(rcfg, batch)
+        ops[path] = _nondeterministic_ops(rcfg, batch)
+        repeat[path] = dict(differ=differ, compared=n, warned_ops=ops[path])
+        torch.cuda.empty_cache()
+        print(f"[training] repeat, {path}: B={B} bf16 dropout {REPEAT_DROP},"
+              f" {REPEAT_STEPS} steps twice from one state, batch and "
+              f"generator: loss, {n - 1} parameter, optimizer and EMA "
+              f"tensors bitwise equal: "
+              + ("all" if not differ else f"NOT {differ[:6]} "
+                 f"({len(differ)} differ)")
+              + f"; under use_deterministic_algorithms(warn_only) the step "
+              f"warns of {ops[path] or 'no op'}", flush=True)
+    report["training"]["repeat"] = repeat
+    bad = {p: r["differ"] for p, r in repeat.items() if r["differ"]}
+    if bad:
+        fail(f"training steps are not repeatable: {bad}")
     return state, train_step, launches
 
 
@@ -1771,6 +1921,7 @@ def phase_loop(report):
     from wavenet_vocoder_tpu_torch.config import Config
     from wavenet_vocoder_tpu_torch.data.prefetch import prefetch_to_device
     from wavenet_vocoder_tpu_torch.models.wavenet import spec_from_config
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
     from wavenet_vocoder_tpu_torch.training.loop import get_data_loaders
     from wavenet_vocoder_tpu_torch.training.train_state import (
@@ -1805,7 +1956,7 @@ def phase_loop(report):
     n_dev = len(metrics.get("dev/loss", {}))
     # forwards: the train steps, the dev batches, one teacher-forced pass
     want = {"train_fwd": L * (LOOP_STEPS + n_dev + 1),
-            "train_bwd": 3 * L * LOOP_STEPS}
+            "train_bwd": ct.BWD_LAUNCHES_PER_LAYER * L * LOOP_STEPS}
     tail = logged[1:][-5:]
     print(f"[loop] cli.train, {LOOP_STEPS} steps from the dump in "
           f"{cli_s:.1f} s: logged losses (steps "
@@ -2206,6 +2357,8 @@ def _md_kernels(report):
 def _md_ranks(report, work, total):
     """(b): two gloo ranks on the card against one process at B=8."""
     import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     port = _free_port()
     t0 = time.perf_counter()
     _spawn([_self_cmd("--md-rank", str(r), "--md-port", str(port),
@@ -2250,7 +2403,7 @@ def _md_ranks(report, work, total):
                                                     single["grad_norms"])]
     L = single["L"]
     want = {"train_fwd": [L * MD_STEPS] * 2,
-            "train_bwd": [3 * L * MD_STEPS] * 2}
+            "train_bwd": [ct.BWD_LAUNCHES_PER_LAYER * L * MD_STEPS] * 2}
     worst_g = max(grad_rel.items(), key=lambda kv: kv[1])
     top_u = sorted(update_rel.items(), key=lambda kv: -kv[1])[:4]
     worst_u = top_u[0]
@@ -2663,10 +2816,9 @@ QUALITY_TIMEOUT_S = 900
 def _fault_gradients(report):
     """One backward of the stack at the quality model's widths (12 layers,
     64/128/64, cin 40; B=8, T=4096, bf16, dropout 0.05) in the healthy
-    build twice and in each fault build: dx0 and dc (no atomic sums in
-    them) repeat exactly in the healthy build; each fault moves dx0 by more
-    than 1e-4 of its largest value. The weight gradients (atomic sums) are
-    printed."""
+    build twice and in each fault build: all eight gradients repeat exactly
+    in the healthy build (ordered sums); each fault moves dx0 by more than
+    1e-4 of its largest value."""
     import numpy as np
     import torch
 
@@ -2699,16 +2851,15 @@ def _fault_gradients(report):
 
     ok, ok2 = grads("none"), grads("none")
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
-    names = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og", "db_og")
-    repeat = {n: rel(a, b) for n, a, b in zip(names, ok2, ok) if b is not None}
-    exact = torch.equal(ok[0], ok2[0]) and torch.equal(ok[1], ok2[1])
-    out = dict(healthy_repeat=repeat, healthy_exact=exact, faults={})
+    names = GRAD_NAMES
+    unequal = [n for n, a, b in zip(names, ok, ok2) if not _equal(a, b)]
+    exact = not unequal
+    out = dict(healthy_unequal=unequal, healthy_exact=exact, faults={})
     print(f"[quality] fault builds, one backward at the quality model's "
-          f"widths (B={B}, T={T}, bf16, dropout 0.05): healthy twice dx0, dc "
-          f"bitwise equal {exact}; weight gradients (atomic sums) rel "
-          + ", ".join(f"{n} {v:.1e}" for n, v in repeat.items()
-                      if n not in ("dx0", "dc")), flush=True)
-    bad = [] if exact else ["the healthy build does not repeat dx0, dc"]
+          f"widths (B={B}, T={T}, bf16, dropout 0.05): healthy twice, all "
+          f"eight gradients bitwise equal {exact}"
+          + (f" (NOT {unequal})" if unequal else ""), flush=True)
+    bad = [] if exact else [f"the healthy build does not repeat {unequal}"]
     for fault in ("bwd_mask_tshift", "bwd_x_shift"):
         g = grads(fault)
         diff = {n: rel(a, b) for n, a, b in zip(names, g, ok) if b is not None}
@@ -3181,7 +3332,9 @@ RECIPE_PRESET = "conf/mol_wavenet.json"
 
 def _ckpt_round_trip(report, work):
     """(a): two fused bf16 steps, save, load into a fresh state; step 3
-    with and without the reload agree within STEP_TOL["bfloat16"]."""
+    with and without the reload gives the same bits: loss, grad norm, every
+    parameter's gradient, and the state after it (the reload is exact and
+    the step repeatable)."""
     import numpy as np
     import torch
 
@@ -3209,6 +3362,13 @@ def _ckpt_round_trip(report, work):
     load_s = time.perf_counter() - t0
     tol = STEP_TOL["bfloat16"]
     m_a, m_b = step(state, batch), step(fresh, batch)
+    grads_equal = all(_equal(p.grad, q.grad) for p, q in zip(
+        state.model.parameters(), fresh.model.parameters()))
+    after_a, after_b = _state_tensors(state), _state_tensors(fresh)
+    state_differ = [k for k in after_a if not _equal(after_a[k], after_b[k])]
+    bitwise = (grads_equal and not state_differ
+               and _equal(m_a["loss"], m_b["loss"])
+               and _equal(m_a["grad_norm"], m_b["grad_norm"]))
     leaf = leaf_grad_errors(fresh.model, state.model)
     worst = max(leaf.items(), key=lambda kv: kv[1])
     loss_rel = abs(float(m_b["loss"]) - float(m_a["loss"])) / abs(
@@ -3218,7 +3378,8 @@ def _ckpt_round_trip(report, work):
     out = dict(n_params=n, n_opt=manifest["n_opt"], keystr=keystr,
                adam_count=count, loss_rel=loss_rel, grad_norm_rel=norm_rel,
                worst_leaf=worst, save_s=save_s, load_s=load_s,
-               mb=os.path.getsize(path) / 2 ** 20)
+               mb=os.path.getsize(path) / 2 ** 20, bitwise=bitwise,
+               grads_equal=grads_equal, state_differ=state_differ)
     print(f"[tail] 16 (a) checkpoint: flagship fused bf16 B={CKPT_B}, 2 "
           f"steps, saved ({out['mb']:.1f} MB, {save_s:.2f} s) with {n} "
           f"keystr paths {keystr} and {manifest['n_opt']} optax leaves "
@@ -3226,13 +3387,19 @@ def _ckpt_round_trip(report, work):
           f"fresh state ({load_s:.2f} s); step 3 after the reload vs "
           f"without: loss rel {loss_rel:.2e} (tol {tol['loss']}), grad norm "
           f"rel {norm_rel:.2e} (tol {tol['grad_norm']}), worst leaf "
-          f"gradient {worst[0]} {worst[1]:.2e} (tol {tol['leaf']})",
-          flush=True)
+          f"gradient {worst[0]} {worst[1]:.2e} (tol {tol['leaf']}); "
+          f"bitwise equal (loss, grad norm, gradients, state after): "
+          f"{bitwise}" + (f" (gradients equal {grads_equal}, state tensors "
+                          f"differing {state_differ[:4]})" if not bitwise
+                          else ""), flush=True)
     if not (keystr and manifest["n_opt"] == 2 * n + 2 and count == 2):
         fail("the checkpoint is not in the JAX layout with Adam's state")
     if not (loss_rel <= tol["loss"] and norm_rel <= tol["grad_norm"]
             and worst[1] <= tol["leaf"]):
         fail("step 3 after the checkpoint's reload disagrees beyond STEP_TOL")
+    if not bitwise:
+        fail("step 3 after the checkpoint's reload is not bitwise equal to "
+             "step 3 without it")
     report["ckpt_round_trip"] = out
     del state, fresh
     torch.cuda.empty_cache()
@@ -3536,6 +3703,141 @@ def phase_slice11(report):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 17: the gradients at the quality net's shapes, path by path
+# ----------------------------------------------------------------------
+# The quality net's mol config (synthetic_e2e.make_config: 12 layers in 2
+# stacks, 64/128/64, cin 40, B=8, T=4096, dropout 0.05) at its fresh state
+# and after Q_TRAIN_STEPS steps on the kernels (the script's training); the
+# gradients of the first Q_BATCHES batches of its pool, batch i's dropout
+# seed drawn from a generator seeded Q_GEN_SEED + i in every path: (i) the
+# kernels in bf16, (ii) the fused stack's plain versions in bf16 (the
+# kernels' arithmetic in torch ops), (iii) the layer loop in bf16, (iv) the
+# layer loop in f32 with TF32 off, the reference. Per leaf, over the
+# batches: e = the largest max |g - g_ref| / max |g_ref| (grad_errors), and
+# the mean of cos(g - g_ref, g_ref), which a systematic error moves away
+# from 0 (printed for the leaves of 64 elements or more). Held: e(i) <= Q_RATIO * e(ii) + Q_SLACK for every leaf whose
+# reference gradient reaches the floor of grad_errors (1e-6 of the largest
+# leaf's; below it, first_conv.weight_v: zero but for rounding, printed).
+Q_BATCHES, Q_TRAIN_STEPS, Q_GEN_SEED = 4, 300, 3
+Q_RATIO, Q_SLACK = 1.5, 1e-3
+Q_PATHS = ("kernels bf16", "fused plain bf16", "layer loop bf16",
+           "layer loop f32")
+
+
+def _path_grads(cfg, model, batch, seed, path):
+    """Each parameter's gradient (f32, by name) of one train step on
+    ``path`` from ``model``'s weights, the step's dropout seed drawn from a
+    generator seeded ``seed``; and the loss."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from wavenet_vocoder_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    loop = path.startswith("layer loop")
+    cfg = cfg.replace(fused_train=not loop,
+                      compute_dtype="" if path.endswith("f32") else
+                      cfg.compute_dtype)
+    model = copy.deepcopy(model)
+    model.spec = dataclasses.replace(model.spec, fused_train=not loop)
+    state = create_train_state(cfg, model=model)
+    step, _ = make_train_step(cfg)
+    with _plain_stack() if path == "fused plain bf16" else contextlib.nullcontext():
+        m = step(state, batch, torch.Generator().manual_seed(seed))
+    return ({n: p.grad.detach().float().clone()
+             for n, p in state.model.named_parameters()}, float(m["loss"]))
+
+
+def phase_quality_grads(report):
+    """Phase 17; returns its launches by kernel."""
+    import numpy as np
+    import torch
+
+    from wavenet_vocoder_tpu_torch.data.prefetch import to_device
+    from wavenet_vocoder_tpu_torch.scripts import synthetic_e2e as se
+    from wavenet_vocoder_tpu_torch.training.train_state import create_train_state
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_kernel_counts()
+    cfg = se.make_config("mol")
+    train_data, _, _ = se.build_corpus(cfg)
+    pool = se.batch_pool(cfg, train_data, np.random.RandomState(1))
+    batches = [to_device(b, "cuda", pin_memory=False)
+               for b in pool[:Q_BATCHES]]
+    fresh = create_train_state(cfg).model
+    trained = se.train(cfg, train_data, Q_TRAIN_STEPS, torch.device("cuda"))[0].model
+    out, bad = {}, []
+    for tag, model in (("fresh", fresh), (f"{Q_TRAIN_STEPS} steps", trained)):
+        errs = {p: {} for p in Q_PATHS[:3]}
+        cosines = {p: {} for p in Q_PATHS[:3]}
+        losses = {p: [] for p in Q_PATHS}
+        noise = set()
+        for i, batch in enumerate(batches):
+            g = {}
+            for path in Q_PATHS:
+                g[path], loss = _path_grads(cfg, model, batch, Q_GEN_SEED + i,
+                                            path)
+                losses[path].append(loss)
+            ref = g["layer loop f32"]
+            floor = grad_scale_floor(ref)
+            noise |= {n for n, r in ref.items() if float(r.abs().max()) < floor}
+            for path in Q_PATHS[:3]:
+                for n, e in grad_errors(g[path], ref).items():
+                    errs[path][n] = max(errs[path].get(n, 0.0), e)
+                    d = (g[path][n] - ref[n]).flatten().double()
+                    r = ref[n].flatten().double()
+                    den = float(d.norm() * r.norm())
+                    cos = float(d @ r) / den if den > 0 else 0.0
+                    cosines[path][n] = cosines[path].get(n, 0.0) + cos / Q_BATCHES
+        ek, ep, el = (errs[p] for p in Q_PATHS[:3])
+        held = [n for n in ek if n not in noise]
+        over = [n for n in held if not ek[n] <= Q_RATIO * ep[n] + Q_SLACK]
+        worst = sorted(held, key=lambda n: -(ek[n] - Q_RATIO * ep[n]))[:5]
+        # (a leaf of a few elements has a cosine near +-1 whatever its error)
+        big = {n for n, p in fresh.named_parameters() if p.numel() >= 64}
+        biased = {p: max(((n, c) for n, c in cosines[p].items() if n in big),
+                         key=lambda kv: abs(kv[1])) for p in Q_PATHS[:3]}
+        out[tag] = dict(e=errs, mean_cos=cosines, losses=losses,
+                        noise_leaves=sorted(noise), over=over)
+        print(f"[quality-grads] mol at the quality net's shapes (B=8, "
+              f"T=4096, bf16, dropout 0.05), {tag}, {Q_BATCHES} batches of "
+              f"the pool: losses "
+              + ", ".join(f"{p} {np.mean(v):.5f}" for p, v in losses.items())
+              + f"; e(kernels) <= {Q_RATIO} e(fused plain) + {Q_SLACK} on "
+              f"{len(held) - len(over)} of {len(held)} leaves; closest: "
+              + ", ".join(f"{n} {ek[n]:.2e} vs {ep[n]:.2e} (loop bf16 "
+                          f"{el[n]:.2e})" for n in worst)
+              + "; largest |mean cos(g - ref, ref)| of a leaf of 64 "
+              "elements or more: "
+              + ", ".join(f"{p} {n} {c:+.3f}" for p, (n, c) in biased.items())
+              + (f"; below the floor (not held): "
+                 + ", ".join(f"{n} {ek[n]:.1e} vs {ep[n]:.1e}"
+                             for n in sorted(noise)) if noise else ""),
+              flush=True)
+        print("[quality-grads] " + tag + ", largest e by path: "
+              + "; ".join(f"{p} " + ", ".join(
+                  f"{n} {v:.2e}" for n, v in sorted(
+                      errs[p].items(), key=lambda kv: -kv[1])[:4])
+                  for p in Q_PATHS[:3]), flush=True)
+        bad += [f"{tag} {n}: e(kernels) {ek[n]:.3e} > {Q_RATIO} x "
+                f"{ep[n]:.3e} + {Q_SLACK}" for n in over]
+    total = {k: dict(v) for k, v in kernel_counts().items()}
+    report["quality_grads"] = dict(states=out, launches=total,
+                                   s=time.perf_counter() - t0)
+    print(f"[tail] phase 17 in {report['quality_grads']['s']:.1f} s; "
+          f"launches {total}", flush=True)
+    if bad:
+        fail("the kernels' gradients at the quality net's shapes are off "
+             "beyond their plain versions': " + "; ".join(bad))
+    for k in ("train_fwd", "train_bwd"):
+        if not total[k]["launches"]:
+            fail(f"phase 17 launched no {k}")
+    return total
+
+
 def mel_kernel_line(report, launches):
     # time, plain time and bound at the shape the main path launched
     t, long = report["mel_timing"][MEL_MAIN], report["mel_timing"]["30 s"]
@@ -3669,6 +3971,17 @@ def summary_line(report) -> str:
     st = report["recipe"]["stages"]
     parts.append(f"recipe stages {[round(st[s]['s'], 1) for s in range(4)]} "
                  f"s; phase 16 {report['phase16_s']:.1f} s")
+    parts.append("repeat bitwise: phase 5 "
+                 f"{all(r['repeat_bitwise'] for r in report['train_kernel_vs_plain'])}"
+                 ", phase 6 " + ", ".join(
+                     f"{p} {not r['differ']}"
+                     for p, r in report["training"]["repeat"].items())
+                 + f", phase 16 (a) {ck['bitwise']}")
+    qg = report["quality_grads"]
+    parts.append(f"phase 17 {qg['s']:.1f} s: e(kernels) within "
+                 f"{Q_RATIO} e(fused plain) + {Q_SLACK} on every held leaf "
+                 + ", ".join(f"({t}: {len(v['over'])} over)"
+                             for t, v in qg["states"].items()))
     return "[summary] " + "; ".join(parts) + f"; total {report['total_s']:.1f} s"
 
 
@@ -3781,6 +4094,13 @@ def main() -> int:
                           (train_lines[0], "train_fwd"),
                           (train_lines[1], "train_bwd"), (mel_line, "logmel")):
             line["phase16_launches"] = p16.get(key, {}).get("launches", 0)
+        torch.cuda.empty_cache()
+        phase = "quality-grads"
+        p17 = phase_quality_grads(report)
+        for line, key in ((kernel_line, "generate"),
+                          (train_lines[0], "train_fwd"),
+                          (train_lines[1], "train_bwd"), (mel_line, "logmel")):
+            line["phase17_launches"] = p17.get(key, {}).get("launches", 0)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

@@ -278,9 +278,10 @@ def _check_train_kernels(width, dt, drop, glob, cond, B, T, b0=0):
     """Forward (skips, x_l stash) and backward (all eight gradients) against
     the plain versions on the same inputs. The backward gets the plain
     forward's stash on both sides. Tolerance per output, relative to its
-    largest value: f32 1e-4 (sums in another order, weight gradients by
-    atomics); bf16 2e-2 (a one-ulp f32 difference in z can flip a bf16
-    rounding of gated or dz)."""
+    largest value: f32 1e-4 (sums in another order); bf16 2e-2 (a one-ulp
+    f32 difference in z can flip a bf16 rounding of gated or dz). A second
+    launch of the backward repeats all eight gradients bit for bit (ordered
+    sums, no atomics)."""
     tol = 1e-4 if dt == torch.float32 else 2e-2
     inputs, dskips, dils = _stack_inputs(width, dt, glob, cond, B=B, T=T)
     kw = dict(dils=dils, k=3, drop=drop, seed=-12345, b0=b0)
@@ -295,9 +296,12 @@ def _check_train_kernels(width, dt, drop, glob, cond, B, T, b0=0):
     args = (dskips, xs_p, c, gb, w_in, b_in, w_cond, w_og, b_og)
     before = _launch_counts()
     got = ct.train_bwd(*args, **kw)
-    _assert_launched(before, 0, 3 * len(dils), dt)
+    _assert_launched(before, 0, ct.BWD_LAUNCHES_PER_LAYER * len(dils), dt)
+    again = ct.train_bwd(*args, **kw)
     want = ft.fused_res_stack_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
+    for name, g, g2 in zip(GRAD_NAMES, got, again):
+        assert (g is None and g2 is None) or torch.equal(g, g2), name
     for name, g, w in zip(GRAD_NAMES, got, want):
         if w is None:
             assert g is None, name
@@ -390,7 +394,8 @@ def test_fused_stack_on_cuda_launches_kernels(cuda, monkeypatch):
                                dtype=torch.bfloat16, dropout=0.1, seed=5)
     skips.sum().backward()
     torch.cuda.synchronize()
-    _assert_launched(before, spec.layers, 3 * spec.layers, torch.bfloat16)
+    _assert_launched(before, spec.layers,
+                     ct.BWD_LAUNCHES_PER_LAYER * spec.layers, torch.bfloat16)
     assert x0.grad is not None and torch.isfinite(x0.grad).all()
     assert model.conv_layers[0].conv.weight_v.grad is not None
 
@@ -614,7 +619,7 @@ def test_fused_bf16_step_at_demo_widths_runs_the_kernels(cuda):
     metrics = step(state, batch)
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics["loss"]))
-    _assert_launched(before, 2, 6, torch.bfloat16)
+    _assert_launched(before, 2, 2 * ct.BWD_LAUNCHES_PER_LAYER, torch.bfloat16)
 
 
 # ----------------------------------------------------------------------
@@ -696,7 +701,7 @@ def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
     assert [a - b for a, b in zip(after["fwd"], before["fwd"])] == \
         [L * (3 + n_dev + 1)] * 2 + [0]
     assert [a - b for a, b in zip(after["bwd"], before["bwd"])] == \
-        [3 * L * 3] * 2 + [0]
+        [ct.BWD_LAUNCHES_PER_LAYER * L * 3] * 2 + [0]
     assert cg.generate_steps.launches > gen_before
     assert state.step == 3 and next(state.model.parameters()).is_cuda
     assert os.path.exists(ckpt.checkpoint_path(out, 3, ema=True))
@@ -712,8 +717,8 @@ def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
 def test_fault_builds_corrupt_the_gradients(cuda, fault, dtype):
     """The backward's fault builds (cuda_train.FAULTS: what the quality
     check builds to show that it can fail) change dx0 by more than 1e-4 of
-    its largest value, and the healthy build repeats dx0 and dc exactly
-    (neither is an atomic sum). At the flagship width, dropout 0.3, so both
+    its largest value, and the healthy build repeats all eight gradients
+    exactly (ordered sums). At the flagship width, dropout 0.3, so both
     faults act."""
     dt = getattr(torch, dtype)
     inputs, dskips, dils = _stack_inputs("flagship", dt, False, True, B=2,
@@ -732,6 +737,7 @@ def test_fault_builds_corrupt_the_gradients(cuda, fault, dtype):
 
     ok, ok2, bad = grads("none"), grads("none"), grads(fault)
     torch.cuda.synchronize()
-    assert torch.equal(ok[0], ok2[0]) and torch.equal(ok[1], ok2[1])
+    for name, a, b in zip(GRAD_NAMES, ok, ok2):
+        assert (a is None and b is None) or torch.equal(a, b), name
     assert torch.isfinite(bad[0]).all()
     assert _rel_err(bad[0], ok[0]) > 1e-4, fault

@@ -34,6 +34,7 @@ from wavenet_vocoder_tpu_torch.models.layers import remove_weight_norm
 from wavenet_vocoder_tpu_torch.models.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
+    _SmoothingConv2d,
 )
 from wavenet_vocoder_tpu_torch.models.wavenet import (
     WaveNet,
@@ -127,6 +128,27 @@ def test_upsample_parity(net):
         y = model.upsample_conditioning(torch.from_numpy(c)).numpy()
     assert y.shape == y_jax.shape
     np.testing.assert_allclose(y, y_jax, atol=ATOL)
+
+
+@pytest.mark.parametrize("kf,kt", [(1, 9), (3, 5)])
+def test_smoothing_conv_gradients_equal_conv2d(kf, kt):
+    """The upsample conv's own backward (the filter gradient summed tap by
+    tap, deterministic on the card) against autograd of F.conv2d, in
+    float64, and torch's gradcheck."""
+    rs = np.random.RandomState(kf * 10 + kt)
+    x = torch.from_numpy(rs.randn(2, 1, 7, 33)).requires_grad_()
+    w = torch.from_numpy(rs.randn(1, 1, kf, kt)).requires_grad_()
+    pad = ((kf - 1) // 2, (kt - 1) // 2)
+    y = _SmoothingConv2d.apply(x, w, pad)
+    want = torch.nn.functional.conv2d(x, w, None, padding=pad)
+    dy = torch.from_numpy(rs.randn(*want.shape))
+    got = torch.autograd.grad(y, (x, w), dy)
+    ref = torch.autograd.grad(want, (x, w), dy)
+    assert torch.equal(y, want)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-12)
+    assert torch.autograd.gradcheck(
+        lambda a, b: _SmoothingConv2d.apply(a, b, pad), (x, w))
 
 
 FORWARD_CASES = {

@@ -16,6 +16,8 @@ synthetic_e2e.py, quality_check.py) against the JAX package's script
   well under a minute: 2 steps, the held-out utterance shortened to 0.25 s
   by monkeypatching (the script's defaults are untouched); it prints the
   JAX script's record keys, and fails the thresholds.
+* ``quality_spread`` by seed and arm: one seed twice gives one record, two
+  seeds two initial losses; its paired tests count the discordant seeds.
 
 The kernels' fault builds run only on the card (tests/test_torch_kernels.py,
 chip_smoke.py phase 14); here their plumbing is checked.
@@ -239,6 +241,49 @@ def test_quality_spread_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     text = capsys.readouterr().out
     assert text.count("[spread] {") == 2
     assert "gaussian, trained on the plain loop, rolled out by scan: 0/1" in text
+
+
+def test_quality_spread_seeds_repeat_and_differ(monkeypatch, tmp_path):
+    # the plain loop at one step: seed 0 twice gives the same record (all
+    # but its seconds), seeds 0 and 1 different initial losses
+    monkeypatch.setattr(se, "HELD_OUT_SECONDS", 0.25)
+    out = tmp_path / "spread.json"
+    assert quality_spread.main(["--heads", "mol", "--seeds", "0,1,0",
+                                "--arms", "loop", "--steps", "1",
+                                "--scan-reps", "0", "--device", "cpu",
+                                "--out", str(out)]) == 0
+    runs = json.loads(out.read_text())["runs"]
+    assert [(r["seed"], r["arm"], r["train"]) for r in runs] == [
+        (0, "loop", "plain loop"), (1, "loop", "plain loop"),
+        (0, "loop", "plain loop")]
+    strip = lambda r: {k: v for k, v in r.items() if k != "train_s"}
+    assert strip(runs[0]) == strip(runs[2])
+    assert runs[0]["loss_first"] != runs[1]["loss_first"]
+    assert "scan" not in runs[0] and len(runs[0]["cuda"]) == se.N_ROLLOUTS
+
+
+def test_quality_spread_paired_tests():
+    # five seeds: arm a passes where b does on seeds 0-1, fails where b
+    # passes on 2-4; best corr lower on four seeds, equal on one
+    def rec(arm, seed, ok, corr):
+        return dict(head="mol", arm=arm, seed=seed, rep=0, cuda_pass=ok,
+                    cuda=[[corr, 220.0, 0.1, ok], [corr - 0.1, 0.0, 0.0, False]])
+    runs = []
+    for seed, (a_ok, b_ok, a_c, b_c) in enumerate([
+            (True, True, 0.93, 0.94), (False, False, 0.90, 0.91),
+            (False, True, 0.91, 0.95), (False, True, 0.92, 0.93),
+            (False, True, 0.92, 0.92)]):
+        runs += [rec("kernels", seed, a_ok, a_c), rec("loop", seed, b_ok, b_c)]
+    p = quality_spread.paired(runs, "mol", "kernels", "loop")
+    assert p["seeds"] == 5
+    assert (p["a_pass_b_fail"], p["a_fail_b_pass"]) == (0, 3)
+    assert p["mcnemar_p"] == 1 / 8                   # 3 of 3 discordant
+    assert (p["corr_lower"], p["corr_higher"]) == (4, 0)
+    assert p["sign_p"] == 1 / 16                     # 4 of 4, one tie
+    q = quality_spread.paired(runs, "mol", "loop", "kernels")
+    assert q["mcnemar_p"] == 1.0 and q["sign_p"] == 1.0
+    with pytest.raises(SystemExit):
+        quality_spread.main(["--arms", "kernels,xla", "--device", "cpu"])
 
 
 def test_fault_refusals():

@@ -11,7 +11,13 @@ b-halves in passes of 128 gate columns with the depth in slices of 16, the
 out|skip product in passes of 256 columns, and the weight gradients as the
 wrapper's output tiles (``cuda_train.wgrad_tiles``) summed over its position
 chunks (``cuda_train.wgrad_chunk``), 32 positions a stage, the last chunk
-ragged. The card's own run of the kernels is in ``test_torch_kernels.py``.
+ragged. The weight and bias gradients are the backward's ordered sums: each
+chunk's tile goes to its own slice of the partials and the finish adds the
+slices in chunk order; the bias sums go to a partial per batch row and group
+of 32 positions, which the finish adds as its warps do (group g to warp g mod
+32, the warps in order, the batch rows in order). Computed in a permuted
+order, the blocks give the same bits. The card's own run of the kernels is
+in ``test_torch_kernels.py``.
 """
 import math
 
@@ -28,12 +34,14 @@ OG_COLS = 256      # columns of an out|skip pass
 SLICE = 16         # depth of a weight slice
 SQRT_HALF = math.sqrt(0.5)
 SMS = 132          # the H100's SM count, for the wrapper's chunk plan
+FIN_WARPS = 32     # warps of a bias block of bwd_finish
 
 # (L, dilations, R, G, S, cin), as tests/test_torch_kernels.py
 WIDTHS = {"small": (4, (1, 2, 1, 2), 16, 32, 24, 8),
           "wide": (3, (1, 2, 4), 64, 288, 80, 20),
           "flagship": (3, (1, 8, 32), 128, 256, 128, 80)}
 CASES = [(True, True, 0.2), (False, False, 0.0)]   # (c, gb, dropout)
+GRAD_NAMES = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og", "db_og")
 
 
 def _inputs(width, cond, glob, B=2, T=130, seed=0):
@@ -137,8 +145,42 @@ def emulate_fwd(x0, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k, drop,
     return skips, torch.stack(xs)
 
 
+def finish_weights(part):
+    """bwd_finish on the weight partials (chunks, ...): the chunks added in
+    chunk order, one f32 sum an element."""
+    out = torch.zeros(part.shape[1:])
+    for y in range(part.shape[0]):
+        out = out + part[y]
+    return out
+
+
+def finish_bias(part):
+    """bwd_finish on the bias partials (B, groups, columns): per batch row,
+    warp w adds groups w, w + 32, ... in order and the warps' sums are added
+    in warp order (the row's sum); the rows' sums in row order. Returns (the
+    rows' sums (B, columns), their total)."""
+    B, ng, W = part.shape
+    rows, total = [], torch.zeros(W)
+    for b in range(B):
+        row = torch.zeros(W)
+        for w in range(FIN_WARPS):
+            s = torch.zeros(W)
+            for g in range(w, ng, FIN_WARPS):
+                s = s + part[b, g]
+            row = row + s
+        rows.append(row)
+        total = total + row
+    return torch.stack(rows), total
+
+
+def _identity(items):
+    return list(items)
+
+
 def emulate_bwd(dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k,
-                drop, seed):
+                drop, seed, order=_identity):
+    """The backward as the kernels compute it; ``order`` gives the order in
+    which the position tiles and the weight-gradient blocks run."""
     L, B, T, R = xs.shape
     G = w_in.shape[2]
     G2, RS = G // 2, w_og.shape[2]
@@ -148,6 +190,9 @@ def emulate_bwd(dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k,
     tiles = ct.wgrad_tiles(k, R, G, RS - R, cin, True)
     chunk = ct.wgrad_chunk(P, len(tiles), SMS, True)
     assert P % chunk, "the emulation should see a ragged last chunk"
+    chunks = -(-P // chunk)
+    G32 = ct.BIAS_GROUP
+    ng = -(-T // G32)
     dw_in, db_in = torch.zeros(w_in.shape), torch.zeros(b_in.shape)
     dw_og, db_og = torch.zeros(w_og.shape), torch.zeros(b_og.shape)
     dw_cond = None if c is None else torch.zeros(w_cond.shape)
@@ -161,25 +206,34 @@ def emulate_bwd(dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k,
         dz = torch.zeros(B, T, G)
         gated = torch.zeros(B, T, G2)
         dyr = torch.cat([dx * SQRT_HALF, dskips], dim=-1)
+        # bias partials [dz | round(dy)] by batch row and group of 32
+        # positions (NaN where never written: the finish must not read it)
+        bpart = torch.full((B, ng, G + RS), float("nan"))
         # bwd_dz: per tile, z recomputed by passes, dgated by the same passes
-        for b in range(B):
-            for t0 in range(0, T, TILE):
-                n = min(TILE, T - t0)
-                A = _z_operand(xs[l], mask, c, b, t0, d, k, drop, T)
-                Ds = torch.zeros(TILE, RS)
-                Ds[:n] = dyr[b, t0:t0 + n]
-                db_og[l] += Ds.sum(0)
-                for cols, za, zb in _z_passes(A, w, _tile_bias(b_in, gb, l, b), G2):
-                    ta, sb = torch.tanh(za), torch.sigmoid(zb)
-                    gated[b, t0:t0 + n, cols] = (ta * sb)[:n]
-                    dg = _sliced(Ds, w_og[l][cols].t())
-                    dza, dzb = dg * sb * (1 - ta * ta), dg * ta * sb * (1 - sb)
-                    dz[b, t0:t0 + n, cols] = dza[:n]
-                    dz[b, t0:t0 + n, G2 + cols] = dzb[:n]
-                    for cc, v in ((cols, dza), (G2 + cols, dzb)):
-                        db_in[l, cc] += v.sum(0)
-                        if dgb is not None:
-                            dgb[l, b, cc] += v.sum(0)
+        for b, t0 in order([(b, t0) for b in range(B) for t0 in range(0, T, TILE)]):
+            n = min(TILE, T - t0)
+            groups = [(h, t0 // G32 + h) for h in range(TILE // G32)
+                      if t0 + h * G32 < T]
+            A = _z_operand(xs[l], mask, c, b, t0, d, k, drop, T)
+            Ds = torch.zeros(TILE, RS)
+            Ds[:n] = dyr[b, t0:t0 + n]
+            for h, g in groups:
+                bpart[b, g, G:] = Ds[h * G32:h * G32 + G32].sum(0)
+            for cols, za, zb in _z_passes(A, w, _tile_bias(b_in, gb, l, b), G2):
+                ta, sb = torch.tanh(za), torch.sigmoid(zb)
+                gated[b, t0:t0 + n, cols] = (ta * sb)[:n]
+                dg = _sliced(Ds, w_og[l][cols].t())
+                dza, dzb = dg * sb * (1 - ta * ta), dg * ta * sb * (1 - sb)
+                dz[b, t0:t0 + n, cols] = dza[:n]
+                dz[b, t0:t0 + n, G2 + cols] = dzb[:n]
+                for cc, v in ((cols, dza), (G2 + cols, dzb)):
+                    for h, g in groups:
+                        bpart[b, g, cc] = v[h * G32:h * G32 + G32].sum(0)
+        # bwd_finish, the bias sums
+        rows, total = finish_bias(bpart)
+        db_in[l], db_og[l] = total[:G], total[G:]
+        if dgb is not None:
+            dgb[l] = rows[:, :G]
         # bwd_wgrad: output tiles, position chunks, stages of 32 positions
         x_l = xs[l]
         flat = lambda a: a.reshape(P, -1)
@@ -189,16 +243,23 @@ def emulate_bwd(dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k,
         srcs = [(flat(taps), flat(dz), dw_in[l]),
                 (None if c is None else flat(c), flat(dz), None if c is None else dw_cond[l]),
                 (flat(gated), flat(dyr), dw_og[l])]
-        for which, m0, n0 in tiles:
+        # each block's tile to its chunk's slice of the partials
+        wpart = [torch.full((chunks,) + tuple(o.shape), float("nan"))
+                 if o is not None else None for _, _, o in srcs]
+        for which, m0, n0, y in order([t + (y,) for t in tiles for y in range(chunks)]):
             a_src, b_src, out = srcs[which]
             rows = slice(m0, min(m0 + 64, out.shape[0]))
             cols = slice(n0, min(n0 + 256, out.shape[1]))
-            for p0 in range(0, P, chunk):
-                acc = torch.zeros(rows.stop - rows.start, cols.stop - cols.start)
-                for q0 in range(p0, min(p0 + chunk, P), 32):
-                    q = slice(q0, min(q0 + 32, p0 + chunk, P))
-                    acc += a_src[q, rows].t() @ b_src[q, cols]
-                out[rows, cols] += acc
+            p0 = y * chunk
+            acc = torch.zeros(rows.stop - rows.start, cols.stop - cols.start)
+            for q0 in range(p0, min(p0 + chunk, P), 32):
+                q = slice(q0, min(q0 + 32, p0 + chunk, P))
+                acc += a_src[q, rows].t() @ b_src[q, cols]
+            wpart[which][y, rows, cols] = acc
+        # bwd_finish, the weight sums
+        for (_, _, out), part in zip(srcs, wpart):
+            if out is not None:
+                out.copy_(finish_weights(part))
         # bwd_dx: shifted dz resident (zero past T), w_in and w_cond as stored
         dx_new = torch.zeros(B, T, R)
         w_in_t = torch.cat([w_in[l, j * R:(j + 1) * R].t() for j in range(k)], 0)
@@ -217,6 +278,11 @@ def emulate_bwd(dskips, xs, c, gb, w_in, b_in, w_cond, w_og, b_og, *, dils, k,
                     dc[b, t0:t0 + n] += _sliced(Xs[:, (k - 1) * G:], w_cond[l].t())[:n]
         dx = dx_new
     return dx, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og
+
+
+def _shuffled(seed):
+    rs = np.random.RandomState(seed)
+    return lambda items: [items[i] for i in rs.permutation(len(items))]
 
 
 def _rel_err(got, want):
@@ -248,12 +314,44 @@ def test_bwd_tiling_matches_plain(width, cond, glob, drop):
     args = (dskips, xs) + inputs[1:]
     got = emulate_bwd(*args, **kw)
     want = ft.fused_res_stack_bwd_plain(*args, **kw)
-    names = ("dx0", "dc", "dgb", "dw_in", "db_in", "dw_cond", "dw_og", "db_og")
-    for name, g, w in zip(names, got, want):
+    for name, g, w in zip(GRAD_NAMES, got, want):
         if w is None:
             assert g is None, name
             continue
         assert _rel_err(g, w) <= 1e-6, (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("cond,glob,drop", CASES)
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_bwd_ordered_sums_ignore_block_order(width, cond, glob, drop):
+    """The position tiles and the weight-gradient blocks run in two random
+    orders: all eight gradients are the same bits as in launch order (each
+    block writes a partial of its own; the finish adds them in a fixed
+    order)."""
+    inputs, dskips, dils = _inputs(width, cond, glob)
+    kw = dict(dils=dils, k=3, drop=drop, seed=-12345)
+    _, xs = ft.fused_res_stack_fwd_plain(*inputs, **kw)
+    args = (dskips, xs) + inputs[1:]
+    want = emulate_bwd(*args, **kw)
+    for s in (1, 2):
+        got = emulate_bwd(*args, **kw, order=_shuffled(s))
+        for name, g, w in zip(GRAD_NAMES, got, want):
+            assert (g is None and w is None) or torch.equal(g, w), (s, name)
+
+
+def test_finish_covers_every_partial_once():
+    """The emulated finish adds every partial once: the bias rows and total
+    and the weight sums equal their f64 sums to f32 rounding (75 groups
+    over 32 warps leave some warps a group more)."""
+    rs = np.random.RandomState(3)
+    part = torch.from_numpy(rs.randn(3, 75, 40).astype(np.float32))
+    rows, total = finish_bias(part)
+    ref = part.double().sum(1)
+    assert float((rows.double() - ref).abs().max()) < 1e-5
+    assert float((total.double() - ref.sum(0)).abs().max()) < 1e-5
+    wpart = torch.from_numpy(rs.randn(26, 7, 5).astype(np.float32))
+    assert float((finish_weights(wpart).double()
+                  - wpart.double().sum(0)).abs().max()) < 1e-5
 
 
 @pytest.mark.parametrize("bf16", [True, False], ids=["tc", "fma"])

@@ -1,5 +1,5 @@
 // Backward of the WaveNet residual stack for training, for Hopper (sm_90a):
-// three launches per layer, walked from the top layer down.
+// four launches per layer, walked from the top layer down.
 //
 // Replaces: wavenet_vocoder_tpu/ops/pallas_train.py::_make_bwd_kernel (through
 // _bwd_call's pl.pallas_call), on its xs_hbm path without the activation
@@ -20,20 +20,29 @@
 //     points where a block needs another block's results:
 //       1. bwd_dz (blocks over position tiles): recompute z from the x_l
 //          stash, dy = [dx_{l+1} * sqrt(1/2) | dskips], dgated = round(dy) @
-//          w_og^T, dz; writes round(dz) and round(gated) for the next two
-//          launches, and adds the tile's sums of dz (db_in, dgb) and of
-//          round(dy) (db_og) with f32 atomics.
+//          w_og^T, dz; writes round(dz) and round(gated) for the next
+//          launches, and the sums of dz (db_in, dgb) and of round(dy)
+//          (db_og) over each group of 32 positions to the bias partials.
 //       2. bwd_wgrad: the weight gradients round(taps)^T round(dz),
 //          round(c)^T round(dz) and round(gated)^T round(dy), each a product
 //          over all B*T positions, split over position chunks; every block
-//          sums its chunk in registers and adds its output tile to the f32
-//          result with atomics (so the order of the sum changes from run to
-//          run).
-//       3. bwd_dx (blocks over position tiles): the transposed dilated
+//          sums its chunk in registers and stores its output tile to its
+//          chunk's slice of the weight partials.
+//       3. bwd_finish: the ordered sums. Each weight-gradient element is the
+//          sum of its chunk partials in chunk order; each bias column the
+//          sum over batch rows, in row order, of its group partials (dgb
+//          takes the row's sum). No atomics: for fixed inputs the gradients
+//          are the same bits whichever block runs first, as the JAX kernel's
+//          in-order grid gives. The chunk count is fixed by the shapes and
+//          the card's SM count (the wrapper's wgrad_chunk), never by the run.
+//       4. bwd_dx (blocks over position tiles): the transposed dilated
 //          conv dx_l[t] = dx_{l+1}[t] * sqrt(1/2) + mask * sum_j round(dz)[t
 //          + (k-1-j) d] @ w_in_j^T, which reads dz of later positions owned
 //          by other blocks (hence the launch boundary), and dc += round(dz)
 //          @ w_cond^T.
+//     The partials are scratch of the wrapper's, reused by every layer:
+//     (chunks x weight elements of a layer) and (B x ceil(T/32) x (G+R+S)),
+//     ~16 MB and ~5 MB at the flagship's B=8, which the 50 MB L2 holds.
 //   * The rounding points are the TPU kernel's: dgated from round(dy), the
 //     weight gradients and dx from round(dz), the bias gradients from f32 dz
 //     (db_og from round(dy)).
@@ -46,17 +55,18 @@
 //       - bwd_dz_tc shares the forward's z product (a- and b-halves in the same
 //         registers), keeps (tanh a, sigmoid b) in registers across the
 //         dgated product (B = w_og rows as stored), forms dz there, and sums
-//         its columns by warp shuffles before one atomic per column and warp.
-//         It also writes round(dy) (dyr) for the dW_og product.
+//         its columns by warp shuffles: one partial per column and warp (a
+//         warp holds 32 positions). It also writes round(dy) (dyr) for the
+//         dW_og product.
 //       - bwd_wgrad_tc: 64 x 256 output tiles, each block a chunk of
 //         positions (about two blocks per SM), 32 positions a stage in a
 //         4-stage ring; A (position-major inputs) goes through
-//         ldmatrix.trans; one f32 atomic per output element and block.
+//         ldmatrix.trans; one f32 partial per output element and block.
 //       - bwd_dx_tc keeps the k shifted copies of round(dz) (zero past T)
 //         resident and streams w_in and w_cond.
 //     f32 storage runs the FMA-tile kernels bwd_dz, bwd_wgrad, bwd_dx
 //     (TF32 would break the f32 path's 1e-4 limits); a bf16 launch never
-//     takes them.
+//     takes them. bwd_finish serves both.
 //   * bf16 widths: R a multiple of 8, G of 16 and S even (the wrapper
 //     checks).
 //   * Fault builds (a check that the quality net can fail; never a training
@@ -84,6 +94,31 @@ __device__ __forceinline__ float dy_value(const TrainArgs& a, long long pos, int
   if (col < a.R) return a.dx_next ? a.dx_next[pos * a.R + col] * kSqrtHalf : 0.0f;
   return a.dskips[pos * a.S + (col - a.R)];
 }
+
+// The layout of the ordered sums' scratch. wpart: chunk y's partial of the
+// layer's weight gradients flattened as [dW_in | dW_cond | dW_og] (wn
+// elements) at y * wn. bpart: the sums of [dz | round(dy)] (bw columns) over
+// the positions [32 g, 32 g + 32) of batch row b at (b * ng + g) * bw.
+constexpr int kGroup = 32;               // positions a bias partial sums
+struct Partials {
+  long long off_cond, off_og, wn;
+  int ng, bw;
+  __host__ __device__ explicit Partials(const TrainArgs& a) {
+    off_cond = (long long)a.k * a.R * a.G;
+    off_og = off_cond + (long long)(a.c ? a.cin : 0) * a.G;
+    wn = off_og + (long long)(a.G / 2) * (a.R + a.S);
+    ng = (a.T + kGroup - 1) / kGroup;
+    bw = a.G + a.R + a.S;
+  }
+  // the bias partials of batch row b from the group holding position t0
+  __device__ float* bias(const TrainArgs& a, int b, int t0) const {
+    return a.bpart + ((long long)b * ng + t0 / kGroup) * bw;
+  }
+  // where chunk y's partial of product `which` (0 dW_in, 1 dW_cond, 2 dW_og) starts
+  __device__ float* weight(const TrainArgs& a, int y, int which) const {
+    return a.wpart + (long long)y * wn + (which == 0 ? 0 : which == 1 ? off_cond : off_og);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads) bwd_dz(TrainArgs a) {
   extern __shared__ float smem[];
@@ -129,23 +164,27 @@ __global__ void __launch_bounds__(kThreads) bwd_dz(TrainArgs a) {
   }
   __syncthreads();
 
-  // round(dz) out; f32 column sums of dz -> db_in, dgb
-  for (int col = threadIdx.x; col < G; col += kThreads) {
-    float sum = 0.0f;
-    for (int m = 0; m < rows; ++m) {
-      const float v = zs[m * G + col];
-      sum += v;
-      static_cast<float*>(a.dz)[((long long)b * a.T + t0 + m) * G + col] = (v);
+  // round(dz) out; f32 column sums of dz and of round(dy) over each group of
+  // 32 positions -> the bias partials
+  const Partials pt(a);
+  float* part = pt.bias(a, b, t0);
+  for (int col = threadIdx.x; col < G; col += kThreads)
+    for (int h = 0; h * kGroup < rows; ++h) {
+      float sum = 0.0f;
+      for (int m = h * kGroup; m < min(rows, h * kGroup + kGroup); ++m) {
+        const float v = zs[m * G + col];
+        sum += v;
+        static_cast<float*>(a.dz)[((long long)b * a.T + t0 + m) * G + col] = (v);
+      }
+      part[h * pt.bw + col] = sum;
     }
-    atomicAdd(&a.db_in[a.l * G + col], sum);
-    if (a.dgb) atomicAdd(&a.dgb[((long long)a.l * a.B + b) * G + col], sum);
-  }
-  // column sums of round(dy) -> db_og
-  for (int col = threadIdx.x; col < RS; col += kThreads) {
-    float sum = 0.0f;
-    for (int m = 0; m < rows; ++m) sum += (dy_value(a, (long long)b * a.T + t0 + m, col));
-    atomicAdd(&a.db_og[a.l * RS + col], sum);
-  }
+  for (int col = threadIdx.x; col < RS; col += kThreads)
+    for (int h = 0; h * kGroup < rows; ++h) {
+      float sum = 0.0f;
+      for (int m = h * kGroup; m < min(rows, h * kGroup + kGroup); ++m)
+        sum += (dy_value(a, (long long)b * a.T + t0 + m, col));
+      part[h * pt.bw + G + col] = sum;
+    }
 }
 
 // Weight gradients of layer l. blockIdx.x enumerates the output tiles of the
@@ -201,12 +240,10 @@ __global__ void __launch_bounds__(kThreads) bwd_wgrad(TrainArgs a) {
         if (which == 2) return (dy_value(a, pos, col));
         return ldf(a.dz, pos * G + col);
       });
-  float* out = which == 0 ? a.dw_in + (long long)a.l * kR * G
-             : which == 1 ? a.dw_cond + (long long)a.l * a.cin * G
-                          : a.dw_og + (long long)a.l * G2 * RS;
+  float* out = Partials(a).weight(a, blockIdx.y, which);
   tile_store(acc, [&](int m, int n, float v) {
     const int row = m0 + m, col = n0 + n;
-    if (row < M && col < N) atomicAdd(&out[(long long)row * N + col], v);
+    if (row < M && col < N) out[(long long)row * N + col] = v;
   });
 }
 
@@ -326,15 +363,22 @@ __global__ void __launch_bounds__(tc::Tile<kDzRows>::kThreads, 1) bwd_dz_tc(Trai
     }
   }
   tc::finish_z_operand<kDzRows>(a, L.z, b, t0, As);
-  // column sums of round(dy) -> db_og
-  for (int col = threadIdx.x; col < RS; col += DzTile::kThreads) {
-    float sum = 0.0f;
-    for (int m = 0; m < kDzRows; ++m) sum += __bfloat162float(Ds[m * L.d_ld + col]);
-    atomicAdd(&a.db_og[a.l * RS + col], sum);
-  }
+  // column sums of round(dy) over each group of 32 positions -> the bias
+  // partials (rows past T hold 0; groups wholly past T are not stored)
+  const Partials pt(a);
+  float* part = pt.bias(a, b, t0);
+  for (int col = threadIdx.x; col < RS; col += DzTile::kThreads)
+    for (int h = 0; h < kDzRows / kGroup && t0 + h * kGroup < a.T; ++h) {
+      float sum = 0.0f;
+      for (int m = h * kGroup; m < h * kGroup + kGroup; ++m)
+        sum += __bfloat162float(Ds[m * L.d_ld + col]);
+      part[h * pt.bw + G + col] = sum;
+    }
 
   const bf16* w_og = static_cast<const bf16*>(a.w_og) + (long long)a.l * G2 * RS;
-  float* dgb = a.dgb ? a.dgb + ((long long)a.l * a.B + b) * G : nullptr;
+  // this warp's 32 positions: its partials of dz's column sums
+  float* wpartial = part + fr.wm * pt.bw;
+  const bool group_live = t0 + kGroup * fr.wm < a.T;
   for (int c0 = 0; c0 < G2; c0 += tc::kZCols) {
     float acc[2][8][4];
     tc::z_product<kDzRows, kDzBK, kStages>(acc, a, L.z, As, ring, c0);
@@ -386,7 +430,7 @@ __global__ void __launch_bounds__(tc::Tile<kDzRows>::kThreads, 1) bwd_dz_tc(Trai
           acc[mi][j][v] = d * sb * (1.0f - ta * ta);
           acc[mi][j + 4][v] = d * ta * sb * (1.0f - sb);
         }
-    // round(dz) out; f32 column sums -> db_in, dgb (rows past T hold 0)
+    // round(dz) out; f32 column sums -> the bias partials (rows past T hold 0)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gc = c0 + 32 * fr.wn + 8 * (j & 3) + 2 * fr.t;
@@ -401,13 +445,9 @@ __global__ void __launch_bounds__(tc::Tile<kDzRows>::kThreads, 1) bwd_dz_tc(Trai
                      acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
         }
       const float2 sum = tc::warp_col_sum<8>(acc, j);
-      if (lane < 4 && gc < G2) {
-        atomicAdd(&a.db_in[a.l * G + col], sum.x);
-        atomicAdd(&a.db_in[a.l * G + col + 1], sum.y);
-        if (dgb) {
-          atomicAdd(&dgb[col], sum.x);
-          atomicAdd(&dgb[col + 1], sum.y);
-        }
+      if (lane < 4 && gc < G2 && group_live) {
+        wpartial[col] = sum.x;
+        wpartial[col + 1] = sum.y;
       }
     }
   }
@@ -517,9 +557,7 @@ __global__ void __launch_bounds__(kThreads) bwd_wgrad_tc(TrainArgs a) {
       acc, nullptr, kWgAld, (int)((pend - p0 + kWgBK - 1) / kWgBK), ring, kWgStage,
       kWgBK * kWgAld, kWgBld, load, prep, [&](int j) { return 64 * fr.wn + 8 * j; });
 
-  float* out = which == 0 ? a.dw_in + (long long)a.l * kR * G
-             : which == 1 ? a.dw_cond + (long long)a.l * cin * G
-                          : a.dw_og + (long long)a.l * G2 * RS;
+  float* out = Partials(a).weight(a, blockIdx.y, which);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -527,8 +565,58 @@ __global__ void __launch_bounds__(kThreads) bwd_wgrad_tc(TrainArgs a) {
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
         const int row = m0 + fr.row(mi, v), col = n0 + 64 * fr.wn + 8 * j + 2 * fr.t + (v & 1);
-        if (row < M && col < N) atomicAdd(&out[(long long)row * N + col], acc[mi][j][v]);
+        if (row < M && col < N) out[(long long)row * N + col] = acc[mi][j][v];
       }
+}
+
+// bwd_finish: the ordered sums of layer l. Blocks [0, wblocks) take one
+// weight-gradient element a thread and add its `chunks` partials in chunk
+// order. The blocks after them take 32 bias columns each ([dz | round(dy)]:
+// db_in and dgb, then db_og), a lane a column: for each batch row in turn,
+// warp w adds the row's groups w, w + 32, ... in order, and warp 0 adds the
+// 32 warp sums in warp order (the row's sum: dgb) and the rows' sums in row
+// order (db_in, db_og).
+constexpr int kFinThreads = 1024, kFinWarps = kFinThreads / 32;
+
+__global__ void __launch_bounds__(kFinThreads) bwd_finish(TrainArgs a, int wblocks, int chunks) {
+  const Partials pt(a);
+  if ((int)blockIdx.x < wblocks) {
+    const long long e = (long long)blockIdx.x * kFinThreads + threadIdx.x;
+    if (e >= pt.wn) return;
+    float s = 0.0f;
+    for (int y = 0; y < chunks; ++y) s += a.wpart[(long long)y * pt.wn + e];
+    float* out = e < pt.off_cond ? a.dw_in + a.l * pt.off_cond + e
+               : e < pt.off_og   ? a.dw_cond + a.l * (pt.off_og - pt.off_cond) + (e - pt.off_cond)
+                                 : a.dw_og + a.l * (pt.wn - pt.off_og) + (e - pt.off_og);
+    *out = s;
+    return;
+  }
+  __shared__ float red[kFinWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = ((int)blockIdx.x - wblocks) * 32 + lane;
+  const bool live = col < pt.bw;
+  float total = 0.0f;
+  for (int b = 0; b < a.B; ++b) {
+    float s = 0.0f;
+    if (live)
+      for (int g = warp; g < pt.ng; g += kFinWarps)
+        s += a.bpart[((long long)b * pt.ng + g) * pt.bw + col];
+    red[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0) {
+      float row = 0.0f;
+      for (int w = 0; w < kFinWarps; ++w) row += red[w][lane];
+      if (live && col < a.G && a.dgb) a.dgb[((long long)a.l * a.B + b) * a.G + col] = row;
+      total += row;
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && live) {
+    if (col < a.G)
+      a.db_in[a.l * a.G + col] = total;
+    else
+      a.db_og[a.l * (a.R + a.S) + (col - a.G)] = total;
+  }
 }
 
 // bwd_dx_tc: the k shifted copies of round(dz) for the tile's positions
@@ -723,9 +811,10 @@ cudaError_t launch_dx(const TrainArgs& a, cudaStream_t s) {
 
 }  // namespace
 
-// The three kernels of layer a->l's backward, in the order they must run:
-// the tensor-core kernels for bf16 storage, the FMA kernels for f32. Each
-// returns a CUDA error code, 0 on a clean launch.
+// The four kernels of layer a->l's backward, in the order they must run:
+// the tensor-core kernels for bf16 storage, the FMA kernels for f32, and the
+// finish of the ordered sums for both. Each returns a CUDA error code, 0 on a
+// clean launch.
 extern "C" int wn_train_bwd_dz(const TrainArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!a->bf16) return (int)launch_dz(*a, s);
@@ -739,6 +828,16 @@ extern "C" int wn_train_bwd_wgrad(const TrainArgs* a, void* stream) {
   const long long P = (long long)a->B * a->T;
   const dim3 grid(tl.t_in + tl.t_cond + tl.t_og, (unsigned)((P + a->chunk - 1) / a->chunk));
   return (int)launch_tc(bwd_wgrad_tc, grid, kThreads, (size_t)kWgStages * kWgStage, *a, s);
+}
+
+extern "C" int wn_train_bwd_finish(const TrainArgs* a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Partials pt(*a);
+  const long long P = (long long)a->B * a->T;
+  const int chunks = (int)((P + a->chunk - 1) / a->chunk);
+  const int wblocks = (int)((pt.wn + kFinThreads - 1) / kFinThreads);
+  bwd_finish<<<wblocks + (pt.bw + 31) / 32, kFinThreads, 0, s>>>(*a, wblocks, chunks);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int wn_train_bwd_dx(const TrainArgs* a, void* stream) {

@@ -38,11 +38,13 @@ struct TrainArgs {
   void* dyr;              // bwd, bf16 path: (B, T, R+S) storage, round(dy) of layer l
   float* dc;              // bwd: (B, T, cin) f32, accumulated over layers, or null
   float* dgb;             // bwd: (L, B, G) f32, or null
-  float* dw_in;           // bwd: (L, k*R, G) f32 (atomic sums)
+  float* dw_in;           // bwd: (L, k*R, G) f32
   float* db_in;           // bwd: (L, G)
   float* dw_cond;         // bwd: (L, cin, G), or null
   float* dw_og;           // bwd: (L, G/2, R+S)
   float* db_og;           // bwd: (L, R+S)
+  float* wpart;           // bwd scratch: (chunks, Wn) f32 weight-gradient partials
+  float* bpart;           // bwd scratch: (B, ceil(T/32), G+R+S) f32 bias partials
   int B, T, R, G, S, cin, k, d, L, l, H;
   int has_drop;
   unsigned int seed;      // dropout seed (int32 bits)

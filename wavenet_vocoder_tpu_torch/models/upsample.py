@@ -44,6 +44,35 @@ class Stretch2d(nn.Module):
         return torch.repeat_interleave(x, self.scale, dim=-1)
 
 
+class _SmoothingConv2d(torch.autograd.Function):
+    """``F.conv2d`` of a (B, 1, H, W) input by a (1, 1, kf, kt) filter, whose
+    filter gradient is summed tap by tap with torch's reductions: for this
+    shape cuDNN's deterministic filter-gradient algorithm is slow (11 ms a
+    layer at the flagship's B=8 crop on an H100), and its others add in an
+    order that changes from run to run. The input gradient is cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding):
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return F.conv2d(x, w, None, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, w, dy,
+                                            padding=ctx.padding)
+        if ctx.needs_input_grad[1]:
+            (pf, pt), (kf, kt), (H, W) = ctx.padding, w.shape[2:], dy.shape[2:]
+            xp = F.pad(x, (pt, pt, pf, pf))
+            dw = torch.stack([(xp[:, :, i:i + H, j:j + W] * dy).sum()
+                              for i in range(kf) for j in range(kt)])
+            dw = dw.view_as(w)
+        return dx, dw, None
+
+
 class WNConv2d(_WeightNormMixin, nn.Module):
     """Weight-normed, bias-free single-channel smoothing conv, filled with
     1/prod(kernel) (reference: upsample.py:42-44)."""
@@ -55,8 +84,7 @@ class WNConv2d(_WeightNormMixin, nn.Module):
         self.padding = ((freq_k - 1) // 2, (time_k - 1) // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.effective_weight(), None,
-                        padding=self.padding)
+        return _SmoothingConv2d.apply(x, self.effective_weight(), self.padding)
 
 
 class UpsampleNetwork(nn.Module):

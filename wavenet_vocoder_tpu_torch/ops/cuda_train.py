@@ -1,7 +1,7 @@
 """ctypes wrappers of the residual-stack training kernels.
 
 ``train_fwd`` launches ``csrc/train_fwd.cu`` once per layer and
-``train_bwd`` launches the three kernels of ``csrc/train_bwd.cu`` per layer,
+``train_bwd`` launches the four kernels of ``csrc/train_bwd.cu`` per layer,
 top layer first. Both take CUDA tensors only and have the signatures of
 their plain versions in ``ops/fused_train.py``, which ``FusedResStack``
 uses for CPU tensors. Outputs and scratch are allocated here with
@@ -11,9 +11,10 @@ as stored: no transposed copies, and padded ones only at widths that the
 tensor-core kernels do not cut into fragments (``kernel_widths``).
 
 The kernels dispatch by storage dtype: bf16 (the training path) runs the
-tensor-core kernels, f32 the FMA-tile kernels. Each wrapper counts its
-kernel launches in ``.launches`` and, split by design, in ``.tc_launches``
-(bf16) and ``.fma_launches`` (f32).
+tensor-core kernels, f32 the FMA-tile kernels (the backward's finish of its
+ordered sums serves both). Each wrapper counts its kernel launches in
+``.launches`` and, split by storage dtype, in ``.tc_launches`` (bf16) and
+``.fma_launches`` (f32).
 
 Importing this module builds nothing: the sources compile with nvcc at the
 first launch (``kernels/build.py``).
@@ -63,7 +64,7 @@ class TrainArgs(ctypes.Structure):
         "xs_l", "xres", "xnext", "xs_next", "c", "gb", "w_in", "b_in",
         "w_cond", "w_og", "b_og", "skips", "dskips", "dx_next", "dx_out",
         "dz", "gated", "dyr", "dc", "dgb", "dw_in",
-        "db_in", "dw_cond", "dw_og", "db_og")]
+        "db_in", "dw_cond", "dw_og", "db_og", "wpart", "bpart")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "R", "G", "S", "cin", "k", "d", "L", "l", "H",
             "has_drop")]
@@ -279,6 +280,11 @@ train_fwd.launches = train_fwd.tc_launches = train_fwd.fma_launches = 0
 WGRAD_TILE = {True: (64, 256), False: (64, 128)}
 WGRAD_BLOCKS_PER_SM = {True: 2, False: 4}
 WGRAD_STAGE = 32          # positions a stage of bwd_wgrad_tc holds
+BIAS_GROUP = 32           # positions a bias partial of bwd_dz sums
+# the backward's kernels of a layer, in launch order
+BWD_KERNELS = ("wn_train_bwd_dz", "wn_train_bwd_wgrad", "wn_train_bwd_finish",
+               "wn_train_bwd_dx")
+BWD_LAUNCHES_PER_LAYER = len(BWD_KERNELS)
 
 
 def wgrad_tiles(k: int, R: int, G: int, S: int, cin: int, bf16: bool):
@@ -312,8 +318,10 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
     stash xs, with the forward's dropout key (seed, row offset b0).
     Returns (dx0, dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og),
     all f32; dc, dgb and dw_cond are None where c, gb are absent. The
-    weight and bias gradients are f32 atomic sums. ``_defines`` launches a
-    variant build (``NO_PRODUCTS``); the module's FAULT adds its defines."""
+    weight and bias gradients are ordered sums of f32 partials (position
+    chunks, groups of 32 positions), so the same inputs give the same bits
+    on every run. ``_defines`` launches a variant build (``NO_PRODUCTS``);
+    the module's FAULT adds its defines."""
     L, B, T, R = xs.shape
     pad = _padding(R, w_in, w_og, k)
     if pad is not None:     # run at the kernels' widths, slice back
@@ -340,24 +348,29 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
     dyr = (torch.empty(B, T, R + S, dtype=dtype, device=dev) if args.bf16
            else None)
     dc = torch.zeros(B, T, cin, **f32) if c is not None else None
-    dgb = torch.zeros(L, B, G, **f32) if gb is not None else None
-    dw_in = torch.zeros(L, k * R, G, **f32)
-    db_in = torch.zeros(L, G, **f32)
-    dw_cond = torch.zeros(L, cin, G, **f32) if c is not None else None
-    dw_og = torch.zeros(L, G2, R + S, **f32)
-    db_og = torch.zeros(L, R + S, **f32)
+    # written whole by each layer's finish
+    dgb = torch.empty(L, B, G, **f32) if gb is not None else None
+    dw_in = torch.empty(L, k * R, G, **f32)
+    db_in = torch.empty(L, G, **f32)
+    dw_cond = torch.empty(L, cin, G, **f32) if c is not None else None
+    dw_og = torch.empty(L, G2, R + S, **f32)
+    db_og = torch.empty(L, R + S, **f32)
     bf16 = bool(args.bf16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     args.chunk = wgrad_chunk(B * T, len(wgrad_tiles(k, R, G, S, cin, bf16)),
                              sms, bf16)
+    # the ordered sums' partials, reused by every layer (csrc/train_bwd.cu)
+    chunks = -(-B * T // args.chunk)
+    wpart = torch.empty(chunks * (k * R * G + cin * G + G2 * (R + S)), **f32)
+    bpart = torch.empty(B * -(-T // BIAS_GROUP) * (G + R + S), **f32)
     for name, a in (("dskips", dskips), ("dz", dz), ("gated", gated),
                     ("dyr", dyr), ("dc", dc), ("dgb", dgb),
                     ("dw_in", dw_in), ("db_in", db_in), ("dw_cond", dw_cond),
-                    ("dw_og", dw_og), ("db_og", db_og)):
+                    ("dw_og", dw_og), ("db_og", db_og), ("wpart", wpart),
+                    ("bpart", bpart)):
         setattr(args, name, _ptr(a))
     defines = tuple(_defines) + FAULTS[FAULT]
-    kernels = [_fn("train_bwd", n, defines) for n in
-               ("wn_train_bwd_dz", "wn_train_bwd_wgrad", "wn_train_bwd_dx")]
+    kernels = [_fn("train_bwd", n, defines) for n in BWD_KERNELS]
     for l in range(L - 1, -1, -1):
         args.l, args.d = l, dils[l]
         args.xs_l = _ptr(xs[l])

@@ -265,14 +265,16 @@ def main(argv=None) -> int:
         cuda_train.set_fault("none")
 
 
-def train(cfg: Config, train_data, steps: int, device: torch.device):
+def train(cfg: Config, train_data, steps: int, device: torch.device,
+          dropout_seed: int = 0):
     """Train a fresh model (init from ``cfg.seed``) for ``steps`` steps on
     the pool of random crops, staged on the device and cycled in random
-    order (the JAX script's, bit for bit). Returns (state, first loss, final
-    loss, seconds)."""
+    order (the JAX script's, bit for bit); the steps' dropout seeds come
+    from a generator seeded ``dropout_seed``. Returns (state, first loss,
+    final loss, seconds)."""
     state = create_train_state(cfg, device=device)
     step_fn, _ = make_train_step(cfg)
-    gen = torch.Generator().manual_seed(0)     # the steps' dropout seeds
+    gen = torch.Generator().manual_seed(dropout_seed)
     srs = np.random.RandomState(1)
     pool = [to_device(b, device, pin_memory=False)
             for b in batch_pool(cfg, train_data, srs)]

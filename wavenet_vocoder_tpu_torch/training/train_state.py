@@ -312,8 +312,14 @@ def make_train_step(cfg: Config, group=None):
                   for p in g["params"]]
         for p in params:
             p.grad = None
-        loss = loss_fn(model, batch, seed, True)
-        loss.backward()
+        # cuDNN's deterministic algorithms (the fused stack's kernels sum in
+        # a fixed order): one state, batch and generator give one result
+        # on a card, as the JAX step does
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                         deterministic=True, allow_tf32=cudnn.allow_tf32):
+            loss = loss_fn(model, batch, seed, True)
+            loss.backward()
         grads = []
         for p in params:
             if p.grad is None:
@@ -323,9 +329,9 @@ def make_train_step(cfg: Config, group=None):
         partitioned, model_group = _partitions(state.optimizer)
         if model_group is not None:
             # every rank of the model group holds all of a replicated
-            # tensor's gradient; kernels whose sums use atomics make the
-            # copies differ in their last bits, so they are averaged: the
-            # replicas stay bitwise equal
+            # tensor's gradient; the copies are averaged so that the
+            # replicas stay bitwise equal even where a library's sums
+            # differ between ranks in their last bits
             rep = [g for g, cut in zip(grads, partitioned) if not cut]
             _all_reduce_into(rep, None, model_group)
             torch._foreach_div_(rep, dist.get_world_size(model_group))
