@@ -1,0 +1,2 @@
+"""The share of the traced window in which nothing ran on the card (%)."""
+from benchmark.readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""Analytic forward FLOPs of the audio served in the untraced rest of the
+window over its seconds and the bf16 peak (%)."""
+from benchmark import readers, yardstick
+
+
+def read(ctx):
+    return readers.mfu_pct(ctx, yardstick.forward_flops_per_sample(ctx["keys"]))
