@@ -42,7 +42,7 @@ Phases (each failure ends the run with a non-zero exit):
                 gradient (see STEP_TOL); then 10 kernel steps, whose launch
                 counts are the kernels' launches on the main path, lower
                 the loss; every one of their launches must be a tensor-core
-                launch (``.tc_launches``); then each training path (the
+                launch (``train_*.tc_launches``); then each training path (the
                 kernels and the layer loop, dropout 0.05) takes 2 steps
                 twice from one state, batch and generator: loss,
                 parameters, optimizer state and EMA bitwise equal; and the
@@ -581,7 +581,6 @@ def phase_serving(report, batches):
     import numpy as np
     import torch
 
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     from wavenet_vocoder_tpu_torch.synthesis import Synthesizer
 
     # a small model through the same entry point agrees with the eager
@@ -608,7 +607,7 @@ def phase_serving(report, batches):
     frames = cfg.sample_rate // hop
     T = frames * hop
     rs = np.random.RandomState(0)
-    cg.generate_steps.launches = 0
+    _set_launches({"generate.launches": 0})
     requests = []
     for i, B in enumerate(batches):
         mel = rs.randn(B, frames, cfg.num_mels).astype(np.float32)
@@ -634,7 +633,7 @@ def phase_serving(report, batches):
               f"{r['per_step_us']:.1f}us (device events), std {r['std']:.3f}")
         if not ok:
             fail(f"request {i}: bad output shape/values {wav.shape}")
-    launches = cg.generate_steps.launches
+    launches = _launches("generate.launches")
     print(f"[serve] kernel launches during serving: {launches}")
     if launches <= 0:
         fail("serving did not launch the generation kernel")
@@ -695,11 +694,11 @@ def _time_launch(tag, packed, spec, inputs, iters):
         fn(packed, spec, ring, x0.clone(), out, cond, None, t0=0, seed=1,
            deterministic=False)
 
-    saved = cg.generate_steps.launches
+    saved = _launches("generate.launches")
     ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=iters)
     plain_ms = cuda_time_ms(lambda: launch(cg.generate_steps_plain),
                             iters=1, warmup=1)
-    cg.generate_steps.launches = saved
+    _set_launches({"generate.launches": saved})
     b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, peak("bf16"))
     cs = cg.pick_cluster(spec, B)
     print(f"{tag} B={B} n={n} bf16 cluster {cs[0]}x{cs[1]}: {ms:.3f} "
@@ -719,7 +718,7 @@ def phase_timing(report, model):
     B, n = 256, cg.DEFAULT_CHUNK
     packed = cg.pack_weights(model, dtype=torch.bfloat16)
     cond, x0, ring, out = inputs = _launch_inputs(spec, B, n)
-    saved = cg.generate_steps.launches
+    saved = _launches("generate.launches")
     timing = _time_launch("[time] kernel", packed, spec, inputs, iters=5)
 
     def timed(Bs, **kw):
@@ -776,7 +775,8 @@ def phase_timing(report, model):
           + ", ".join(f"{n} {c}" for n, c in zip(names, per_layer))
           + f"; head {gaps[1 + 4 * L]} + {gaps[2 + 4 * L]}, sampler "
           f"{gaps[3 + 4 * L]}; step {trace['total']}")
-    cg.generate_steps.launches = saved   # timing launches are not the path's
+    # timing launches are not the path's
+    _set_launches({"generate.launches": saved})
     report["timing"] = dict(timing, sweep=sweep, no_products=no_products,
                             trace=trace)
     return dict(name="wn_generate", route="cuda", source=KERNEL_SOURCE,
@@ -1115,14 +1115,14 @@ def phase_training(report):
     torch.cuda.empty_cache()
     state, train_step, agree = _kernel_vs_plain_step(cfg, batch, "bfloat16")
 
-    wrappers = {"wn_train_fwd": ct.train_fwd, "wn_train_bwd": ct.train_bwd}
-    for w in wrappers.values():
-        w.launches = w.tc_launches = w.fma_launches = 0
+    wrappers = {"wn_train_fwd": "train_fwd", "wn_train_bwd": "train_bwd"}
+    _set_launches({k: 0 for k in TRAIN_COUNTERS})
     losses = []
     for _ in range(TRAIN_STEPS):
         losses.append(float(train_step(state, batch)["loss"]))
-    launches = {n: w.launches for n, w in wrappers.items()}
-    tc_launches = {n: w.tc_launches for n, w in wrappers.items()}
+    launches = {n: _launches(w + ".launches") for n, w in wrappers.items()}
+    tc_launches = {n: _launches(w + ".tc_launches")
+                   for n, w in wrappers.items()}
     L = state.model.spec.layers
     expected = {"wn_train_fwd": L * TRAIN_STEPS,
                 "wn_train_bwd": ct.BWD_LAUNCHES_PER_LAYER * L * TRAIN_STEPS}
@@ -1297,8 +1297,7 @@ def phase_train_timing(report, state, train_step):
     from wavenet_vocoder_tpu_torch.ops import fused_train as ft
     cfg = Config(fused_train=True)
     T = cfg.max_time_steps
-    wrappers = (ct.train_fwd, ct.train_bwd)
-    saved = [(w.launches, w.tc_launches, w.fma_launches) for w in wrappers]
+    saved = {k: _launches(k) for k in TRAIN_COUNTERS}
     steps = {}
     for B in (8, 32):
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -1359,8 +1358,7 @@ def phase_train_timing(report, state, train_step):
     del inputs, dskips, args, xs
     torch.cuda.empty_cache()
     yard = cublas_yardstick_ms(spec, B, T)
-    for w, counts in zip(wrappers, saved):
-        w.launches, w.tc_launches, w.fma_launches = counts
+    _set_launches(saved)
     for name in TRAIN_KERNELS:
         b = bounds[name]
         print(f"[train-time] {name} B={B} T={T} bf16: {ms[name]:.3f} ms/step"
@@ -1638,15 +1636,14 @@ def phase_evaluation(report):
     from wavenet_vocoder_tpu_torch.config import Config
     from wavenet_vocoder_tpu_torch.dsp import audio
     from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     from wavenet_vocoder_tpu_torch.synthesis import Synthesizer
     from wavenet_vocoder_tpu_torch.training import checkpoint as ckpt
     from wavenet_vocoder_tpu_torch.training.train_state import (
         create_train_state)
     cfg = Config()
     sr, hop = cfg.sample_rate, cfg.hop_size
-    cg.generate_steps.launches = 0
-    mt.logmelspectrogram_cuda.launches = 0
+    _set_launches({"generate.launches": 0})
+    _set_launches({"mel.launches": 0})
     t_phase = time.perf_counter()
     # under build/, kept after the phase: phase 12 evaluates its dump again
     with _work_dir("chip_smoke_eval") as tmp:
@@ -1684,7 +1681,7 @@ def phase_evaluation(report):
         names = open(os.path.join(out, "eval_manifest.txt")).read().split()
         if len(names) != EVAL_UTTS or min(stds) <= 0.01:
             fail(f"cli.evaluate: manifest {names}, gen std {stds}")
-        launches_eval = cg.generate_steps.launches
+        launches_eval = _launches("generate.launches")
         print(f"[evaluation] cli.evaluate: {EVAL_UTTS} utterances of "
               f"{feats[0].shape[0]} frames in one batch, {eval_s:.2f} s, "
               f"{launches_eval} generation launches, gen std min "
@@ -1723,8 +1720,8 @@ def phase_evaluation(report):
         ev[2].record()
         torch.cuda.synchronize()
         mel_ms, gen_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-        launches = dict(wn_logmel=mt.logmelspectrogram_cuda.launches,
-                        wn_generate=cg.generate_steps.launches)
+        launches = dict(wn_logmel=_launches("mel.launches"),
+                        wn_generate=_launches("generate.launches"))
         mel_np = mel.cpu().numpy()
         plain_err = float((mel - mt.logmelspectrogram_torch(y, cfg)
                            ).abs().max())
@@ -1776,7 +1773,6 @@ def phase_streaming(report):
 
     from wavenet_vocoder_tpu_torch.config import Config
     from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     from wavenet_vocoder_tpu_torch.streaming import StreamingSynthesizer
     from wavenet_vocoder_tpu_torch.synthesis import Synthesizer, pad_mel_context
     cfg, model = _flagship_model("cuda", 0)
@@ -1790,12 +1786,12 @@ def phase_streaming(report):
 
     stream = StreamingSynthesizer(model, cfg, generator=gen(), batch=STREAM_B,
                                   engine="cuda")
-    before = cg.generate_steps.launches
+    before = _launches("generate.launches")
     t0 = time.perf_counter()
     streamed = _feed_all(stream, mel, STREAM_FEED)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    launches = cg.generate_steps.launches - before
+    launches = _launches("generate.launches") - before
 
     # Same kernel, same carried state, random numbers keyed on the absolute
     # step: the streamed audio must equal the offline audio exactly.
@@ -1946,11 +1942,14 @@ def phase_loop(report):
                     "--checkpoint-dir", exp, "--preset", preset,
                     "--max-train-steps", str(LOOP_STEPS)], "cli.train")
     cli_s = time.perf_counter() - t0
-    line = [x for x in out.splitlines()
-            if x.startswith("[train] kernel launches ")]
+    line = [x for x in out.splitlines() if x.startswith("[train] trace ")]
     if not line:
-        fail("cli.train printed no kernel launches:\n" + out[-2000:])
-    counts = json.loads(line[-1][len("[train] kernel launches "):])
+        fail("cli.train printed no trace line:\n" + out[-2000:])
+    trace = json.loads(line[-1][len("[train] trace "):])
+    c = trace["counters"]
+    counts = {n: {k: c.get(f"{n}.{k}", 0) for k in
+                  ("launches", "tc_launches", "fma_launches")}
+              for n in ("train_fwd", "train_bwd", "generate")}
     metrics = _read_metrics(os.path.join(exp, "log", "metrics.jsonl"))
     logged = [metrics["train/loss"][k] for k in sorted(metrics["train/loss"])]
     n_dev = len(metrics.get("dev/loss", {}))
@@ -1973,6 +1972,10 @@ def phase_loop(report):
                  "FMA launch")
     if counts["generate"]["launches"] <= 0:
         fail("the eval audio did not launch the generation kernel")
+    print("[loop] cli.train spans (count, mean ms): "
+          + ", ".join(f"{k} {v['count']} {v['mean_ms']:.3f}"
+                      for k, v in trace["spans"].items()), flush=True)
+    report["loop_spans"] = trace["spans"]
     for step in (15, LOOP_STEPS):
         for ema in (False, True):
             if not os.path.exists(ckpt.checkpoint_path(exp, step, ema=ema)):
@@ -2121,28 +2124,39 @@ def _free_port():
         return s.getsockname()[1]
 
 
+TRAIN_COUNTERS = tuple(f"{n}.{k}" for n in ("train_fwd", "train_bwd")
+                       for k in ("launches", "tc_launches", "fma_launches"))
+
+
+def _launches(name: str) -> int:
+    """A launch counter of the port's tracing store
+    (``utils.profiling.counters``), e.g. ``generate.launches``."""
+    from wavenet_vocoder_tpu_torch.utils import profiling
+    return profiling.counters().get(name, 0)
+
+
+def _set_launches(values: dict) -> None:
+    """Set the store's counters named in ``values`` to their values: a
+    phase takes its timing launches back out of the path's counts."""
+    from wavenet_vocoder_tpu_torch.utils import profiling
+    now = profiling.counters()
+    for name, v in values.items():
+        profiling.count(name, v - now.get(name, 0))
+
+
 def kernel_counts():
     """Every kernel wrapper's launch counters of the port, by name."""
-    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
-    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
-    out = {n: dict(launches=w.launches, tc_launches=w.tc_launches,
-                   fma_launches=w.fma_launches)
-           for n, w in (("train_fwd", ct.train_fwd),
-                        ("train_bwd", ct.train_bwd))}
-    out["generate"] = dict(launches=cg.generate_steps.launches)
-    out["logmel"] = dict(launches=mt.logmelspectrogram_cuda.launches)
+    out = {n: {k: _launches(f"{n}.{k}")
+               for k in ("launches", "tc_launches", "fma_launches")}
+           for n in ("train_fwd", "train_bwd")}
+    out["generate"] = dict(launches=_launches("generate.launches"))
+    out["logmel"] = dict(launches=_launches("mel.launches"))
     return out
 
 
 def zero_kernel_counts():
-    from wavenet_vocoder_tpu_torch.dsp import mel_torch as mt
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
-    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
-    for w in (ct.train_fwd, ct.train_bwd):
-        w.launches = w.tc_launches = w.fma_launches = 0
-    cg.generate_steps.launches = 0
-    mt.logmelspectrogram_cuda.launches = 0
+    _set_launches(dict({k: 0 for k in TRAIN_COUNTERS},
+                       **{"generate.launches": 0, "mel.launches": 0}))
 
 
 def _add_counts(total, counts):
@@ -2240,7 +2254,6 @@ def md_steps(group, rank, world, out_dir, tag):
     import torch
 
     from wavenet_vocoder_tpu_torch.config import Config
-    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     from wavenet_vocoder_tpu_torch.parallel import replicate_global
     from wavenet_vocoder_tpu_torch.training.train_state import (
         create_train_state, make_train_step)
@@ -2257,9 +2270,10 @@ def md_steps(group, rank, world, out_dir, tag):
     batch = md_batch(cfg)
     n = len(batch["x"]) // world
     local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
-    before = {n_: (w.launches, w.tc_launches)
-              for n_, w in (("train_fwd", ct.train_fwd),
-                            ("train_bwd", ct.train_bwd))}
+    counted = lambda: {n_: [_launches(n_ + ".launches"),
+                            _launches(n_ + ".tc_launches")]
+                       for n_ in ("train_fwd", "train_bwd")}
+    before = counted()
     losses, norms = [], []
     for i in range(MD_STEPS):
         m = step(state, local, torch.Generator().manual_seed(MD_SEED + i))
@@ -2271,9 +2285,8 @@ def md_steps(group, rank, world, out_dir, tag):
         norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     torch.save(params(), os.path.join(out_dir, f"{tag}.params.pt"))
-    launched = {n_: [w.launches - before[n_][0], w.tc_launches - before[n_][1]]
-                for n_, w in (("train_fwd", ct.train_fwd),
-                              ("train_bwd", ct.train_bwd))}
+    launched = {n_: [a - b for a, b in zip(now, before[n_])]
+                for n_, now in counted().items()}
     return dict(losses=[float(v) for v in losses],
                 grad_norms=[float(v) for v in norms], launched=launched,
                 L=state.model.spec.layers, T=cfg.max_time_steps)
@@ -3146,7 +3159,6 @@ def _tp_leg(leg, groups, out_dir, tag):
     import torch
 
     from wavenet_vocoder_tpu_torch.config import Config
-    from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
     from wavenet_vocoder_tpu_torch.parallel.sharding import shard_train_state
     from wavenet_vocoder_tpu_torch.training.train_state import (
         create_train_state, make_train_step)
@@ -3161,7 +3173,8 @@ def _tp_leg(leg, groups, out_dir, tag):
     step, _ = make_train_step(cfg, group=None if groups is None
                               else groups.data)
     batch = train_batch(cfg, TP_B)
-    before = (ct.train_fwd.launches, ct.train_bwd.launches)
+    before = (_launches("train_fwd.launches"),
+              _launches("train_bwd.launches"))
     losses, norms = [], []
     for i in range(TP_STEPS):
         m = step(state, batch)
@@ -3173,8 +3186,8 @@ def _tp_leg(leg, groups, out_dir, tag):
     torch.save(_gathered(state.model, groups),
                os.path.join(out_dir, f"{tag}.{leg[:5]}.params.pt"))
     res = dict(losses=losses, grad_norms=norms, launched={
-        "train_fwd": ct.train_fwd.launches - before[0],
-        "train_bwd": ct.train_bwd.launches - before[1]})
+        "train_fwd": _launches("train_fwd.launches") - before[0],
+        "train_bwd": _launches("train_bwd.launches") - before[1]})
     del state, step
     torch.cuda.empty_cache()
     return res
@@ -3437,9 +3450,9 @@ def syn_rank_worker(rank, port, out_dir):
     gens = [cg.FusedGenerator(m) for m in models]
     res["pack_equal"] = all(torch.equal(gens[0].packed[k], gens[1].packed[k])
                             for k in gens[0].packed)
-    before = cg.generate_steps.launches
+    before = _launches("generate.launches")
     k_whole, k_cut = (g(c=c, deterministic=True) for g in gens)
-    res["kernel_launches"] = cg.generate_steps.launches - before
+    res["kernel_launches"] = _launches("generate.launches") - before
     res["kernel_equal"] = bool(torch.equal(k_whole, k_cut))
     res["kernel_samples"] = int(k_cut.shape[1])
     res["kernel_s"] = time.perf_counter() - t0
@@ -3530,7 +3543,7 @@ def _bf16_scan(report):
     tol, bf = TOL["bfloat16"], torch.bfloat16
     packed = cg.pack_weights(model, dtype=bf)
     t0 = time.perf_counter()
-    before = cg.generate_steps.launches
+    before = _launches("generate.launches")
     state, logits, margins = None, [], []
     diffs = {"f32 decoder": [], "bf16 pack kernel": []}
     for j in range(BF16_SCAN_T):
@@ -3565,7 +3578,7 @@ def _bf16_scan(report):
     logit_err = float((lb - lf).abs().max()) / float(lf.abs().max())
     delta = float((lb - lf)[..., :nr_mix].abs().max())
     tie = torch.stack(margins, dim=1) <= 2 * delta
-    out = dict(launches=cg.generate_steps.launches - before,
+    out = dict(launches=_launches("generate.launches") - before,
                scan_s=time.perf_counter() - t0, logit_rel=logit_err,
                tie_margin=2 * delta, ties=int(tie.sum()))
     run = dict(T=BF16_SCAN_T, c_up=c_up, deterministic=True)

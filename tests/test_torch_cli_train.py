@@ -374,4 +374,13 @@ def test_recipe_runs_stages_0_to_3_on_the_cpu(tmp_path):
         feats = list((recipe / "dump" / "norm" / s).glob("*-feats.npy"))
         sr, w = wavfile.read(str(gens[0]))
         assert len(w) == np.load(str(feats[0])).shape[0] * preset["hop_size"]
-    assert "[train] kernel launches" in proc.stdout
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("[train] trace ")]
+    assert line, proc.stdout[-3000:]
+    trace = json.loads(line[-1][len("[train] trace "):])
+    # the plain stack on the CPU: no kernel launched, every step's phases
+    # and the loader's collates timed
+    assert trace["counters"] == {}
+    for name in ("train.forward", "train.backward", "train.clip",
+                 "train.optimizer", "train.ema", "data.collate"):
+        assert trace["spans"][name]["count"] >= 2, (name, trace)

@@ -19,6 +19,7 @@ from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
 from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
 from wavenet_vocoder_tpu_torch.ops import fused_train as ft
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 HEADS = {
     "categorical": dict(out_channels=256, scalar_input=False),
@@ -78,12 +79,12 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
         ring, x_cur = ring0.clone(), x0.clone()
         out = torch.empty(B, n, device=cuda, dtype=(
             torch.float32 if spec.scalar_input else torch.int32))
-        before = cg.generate_steps.launches
+        before = _count("generate.launches")
         if kernel:
             cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate,
                               t0=5, seed=3, deterministic=deterministic,
                               _cluster=CLUSTERS[cluster])
-            assert cg.generate_steps.launches == before + 1
+            assert _count("generate.launches") == before + 1
         else:
             cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond,
                                     g_gate, t0=5, seed=3,
@@ -129,11 +130,11 @@ def test_kernel_matches_plain_at_ragged_widths(cuda, width, dtype, cluster):
     for kernel in (True, False):
         ring, x_cur = ring0.clone(), x0.clone()
         out = torch.empty(B, n, device=cuda)
-        before = cg.generate_steps.launches
+        before = _count("generate.launches")
         if kernel:
             cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=5,
                               seed=3, deterministic=True, _cluster=cluster)
-            assert cg.generate_steps.launches == before + 1
+            assert _count("generate.launches") == before + 1
         else:
             cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond, None,
                                     t0=5, seed=3, deterministic=True)
@@ -259,9 +260,15 @@ def _rel_err(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
+def _count(name: str) -> int:
+    """A counter of the port's tracing store (``utils.profiling``)."""
+    return profiling.counters().get(name, 0)
+
+
 def _launch_counts():
-    return {name: (w.launches, w.tc_launches, w.fma_launches)
-            for name, w in (("fwd", ct.train_fwd), ("bwd", ct.train_bwd))}
+    return {name: tuple(_count(f"train_{name}.{k}") for k in
+                        ("launches", "tc_launches", "fma_launches"))
+            for name in ("fwd", "bwd")}
 
 
 def _assert_launched(before, n_fwd, n_bwd, dtype):
@@ -421,12 +428,13 @@ def test_fused_stack_leaf_grads_match_plain(cuda, monkeypatch, dtype):
                 ft.fused_res_stack_fwd_plain, ft.fused_res_stack_bwd_plain))
         model.zero_grad(set_to_none=True)
         x0, c, g = (a.clone().requires_grad_() for a in (x0_, c_, g_))
-        before = ct.train_fwd.launches, ct.train_bwd.launches
+        before = _count("train_fwd.launches"), _count("train_bwd.launches")
         skips = ft.fused_res_stack(x0, c, model.conv_layers, model.spec, g=g,
                                    dtype=dt, dropout=0.1, seed=9)
         (skips * w).sum().backward()
         torch.cuda.synchronize()
-        launched = (ct.train_fwd.launches, ct.train_bwd.launches) != before
+        launched = (_count("train_fwd.launches"),
+                    _count("train_bwd.launches")) != before
         assert launched != plain
         leaves = {"x0": x0.grad, "c": c.grad, "g": g.grad}
         leaves.update((n, p.grad) for n, p in
@@ -484,11 +492,11 @@ def test_mel_kernel_matches_plain_and_host(cuda, case):
         shape[0] if len(shape) == 2 else 1)])
     x = x if len(shape) == 2 else x[0]
     y = torch.from_numpy(x).to(cuda)
-    before = mel_torch.logmelspectrogram_cuda.launches
+    before = _count("mel.launches")
     got = mel_torch.logmelspectrogram_cuda(y, cfg)
     torch.cuda.synchronize()
     # two launches a call: the transform and the sums of its bin tiles
-    assert mel_torch.logmelspectrogram_cuda.launches == before + 2
+    assert _count("mel.launches") == before + 2
     want = mel_torch.logmelspectrogram_torch(y, cfg)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.isfinite(got).all()
@@ -583,18 +591,18 @@ def test_demo_checkpoint_runs_the_kernel_on_the_card(cuda, demo_checkpoint,
     from wavenet_vocoder_tpu_torch.cli import evaluate, synthesis
     d = demo_checkpoint
     for engine in ("auto", "scan"):
-        before = cg.generate_steps.launches
+        before = _count("generate.launches")
         dst = str(tmp_path / f"{engine}.wav")
         synthesis.main([d["ckpt"], dst, "--conditional", d["mel"],
                         "--engine", engine])
         x = wavfile.read(dst)[1]
         assert len(x) == 6 * d["hop"] and np.isfinite(x).all()
-        assert (cg.generate_steps.launches > before) == (engine == "auto")
-    before = cg.generate_steps.launches
+        assert (_count("generate.launches") > before) == (engine == "auto")
+    before = _count("generate.launches")
     out = str(tmp_path / "eval")
     evaluate.main([str(tmp_path / "mels"), d["ckpt"], out])
     assert sorted(os.listdir(out)) == ["eval_manifest.txt", "utt0_gen.wav"]
-    assert cg.generate_steps.launches > before
+    assert _count("generate.launches") > before
 
 
 @pytest.mark.cuda
@@ -688,7 +696,7 @@ def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
                     rs.uniform(-0.5, 0.5, frames * 64).astype(np.float32))
             np.save(d / f"u{i}-feats.npy",
                     rs.randn(frames, 8).astype(np.float32))
-    before, gen_before = _launch_counts(), cg.generate_steps.launches
+    before, gen_before = _launch_counts(), _count("generate.launches")
     out = str(tmp_path / "exp")
     state = train_loop(cfg, str(tmp_path / "dump"), out, max_steps_override=3,
                        log_interval=1)
@@ -702,7 +710,7 @@ def test_train_loop_on_the_card_runs_the_kernels(cuda, tmp_path):
         [L * (3 + n_dev + 1)] * 2 + [0]
     assert [a - b for a, b in zip(after["bwd"], before["bwd"])] == \
         [ct.BWD_LAUNCHES_PER_LAYER * L * 3] * 2 + [0]
-    assert cg.generate_steps.launches > gen_before
+    assert _count("generate.launches") > gen_before
     assert state.step == 3 and next(state.model.parameters()).is_cuda
     assert os.path.exists(ckpt.checkpoint_path(out, 3, ema=True))
     for sub, step in (("train_no_dev_eval", 3), ("dev_eval", 2)):

@@ -18,7 +18,10 @@ Data parallelism runs one process per GPU. Under torchrun,
 give every process ``--coordinator-address`` (rank 0's host:port),
 ``--num-processes`` and its ``--process-id``. Without a process group and
 with several GPUs, the loop spawns one rank per GPU itself unless
-``--no-mesh``. At the end it prints the kernel launches of the run.
+``--no-mesh``. At the end it prints one ``[train] trace {...}`` line: the
+run's counters (the kernel launches) and, for every span of the port (the
+train step's phases, the loader's collate, the eval audio's generator), its
+count and mean ms (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from wavenet_vocoder_tpu_torch.parallel.distributed import (
     initialize_from_args,
 )
 from wavenet_vocoder_tpu_torch.training.loop import train_loop
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,16 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def kernel_launches() -> dict:
-    """The launch counters of the kernels a training run reaches."""
-    from wavenet_vocoder_tpu_torch.ops import cuda_generate, cuda_train
-    out = {}
-    for name, w in (("train_fwd", cuda_train.train_fwd),
-                    ("train_bwd", cuda_train.train_bwd)):
-        out[name] = dict(launches=w.launches, tc_launches=w.tc_launches,
-                         fma_launches=w.fma_launches)
-    out["generate"] = dict(launches=cuda_generate.generate_steps.launches)
-    return out
+def trace_summary() -> dict:
+    """The process's counters, and every span's count and mean ms."""
+    spans = {name: {"count": n, "mean_ms": 1e3 * s / n}
+             for name, (n, s) in sorted(profiling.totals().items())}
+    return {"counters": dict(sorted(profiling.counters().items())),
+            "spans": spans}
 
 
 def main(argv=None) -> None:
@@ -90,7 +90,7 @@ def main(argv=None) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    print("[train] kernel launches " + json.dumps(kernel_launches()))
+    print("[train] trace " + json.dumps(trace_summary()))
 
 
 if __name__ == "__main__":

@@ -47,6 +47,7 @@ import numpy as np
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.ops.mulaw import mulaw_quantize
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 
 def effective_max_time_steps(cfg: Config) -> Optional[int]:
@@ -395,8 +396,9 @@ class DataLoader:
 
         def make(idx_batch):
             items = [self.dataset[int(i)] for i in idx_batch]
-            return collate_fn(items, self.cfg, rng=self._rng,
-                              static_shapes=self.static_shapes)
+            with profiling.span("data.collate"):
+                return collate_fn(items, self.cfg, rng=self._rng,
+                                  static_shapes=self.static_shapes)
 
         if self.num_workers <= 0:
             for idx_batch in self.sampler:

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.dsp import audio as _audio
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 _MAX_SMEM = 232448
 # variant build, a timing aid: the products compiled out
@@ -270,7 +271,7 @@ def logmelspectrogram_cuda(y, cfg: Config, *, _defines: Tuple[str, ...] = ()
     moved to the card. Returns (n_frames, num_mels) or (B, n_frames,
     num_mels) f32, n_frames = 1 + T // hop. Each call launches two kernels,
     the transform and the launch that adds its bin tiles' sums, and adds two
-    to ``logmelspectrogram_cuda.launches``.
+    to the counter ``mel.launches`` of ``utils.profiling``.
 
     The kernel computes only the bins the mel matrix uses (``used_bins``),
     with its DFT products in split TF32 on the tensor cores; any hop. A CPU
@@ -305,8 +306,5 @@ def logmelspectrogram_cuda(y, cfg: Config, *, _defines: Tuple[str, ...] = ()
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
-    logmelspectrogram_cuda.launches += 2
+    profiling.count("mel.launches", 2)
     return out[0] if y.ndim == 1 else out
-
-
-logmelspectrogram_cuda.launches = 0

@@ -150,13 +150,12 @@ def _rank_main(rank: int, n: int, port: int, backend: str, device: str,
                             engine="cuda", device=dev, deterministic=True)
         if wav.shape != (1, 4 * cfg.hop_size) or not np.isfinite(wav).all():
             raise RuntimeError(f"synthesis gave {wav.shape}")
-        from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
-        from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
+        from wavenet_vocoder_tpu_torch.utils import profiling
+        counts = profiling.counters()
         res = dict(rank=rank, mesh=shape, loss=loss, fused_loss=loss_f,
                    synth=[Bs, int(wav.shape[1])], wav=wav[0].tolist(),
-                   launches={"train_fwd": ct.train_fwd.launches,
-                             "train_bwd": ct.train_bwd.launches,
-                             "generate": cg.generate_steps.launches},
+                   launches={k: counts.get(k + ".launches", 0) for k in
+                             ("train_fwd", "train_bwd", "generate")},
                    jax_loaded="jax" in sys.modules
                    or "wavenet_vocoder_tpu" in sys.modules)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

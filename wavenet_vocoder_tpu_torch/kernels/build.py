@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from wavenet_vocoder_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -66,7 +68,8 @@ def _compile(name: str, defines: Sequence[str] = ()) -> Path:
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *(f"-D{d}" for d in defines),
            "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with profiling.span("kernels.build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
@@ -79,6 +82,8 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(_compile(name, key[1])))
+            # only a first use is timed: launches look the library up here
+            with profiling.span("kernels.load"):
+                lib = ctypes.CDLL(str(_compile(name, key[1])))
             _libs[key] = lib
         return lib

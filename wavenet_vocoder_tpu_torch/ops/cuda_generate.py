@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from wavenet_vocoder_tpu_torch.models.layers import conv1x1
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
 from wavenet_vocoder_tpu_torch.ops.generate import default_initial_input
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 DEFAULT_CHUNK = 256          # steps per kernel launch
 _M32 = 0xFFFFFFFF
@@ -560,8 +561,9 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     ring (total_rows, B, R) pack dtype; x_cur (B, C_in) f32; out (B, n) f32
     (scalar heads) or int32 (codes), rows may be strided; cond (B, n, cin)
     pack dtype or None; g_gate (L, B, G) f32 or None. CUDA tensors launch
-    the kernel (``generate_steps.launches`` counts the launches); CPU
-    tensors run the plain version. There is no fallback between the two.
+    the kernel (the counter ``generate.launches`` of ``utils.profiling``
+    counts the launches); CPU tensors run the plain version. There is no
+    fallback between the two.
 
     ``kpack`` is the kernel-side pack of ``packed`` (``kernel_pack``); it is
     made and cached here when not given. For sweeps and tests: ``_cluster``
@@ -653,10 +655,7 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         ring.copy_(kring[..., :R])
     if _info is not None:
         _info[:] = list(info)
-    generate_steps.launches += 1
-
-
-generate_steps.launches = 0
+    profiling.count("generate.launches")
 
 
 # ----------------------------------------------------------------------
@@ -681,19 +680,20 @@ class FusedGenerator:
         self.spec = model.spec
         self.chunk = int(chunk)
         self.weight_dtype = weight_dtype
-        self.packed = pack_weights(model, dtype=weight_dtype)
-        self.device = self.packed["w_first"].device
         self.mesh = mesh
-        devices = ([self.device] if mesh is None else
-                   [torch.device(d) for d in mesh.axis_devices(data_axis)])
-        # one weight pack (and kernel-side packs) per device; shard i runs
-        # on devices[i]
-        packs = {}
-        for d in devices:
-            if d not in packs:
-                packed = (self.packed if d == self.device else
-                          {k: v.to(d) for k, v in self.packed.items()})
-                packs[d] = (packed, self._kernel_packs(packed, d))
+        with profiling.span("generator.pack"):
+            self.packed = pack_weights(model, dtype=weight_dtype)
+            self.device = self.packed["w_first"].device
+            devices = ([self.device] if mesh is None else
+                       [torch.device(d) for d in mesh.axis_devices(data_axis)])
+            # one weight pack (and kernel-side packs) per device; shard i
+            # runs on devices[i]
+            packs = {}
+            for d in devices:
+                if d not in packs:
+                    packed = (self.packed if d == self.device else
+                              {k: v.to(d) for k, v in self.packed.items()})
+                    packs[d] = (packed, self._kernel_packs(packed, d))
         self.shards = [(d,) + packs[d] for d in devices]
 
     def _kernel_packs(self, packed, device):
@@ -747,47 +747,52 @@ class FusedGenerator:
             raise ValueError("streaming state carry is single-device; run "
                              "one stream group per device instead")
         c, g = as_dev(c), as_dev(g)
-        if c_up is not None:
-            c_up = as_dev(c_up).float()
-        else:
-            c_up = model.upsample_conditioning(None if c is None else c.float())
-        if c_up is not None:
-            T = c_up.shape[1] if T is None else T
-            if c_up.shape[1] != T:
-                raise ValueError(f"conditioning covers {c_up.shape[1]} "
-                                 f"samples, T is {T}")
-        if T is None:
-            raise ValueError("T required without conditioning")
-        if (state is not None or return_state) and T % chunk:
-            raise ValueError(
-                f"streaming segments must be multiples of the kernel chunk "
-                f"({chunk}); got T={T}")
-        if c_up is not None:
-            B = c_up.shape[0]
-        elif state is not None:
-            B = state[0].shape[0]
-        elif initial_input is not None:
-            B = initial_input.shape[0]
-        elif g is not None:
-            B = g.shape[0]
-        else:
-            B = 1
-        n = len(self.shards)
-        if B % n:
-            raise ValueError(f"batch {B} not divisible by the mesh's data "
-                             f"axis ({n}); pad the utterance batch")
-        T_pad = -(-T // chunk) * chunk
-        cond = None
-        if c_up is not None:
-            if T_pad != T:
-                c_up = torch.cat(
-                    [c_up, c_up[:, -1:].expand(B, T_pad - T, -1)], dim=1)
-            cond = c_up.to(dtype).contiguous()
-        g_vec = model.embed_global(g)
-        g_gate = None
-        if g_vec is not None:
-            g_gate = torch.stack([conv1x1(blk.conv1x1g, g_vec.float())
-                                  for blk in model.conv_layers]).float().contiguous()
+        # the conditioning at the sample rate, padded to whole chunks in the
+        # pack dtype, and the global conditioning's gate biases
+        with profiling.span("generate.condition"):
+            if c_up is not None:
+                c_up = as_dev(c_up).float()
+            else:
+                c_up = model.upsample_conditioning(
+                    None if c is None else c.float())
+            if c_up is not None:
+                T = c_up.shape[1] if T is None else T
+                if c_up.shape[1] != T:
+                    raise ValueError(f"conditioning covers {c_up.shape[1]} "
+                                     f"samples, T is {T}")
+            if T is None:
+                raise ValueError("T required without conditioning")
+            if (state is not None or return_state) and T % chunk:
+                raise ValueError(
+                    f"streaming segments must be multiples of the kernel "
+                    f"chunk ({chunk}); got T={T}")
+            if c_up is not None:
+                B = c_up.shape[0]
+            elif state is not None:
+                B = state[0].shape[0]
+            elif initial_input is not None:
+                B = initial_input.shape[0]
+            elif g is not None:
+                B = g.shape[0]
+            else:
+                B = 1
+            n = len(self.shards)
+            if B % n:
+                raise ValueError(f"batch {B} not divisible by the mesh's "
+                                 f"data axis ({n}); pad the utterance batch")
+            T_pad = -(-T // chunk) * chunk
+            cond = None
+            if c_up is not None:
+                if T_pad != T:
+                    c_up = torch.cat(
+                        [c_up, c_up[:, -1:].expand(B, T_pad - T, -1)], dim=1)
+                cond = c_up.to(dtype).contiguous()
+            g_vec = model.embed_global(g)
+            g_gate = None
+            if g_vec is not None:
+                g_gate = torch.stack(
+                    [conv1x1(blk.conv1x1g, g_vec.float())
+                     for blk in model.conv_layers]).float().contiguous()
         t_off = 0
         if state is not None:
             x_cur, ring, t_off = state
@@ -811,14 +816,16 @@ class FusedGenerator:
                 kpack=kpacks.get(pick_cluster(spec, Bs)[0])))
         # chunk by chunk, every shard's launch before the next chunk: the
         # devices run side by side, and nothing here waits on them
-        for t0 in range(0, T_pad, chunk):
-            for i, r in enumerate(runs):
-                generate_steps(r["packed"], spec, r["ring"], r["x_cur"],
-                               r["out"][:, t0:t0 + chunk],
-                               None if r["cond"] is None
-                               else r["cond"][:, t0:t0 + chunk],
-                               r["g_gate"], t0=t_off + t0, seed=seed + i,
-                               deterministic=deterministic, kpack=r["kpack"])
+        with profiling.span("generate.launch"):
+            for t0 in range(0, T_pad, chunk):
+                for i, r in enumerate(runs):
+                    generate_steps(r["packed"], spec, r["ring"], r["x_cur"],
+                                   r["out"][:, t0:t0 + chunk],
+                                   None if r["cond"] is None
+                                   else r["cond"][:, t0:t0 + chunk],
+                                   r["g_gate"], t0=t_off + t0, seed=seed + i,
+                                   deterministic=deterministic,
+                                   kpack=r["kpack"])
         out = (runs[0]["out"] if n == 1 else
                torch.cat([r["out"].to(dev) for r in runs]))
         if return_state:

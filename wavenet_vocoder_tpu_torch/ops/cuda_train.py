@@ -12,9 +12,10 @@ tensor-core kernels do not cut into fragments (``kernel_widths``).
 
 The kernels dispatch by storage dtype: bf16 (the training path) runs the
 tensor-core kernels, f32 the FMA-tile kernels (the backward's finish of its
-ordered sums serves both). Each wrapper counts its kernel launches in
-``.launches`` and, split by storage dtype, in ``.tc_launches`` (bf16) and
-``.fma_launches`` (f32).
+ordered sums serves both). Each wrapper counts its kernel launches in the
+counters of ``utils.profiling``: ``train_fwd.launches`` and, split by
+storage dtype, ``train_fwd.tc_launches`` (bf16) and
+``train_fwd.fma_launches`` (f32); ``train_bwd``'s the same.
 
 Importing this module builds nothing: the sources compile with nvcc at the
 first launch (``kernels/build.py``).
@@ -31,6 +32,7 @@ from wavenet_vocoder_tpu_torch.ops.fused_train import (
     keep_threshold,
     stack_receptive,
 )
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
@@ -260,19 +262,14 @@ def train_fwd(x0: torch.Tensor, c: Optional[torch.Tensor],
         args.xnext = None if last else _ptr(carry[l % 2])
         args.xs_next = None if last else _ptr(xs[l + 1])
         _launch(fn, args, dev, "train_fwd")
-        _count(train_fwd, args)
+        _count("train_fwd", args)
     return skips, xs
 
 
-def _count(wrapper, args: TrainArgs) -> None:
-    wrapper.launches += 1
-    if args.bf16:
-        wrapper.tc_launches += 1
-    else:
-        wrapper.fma_launches += 1
-
-
-train_fwd.launches = train_fwd.tc_launches = train_fwd.fma_launches = 0
+def _count(wrapper: str, args: TrainArgs) -> None:
+    profiling.count(wrapper + ".launches")
+    profiling.count(wrapper + (".tc_launches" if args.bf16
+                               else ".fma_launches"))
 
 # Output tiles of the weight-gradient kernel (rows x columns) and the blocks
 # it keeps in flight per SM: the tensor-core kernel (bf16) and the FMA tiles
@@ -378,8 +375,5 @@ def train_bwd(dskips: torch.Tensor, xs: torch.Tensor,
         args.dx_out = _ptr(dx[l % 2])
         for fn in kernels:
             _launch(fn, args, dev, "train_bwd")
-            _count(train_bwd, args)
+            _count("train_bwd", args)
     return dx[0], dc, dgb, dw_in, db_in, dw_cond, dw_og, db_og
-
-
-train_bwd.launches = train_bwd.tc_launches = train_bwd.fma_launches = 0

@@ -38,6 +38,7 @@ from wavenet_vocoder_tpu_torch.synthesis import (
     _seed_from,
     resolve_device,
 )
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 
 class StreamingSynthesizer:
@@ -196,7 +197,8 @@ class StreamingSynthesizer:
         a, b = self._emitted, ready
         if b <= a:
             return np.zeros((self.batch, 0), np.float32)
-        c_up = self._conditioning(a, b)
+        with profiling.span("stream.condition"):
+            c_up = self._conditioning(a, b)
         T = (b - a) * self.hop
         if self.engine == "cuda":
             # ring state carried through the fused kernel; the same seed
@@ -214,7 +216,10 @@ class StreamingSynthesizer:
                            generator=self._generator, dtype=self._dtype)
             samples, self._state = out["samples"], out["state"]
         self._emitted = b
-        return self._decode(samples.cpu().numpy())
+        with profiling.span("stream.fetch"):
+            samples = samples.cpu().numpy()
+        with profiling.span("stream.decode"):
+            return self._decode(samples)
 
     def _decode(self, samples: np.ndarray) -> np.ndarray:
         """Streaming version of synthesis._decode: the inverse-preemphasis

@@ -27,6 +27,7 @@ from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet
 from wavenet_vocoder_tpu_torch.ops.mulaw import inv_mulaw, inv_mulaw_quantize
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 ENGINES = ("cuda", "scan")
 
@@ -61,9 +62,8 @@ def _decode(cfg: Config, samples) -> np.ndarray:
     """Head samples -> float waveform (B, T) (reference: synthesis.py:66-86).
 
     Accepts one-hot (B, T, C) or integer codes (B, T) for the categorical
-    head, and (B, T, 1) or (B, T) scalars for the mixture heads."""
-    if isinstance(samples, torch.Tensor):
-        samples = samples.detach().cpu().numpy()
+    head, and (B, T, 1) or (B, T) scalars for the mixture heads, as host
+    arrays."""
     samples = np.asarray(samples)
     mu = cfg.quantize_channels - 1
     if cfg.is_mulaw_quantize:
@@ -150,7 +150,12 @@ class Synthesizer:
         else:
             samples = self._scan_sharded(c, g, T, initial_input, generator,
                                          deterministic)
-        return _decode(cfg, samples)
+        # the wait for the card and the copy to the host, then the host's
+        # decode
+        with profiling.span("synth.fetch"):
+            samples = samples.cpu().numpy()
+        with profiling.span("synth.decode"):
+            return _decode(cfg, samples)
 
     def _scan_sharded(self, c, g, T, initial_input, generator,
                       deterministic):

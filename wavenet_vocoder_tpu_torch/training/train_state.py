@@ -36,6 +36,7 @@ from wavenet_vocoder_tpu_torch.ops.losses import (
 from wavenet_vocoder_tpu_torch.parallel.distributed import batch_row_offset
 from wavenet_vocoder_tpu_torch.training import optimizers
 from wavenet_vocoder_tpu_torch.training.lrschedule import make_schedule
+from wavenet_vocoder_tpu_torch.utils import profiling
 
 
 class TrainState:
@@ -318,34 +319,39 @@ def make_train_step(cfg: Config, group=None):
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
                          deterministic=True, allow_tf32=cudnn.allow_tf32):
-            loss = loss_fn(model, batch, seed, True)
-            loss.backward()
-        grads = []
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+            with profiling.span("train.forward"):
+                loss = loss_fn(model, batch, seed, True)
+            with profiling.span("train.backward"):
+                loss.backward()
+                grads = []
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
         loss = loss.detach()
-        partitioned, model_group = _partitions(state.optimizer)
-        if model_group is not None:
-            # every rank of the model group holds all of a replicated
-            # tensor's gradient; the copies are averaged so that the
-            # replicas stay bitwise equal even where a library's sums
-            # differ between ranks in their last bits
-            rep = [g for g, cut in zip(grads, partitioned) if not cut]
-            _all_reduce_into(rep, None, model_group)
-            torch._foreach_div_(rep, dist.get_world_size(model_group))
-        if group is not None:
-            # the ranks' shares summed: the global loss and its gradient
-            loss = _all_reduce_into(grads, loss, group)
-        grad_norm = clip_by_global_norm(grads, cfg.clip_thresh, partitioned,
-                                        model_group)
-        lr = state.schedule(state.step)
-        for pg in state.optimizer.param_groups:
-            pg["lr"] = lr
-        state.optimizer.step()
+        with profiling.span("train.clip"):
+            partitioned, model_group = _partitions(state.optimizer)
+            if model_group is not None:
+                # every rank of the model group holds all of a replicated
+                # tensor's gradient; the copies are averaged so that the
+                # replicas stay bitwise equal even where a library's sums
+                # differ between ranks in their last bits
+                rep = [g for g, cut in zip(grads, partitioned) if not cut]
+                _all_reduce_into(rep, None, model_group)
+                torch._foreach_div_(rep, dist.get_world_size(model_group))
+            if group is not None:
+                # the ranks' shares summed: the global loss and its gradient
+                loss = _all_reduce_into(grads, loss, group)
+            grad_norm = clip_by_global_norm(grads, cfg.clip_thresh,
+                                            partitioned, model_group)
+        with profiling.span("train.optimizer"):
+            lr = state.schedule(state.step)
+            for pg in state.optimizer.param_groups:
+                pg["lr"] = lr
+            state.optimizer.step()
         if state.ema is not None:
-            ema_update(state.ema, model, cfg.ema_decay)
+            with profiling.span("train.ema"):
+                ema_update(state.ema, model, cfg.ema_decay)
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm.detach(), "lr": lr}
 

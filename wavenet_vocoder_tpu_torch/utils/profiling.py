@@ -1,30 +1,131 @@
-"""Profiling and timing helpers.
+"""The port's tracing store (spans and counters), and profiling helpers.
 
-The port's counterpart of ``wavenet_vocoder_tpu/utils/profiling.py``:
+``span(name)`` times a phase of the port's work. Every span adds its
+elapsed time to a per-name aggregate of count and total nanoseconds
+(``totals``), always. While recording is on it also keeps the span's
+``(name, start_ns, end_ns)`` in a bounded buffer (``intervals``) and opens
+the profiler range ``wavenet::<name>``, so a Chrome trace shows the port's
+phases. Recording is on while a torch profiler records, or after
+``recording(True)``. Interval times are ``time.time_ns()``, the clock the
+profiler stamps its events with, so the port's intervals line up with the
+trace's device ops. ``count(name, n)`` adds to a named counter
+(``counters``); the kernel wrappers count their launches there
+(``generate.launches``, ``train_fwd.launches``, ``train_fwd.tc_launches``,
+``train_fwd.fma_launches``, the same three of ``train_bwd``,
+``mel.launches``). ``reset()`` empties the store. The store is shared by
+all threads of a process.
+
 ``trace(logdir)`` records a ``torch.profiler`` trace of the CPU and the card
 into ``logdir`` (a Chrome trace: chrome://tracing or Perfetto); ``sync``
-waits for a tensor's device; ``StepTimer`` gives wall-time statistics with
-the same summary keys as the JAX package's. ``gpu_name_and_limit`` is the
-card's name and power limit as ``nvidia-smi`` reports them, which every
-measurement is stated beside.
+waits for a tensor's device. ``gpu_name_and_limit`` is the card's name and
+power limit as ``nvidia-smi`` reports them, which every measurement is
+stated beside.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import subprocess
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
+
+# intervals kept while recording; the oldest go first
+INTERVALS = 1 << 16
+
+_lock = threading.Lock()
+_totals: Dict[str, List[int]] = {}          # name -> [count, total ns]
+_counters: Dict[str, int] = {}
+_intervals: Deque[Tuple[str, int, int]] = collections.deque(maxlen=INTERVALS)
+_forced = False
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def recording(on: Optional[bool] = None) -> bool:
+    """Turn the recording of intervals on or off (``None`` leaves it);
+    whether spans record now, which they also do while a torch profiler
+    records."""
+    global _forced
+    if on is not None:
+        _forced = bool(on)
+    return _forced or _profiler_enabled()
+
+
+class span:
+    """``with span("synth.decode"): ...`` times the block (see the module
+    docstring); spans nest."""
+    __slots__ = ("name", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._range = None
+        if _forced or _profiler_enabled():
+            self._range = torch.profiler.record_function(
+                "wavenet::" + self.name)
+        self._t0 = time.time_ns()
+        if self._range is not None:
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        t1 = time.time_ns()
+        with _lock:
+            agg = _totals.get(self.name)
+            if agg is None:
+                _totals[self.name] = [1, t1 - self._t0]
+            else:
+                agg[0] += 1
+                agg[1] += t1 - self._t0
+            if self._range is not None:
+                _intervals.append((self.name, self._t0, t1))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's value, by name."""
+    with _lock:
+        return dict(_counters)
+
+
+def totals() -> Dict[str, Tuple[int, float]]:
+    """Every span's (count, total seconds), by name."""
+    with _lock:
+        return {k: (c, ns / 1e9) for k, (c, ns) in _totals.items()}
+
+
+def intervals() -> List[Tuple[str, int, int]]:
+    """The recorded spans, (name, start ns, end ns) on ``time.time_ns()``'s
+    clock, oldest first; at most ``INTERVALS``."""
+    with _lock:
+        return list(_intervals)
+
+
+def reset() -> None:
+    """Empty the aggregates, the counters and the intervals."""
+    with _lock:
+        _totals.clear()
+        _counters.clear()
+        _intervals.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (CPU and CUDA activities) and write its Chrome
     trace to ``logdir/trace.json``; yields the profiler, whose
-    ``key_averages()`` sums the time by kernel."""
+    ``key_averages()`` sums the time by kernel. The port's spans show as
+    ``wavenet::<name>`` ranges."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -43,36 +144,6 @@ def sync(x=None) -> None:
         torch.cuda.synchronize(x.device)
     elif torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Accumulates per-step wall times; ``summary()`` -> mean/p50/p90."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if result is not None:
-            sync(result)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p90_s": float(np.percentile(arr, 90)),
-            "steps_per_s": float(1.0 / arr.mean()),
-            "n": int(arr.size),
-        }
 
 
 def gpu_name_and_limit() -> str:
