@@ -139,7 +139,8 @@ Phases (each failure ends the run with a non-zero exit):
                 beside its plain version and bound; then ``python -m
                 wavenet_vocoder_tpu_torch.bench`` in subprocesses: synthesis
                 at the flagship (B=256 and 128, with the compact B=64 train
-                record), 30L3S and 512ch (B=256, one timed iteration),
+                record), 30L3S and 512ch (B=256, one timed iteration;
+                512ch also B=128, with one step's clock stamps a layer),
                 training at B=32 from a constant batch and from the loader
                 (BENCH_PIPELINE=1), and streaming latency. Each JSON record
                 must have a finite value, the card's name and no error;
@@ -147,7 +148,8 @@ Phases (each failure ends the run with a non-zero exit):
                 cores); the flagship's B=256 value must lie within 25% of
                 phase 3's B=256 request. The kernels line counts the runs'
                 launches as ``bench_launches`` and gives the big models'
-                launch times (``ms_30L3S``, ``bound_ms_512ch``, ...);
+                launch times (``ms_30L3S``, ``bound_ms_512ch``,
+                ``ms_512ch.b128``, ...);
  14. quality  — the sampled-audio quality net: one backward of the stack at
                 the quality model's widths in the healthy build twice (all
                 eight gradients bitwise equal) and in each fault build (dx0
@@ -710,6 +712,40 @@ def _time_launch(tag, packed, spec, inputs, iters):
                 cluster=cs)
 
 
+def _step_cycles(tag, packed, spec, inputs):
+    """The clock stamps of one step (the last of a 64-step launch; CTA 0,
+    thread 0; the WN_TRACE build) on ``inputs`` (_launch_inputs), printed
+    after ``tag``: the step's start, each phase of a layer (median over
+    layers 1..L-1), the head and the sampler, in cycles."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    cond, x0, ring, out = inputs
+    L = spec.layers
+    stamps = torch.zeros(4 * L + 5, dtype=torch.int64, device="cuda")
+    cg.generate_steps(packed, spec, ring.contiguous(), x0.clone(),
+                      out[:, :64], cond[:, :64].contiguous(), None, t0=0,
+                      seed=1, _defines=cg.TRACE, _trace=stamps)
+    torch.cuda.synchronize()
+    st = stamps.tolist()
+    gaps = [b - a for a, b in zip(st, st[1:])]
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    names = ("wait for the newest tap", "w_in product + GLU + send",
+             "wait for gated", "w_og product + residual, skip + send")
+    per_layer = [med([gaps[1 + 4 * l + i] for l in range(1, L)])
+                 for i in range(4)]
+    trace = dict(step_start=gaps[0], per_layer=dict(zip(names, per_layer)),
+                 layer=sum(per_layer), head=gaps[1 + 4 * L:],
+                 total=st[-1] - st[0])
+    print(f"{tag} in clock cycles (CTA 0, thread 0): start {gaps[0]}; per "
+          f"layer (median of {L - 1}): "
+          + ", ".join(f"{n} {c}" for n, c in zip(names, per_layer))
+          + f" (a layer {trace['layer']}); head {gaps[1 + 4 * L]} + "
+          f"{gaps[2 + 4 * L]}, sampler {gaps[3 + 4 * L]}; step "
+          f"{trace['total']}", flush=True)
+    return trace
+
+
 def phase_timing(report, model):
     import torch
 
@@ -755,26 +791,8 @@ def phase_timing(report, model):
         print(f"[time] B={Bs} served shape: {full * 1e3 / n:.1f} us/step; "
               f"with the products compiled out {bare * 1e3 / n:.1f} us/step "
               f"(barriers, gathers, prefetches, sampler)")
-    L = spec.layers
-    stamps = torch.zeros(4 * L + 5, dtype=torch.int64, device="cuda")
-    cg.generate_steps(packed, spec, ring[:, :32].contiguous(), x0[:32].clone(),
-                      out[:32, :64], cond[:32, :64].contiguous(), None, t0=0,
-                      seed=1, _defines=cg.TRACE, _trace=stamps)
-    torch.cuda.synchronize()
-    st = stamps.tolist()
-    gaps = [b - a for a, b in zip(st, st[1:])]
-    med = lambda xs: sorted(xs)[len(xs) // 2]
-    names = ("wait for the newest tap", "w_in product + GLU + send",
-             "wait for gated", "w_og product + residual, skip + send")
-    per_layer = [med([gaps[1 + 4 * l + i] for l in range(1, L)])
-                 for i in range(4)]
-    trace = dict(step_start=gaps[0], per_layer=dict(zip(names, per_layer)),
-                 head=gaps[1 + 4 * L:], total=st[-1] - st[0])
-    print(f"[time] one step of B=32 in clock cycles (CTA 0, thread 0): start "
-          f"{gaps[0]}; per layer (median of {L - 1}): "
-          + ", ".join(f"{n} {c}" for n, c in zip(names, per_layer))
-          + f"; head {gaps[1 + 4 * L]} + {gaps[2 + 4 * L]}, sampler "
-          f"{gaps[3 + 4 * L]}; step {trace['total']}")
+    trace = _step_cycles("[time] one step of B=32", packed, spec,
+                         (cond[:32], x0[:32], ring[:, :32], out[:32]))
     # timing launches are not the path's
     _set_launches({"generate.launches": saved})
     report["timing"] = dict(timing, sweep=sweep, no_products=no_products,
@@ -2659,7 +2677,8 @@ def _big_models(report):
     """The generation kernel at the bench's two published big models (bf16
     pack, MoL, seed 1) against its plain version as phase 2 holds it at the
     serving batches, and one 256-step launch at B=256 timed as phase 4 times
-    the flagship's. Returns {model: timing}."""
+    the flagship's; 512ch also at B=128, with one step's clock stamps.
+    Returns {model or model.bB: timing}."""
     import torch
 
     from wavenet_vocoder_tpu_torch.bench import MODELS
@@ -2672,15 +2691,33 @@ def _big_models(report):
                         generator=torch.Generator().manual_seed(1))
         model = model.to("cuda").eval()
         tag = f"[bench-kernel] {name:6s}"
+        before = [_launches(f"generate.{n}") for n in ("launches", "chunked_launches")]
         mine, bad = _check_model(
             model, [(B, cg.DEFAULT_CHUNK, True) for B in CHECK_BATCHES],
             ("bfloat16",), tag, dict(model=name))
         rows += mine
         failures += bad
+        # 512ch's layer blocks never fit two stages, 30L3S's always do: the
+        # first streams every launch through the chunk ring, the second none
+        launched, chunked = (_launches(f"generate.{n}") - b for n, b in zip(
+            ("launches", "chunked_launches"), before))
+        print(f"{tag} {launched} launches, {chunked} through the chunk ring",
+              flush=True)
+        if chunked != (launched if name == "512ch" else 0):
+            failures.append(f"{name}: {chunked} of {launched} launches took "
+                            f"the chunk ring")
         packed = cg.pack_weights(model, dtype=torch.bfloat16)
         timing[name] = _time_launch(
             tag, packed, model.spec,
             _launch_inputs(model.spec, 256, cg.DEFAULT_CHUNK), iters=3)
+        if name == "512ch":
+            # the served cell's batch (clusters of 8) beside B=256 (clusters
+            # of 4): both stream their weights through the chunk ring
+            inputs = _launch_inputs(model.spec, 128, cg.DEFAULT_CHUNK)
+            timing["512ch.b128"] = _time_launch(tag, packed, model.spec,
+                                                inputs, iters=3)
+            timing["512ch.b128"]["trace"] = _step_cycles(
+                f"{tag} one step of B=128", packed, model.spec, inputs)
         del model, packed
         torch.cuda.empty_cache()
     report["bench_kernel_vs_plain"] = rows
@@ -3947,8 +3984,8 @@ def summary_line(report) -> str:
                  f"samples/s (MFU {tr['mfu']}); flagship vs phase 3 "
                  f"{bn['phase3_ratio']:.3f}")
     for name, t in bn["models"].items():
-        parts.append(f"generate {name} B=256 {t['us_per_step']:.1f} us/step "
-                     f"({t['bound_ms'] / t['ms']:.1%} of bound)")
+        parts.append(f"generate {name} B={t['B']} {t['us_per_step']:.1f} "
+                     f"us/step ({t['bound_ms'] / t['ms']:.1%} of bound)")
     for head, rec in report["quality"]["heads"].items():
         parts.append(f"quality {head}: corr {rec['mel_corr']} F0 "
                      f"{rec['f0_gen']} Hz loss {rec['loss_first']} -> "

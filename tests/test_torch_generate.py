@@ -446,8 +446,11 @@ def test_kernel_pack_is_made_once_per_pack():
     assert kp2 is not kp
     assert torch.equal(_public_from_slices(kp2, spec)["b_in"], packed["b_in"])
     plan = list(kp2.plan(16, 256, -1))
-    assert plan[:4] == [2, 16, 256, -1] and len(plan) == 16
-    assert plan[14:] == [kp2.wl.shape[2], kp2.wh.shape[1]]
+    ring = kp2.ring_plan(256, -1)
+    assert kp2.ring_plan(256, -1) is ring          # planned once
+    assert plan[:4] == [2, 16, 256, ring.stages] and len(plan) == 25
+    assert plan[14:17] == [kp2.wl.shape[2], kp2.wh.shape[1], 0]
+    assert plan[17:] == [0] * 8 and ring.stages == spec.layers
 
 
 def _small_cfg(**kw):

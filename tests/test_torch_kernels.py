@@ -15,7 +15,7 @@ import torch
 
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.dsp import audio, mel_torch
-from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec
+from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec, spec_from_config
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
 from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
 from wavenet_vocoder_tpu_torch.ops import fused_train as ft
@@ -147,32 +147,111 @@ def test_kernel_matches_plain_at_ragged_widths(cuda, width, dtype, cluster):
     torch.testing.assert_close(k_x, p_x, rtol=0, atol=1e-3)
 
 
+def _flagship(seed):
+    """The mol recipe's model (128/256/128, 24 layers, cin 80)."""
+    return WaveNet(spec_from_config(Config()),
+                   generator=torch.Generator().manual_seed(seed))
+
+
+def _run_ring(packed, spec, cond, B, n, det, cap, cluster=None, ring0=None,
+              t0=0):
+    """(out, ring, info, chunk-ring launches counted) of one launch."""
+    _, rows = cg.buffer_layout(spec)
+    dt = packed["w_first"].dtype
+    ring = (torch.zeros(rows, B, spec.residual_channels, device="cuda",
+                        dtype=dt) if ring0 is None else ring0.clone())
+    x_cur = cg.default_initial_input(spec, B, device="cuda")
+    out = torch.empty(B, n, device="cuda")
+    info, before = [], _count("generate.chunked_launches")
+    cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=t0, seed=9,
+                      deterministic=det, _cluster=cluster, _max_stages=cap,
+                      _info=info)
+    torch.cuda.synchronize()
+    return (out.cpu(), ring.float().cpu(), info,
+            _count("generate.chunked_launches") - before)
+
+
+# (model, dtype, B, steps, cluster, stages the compared launch may hold):
+# the small parity model through the chunk ring (0) and a two-stage ring
+# of whole layers, against its resident slices; the flagship (24 layers)
+# through the chunk ring against its own whole-layer ring at B=16
+# (clusters of 8, four stages) and B=256 (clusters of 4, two stages)
+WEIGHT_PATHS = {
+    "small.bf16.chunks": ("small", "bfloat16", 5, 24, (2, 16), 0),
+    "small.bf16.stages2": ("small", "bfloat16", 5, 24, (2, 16), 2),
+    "small.f32.chunks": ("small", "float32", 5, 24, (2, 16), 0),
+    "small.f32.stages2": ("small", "float32", 5, 24, (2, 16), 2),
+    "flagship.b16.chunks": ("flagship", "bfloat16", 16, 256, None, 0),
+    "flagship.b256.chunks": ("flagship", "bfloat16", 256, 256, None, 0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("stages", [0, 2])
-def test_kernel_weight_paths_agree(cuda, stages):
-    """Weights read from global memory (0 stages) and through a two-stage
-    ring in shared memory give what the resident slices give, bit for bit."""
-    model = _model(11, **HEADS["mol"]).to(cuda)
+@pytest.mark.parametrize("det", [False, True], ids=["sample", "greedy"])
+@pytest.mark.parametrize("case", sorted(WEIGHT_PATHS))
+def test_kernel_weight_paths_agree(cuda, case, det):
+    """Weights through the chunk ring (0 stages) or a two-stage ring of
+    whole layers give what the shape's own plan gives (all layers resident,
+    or the flagship's whole-layer ring), bit for bit in samples and ring
+    state; ``generate.chunked_launches`` counts the chunk ring's launches
+    and no other."""
+    name, dtype, B, n, cluster, stages = WEIGHT_PATHS[case]
+    model = (_model(11, **HEADS["mol"]) if name == "small"
+             else _flagship(11)).to(cuda)
     spec = model.spec
-    packed = cg.pack_weights(model, dtype=torch.bfloat16)
-    B, n = 5, 24
+    packed = cg.pack_weights(model, dtype=getattr(torch, dtype))
     rs = np.random.RandomState(1)
-    cond = torch.from_numpy(rs.randn(B, n, 4).astype(np.float32)).to(
+    cond = torch.from_numpy(rs.randn(B, n, spec.cin_channels).astype(
+        np.float32)).to(cuda, packed["w_first"].dtype)
+    ref, got = (_run_ring(packed, spec, cond, B, n, det, cap, cluster)
+                for cap in (-1, stages))
+    whole = {"small": spec.layers, "flagship": 4 if B <= 240 else 2}[name]
+    assert ref[2][0] == whole and ref[2][4] == 0 and ref[3] == 0
+    assert got[2][4] == (stages == 0) and got[3] == (stages == 0)
+    if stages:
+        assert got[2][0] == stages
+    assert float(ref[0].std()) > 0.01
+    assert torch.equal(ref[0], got[0])
+    assert torch.equal(ref[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("det", [True, False], ids=["greedy", "sample"])
+def test_chunk_ring_matches_plain_at_512ch(cuda, det):
+    """At the 512ch model's widths (512/512/256, cin 80; 4 layers) no layer
+    block fits twice: every launch takes the chunk ring. Against the plain
+    version over 32 steps from a random state, held as chip_smoke.py's
+    phase 2 holds bf16 launches: a stream agrees within 2e-2 until a bf16
+    rounding flip parts it, and at most a quarter of the streams part. A
+    stream's samples are the same bits at clusters of 8 and of 4."""
+    spec = WaveNetSpec(layers=4, stacks=2, residual_channels=512,
+                       gate_channels=512, skip_out_channels=256,
+                       cin_channels=80, out_channels=30, scalar_input=True)
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(3)).to(cuda)
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    B, n = 16, 32
+    rs = np.random.RandomState(4)
+    cond = torch.from_numpy(rs.randn(B, n, 80).astype(np.float32)).to(
         cuda, torch.bfloat16)
     _, rows = cg.buffer_layout(spec)
-    outs = []
-    for cap in (-1, stages):
-        ring = torch.zeros(rows, B, 8, device=cuda, dtype=torch.bfloat16)
-        x_cur = cg.default_initial_input(spec, B, device=cuda)
-        out = torch.empty(B, n, device=cuda)
-        info = []
-        cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=0, seed=9,
-                          _cluster=(2, 16), _max_stages=cap, _info=info)
-        torch.cuda.synchronize()
-        assert info[0] == (spec.layers if cap < 0 else stages)
-        outs.append((out.cpu(), ring.float().cpu()))
-    assert torch.equal(outs[0][0], outs[1][0])
-    assert torch.equal(outs[0][1], outs[1][1])
+    ring0 = torch.from_numpy(rs.randn(rows, B, 512).astype(np.float32) * 0.5
+                             ).to(cuda, torch.bfloat16)
+    k8 = _run_ring(packed, spec, cond, B, n, det, -1, ring0=ring0, t0=5)
+    k4 = _run_ring(packed, spec, cond, B, n, det, -1, (4, 16), ring0, 5)
+    assert k8[2][4] == 1 and k8[3] == 1 and k4[3] == 1
+    assert torch.equal(k8[0], k4[0]) and torch.equal(k8[1], k4[1])
+    ring, x_cur = ring0.clone(), cg.default_initial_input(spec, B, device=cuda)
+    out = torch.empty(B, n, device=cuda)
+    cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond, None, t0=5,
+                            seed=9, deterministic=det)
+    diff = (k8[0] - out.cpu()).abs()
+    beyond = ~(diff <= 2e-2)
+    first = torch.where(beyond.any(dim=1), beyond.int().argmax(dim=1),
+                        torch.full((B,), n, dtype=torch.long))
+    assert int((first < n).sum()) <= B // 4
+    before = torch.arange(n)[None] < first[:, None]
+    assert float(diff[before].max()) <= 2e-2
+    assert float(k8[0].std()) > 0.01
 
 
 @pytest.mark.cuda

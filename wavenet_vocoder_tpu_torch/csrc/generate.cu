@@ -59,11 +59,34 @@
 //     one thread brings it into a ring of shared-memory stages with
 //     cp.async.bulk + mbarrier, as many layers ahead as fit (all layers stay
 //     resident when they fit), the w_in slice and the rest of a block each
-//     as soon as the stage's last reader is past it. Shapes that leave no
-//     room for two stages read the fragments from global memory instead. A
-//     layer's biases travel in the same block. The older taps of layer l+2
-//     are loaded from the global ring while layer l runs, those of the next
-//     step's first two layers and its conditioning row while the head runs.
+//     as soon as the stage's last reader is past it; the head's block stays
+//     resident. A layer's biases travel in the same block. The older taps of
+//     layer l+2 are loaded from the global ring while layer l runs, those of
+//     the next step's first two layers and its conditioning row while the
+//     head runs.
+//   * A CTA whose two layer blocks and head do not fit (the 512/512/256
+//     model: 256.6 KB a block at clusters of 8 beside 153.6 KB of buffers)
+//     pulls its whole slice of the model, ~6 MB, through shared memory every
+//     step. Read as fragments from global memory on the product chain, each
+//     load's L2 or HBM round trip stood on that chain, which 8 warps cannot
+//     hide. Such a shape streams instead (the chunk ring, generate_kernel<W,
+//     true>): each product's slice is cut into chunks of whole steps (bf16
+//     k-steps, f32 rows; ops/cuda_generate.py::ring_plan), and a producer
+//     warpgroup (one lane working; its registers go to the computing warps)
+//     puts them with cp.async.bulk, in the order the warps take them, into
+//     slots with a full and an empty mbarrier each, a slot as soon as every
+//     warp has left it; the head's products stream through the same slots.
+//     A warp takes each chunk as its k-walk enters it: all of its units of
+//     the product (an item or a tile; kUnits a pass) advance through the
+//     chunk together, each sum taking the same k-steps in the same order as
+//     the whole-layer path. A pass's last chunk brings the product's biases
+//     behind its weights; they are read out before the chunk goes back. Two
+//     large slots ran faster on an H100 than three to six smaller ones:
+//     every chunk costs each warp a wait and a release. What bounds the
+//     512/512/256 step then: the stream itself (the products compiled out,
+//     a step still takes ~75% of its time) and the older taps of the layer
+//     after next, of which a thread loads kTapPre vectors ahead and, at
+//     R = 512, six more on the chain at the layer's end.
 //   * Ring buffers (rows, B, R) and the current input (B, C_in) live in global
 //     memory, allocated by the caller, so state survives between launches.
 //     R is a multiple of 8 (rows move 8 channels a vector): the wrapper runs
@@ -105,6 +128,8 @@ constexpr int kRows = 16;          // streams a cluster owns: the rows of an mma
 constexpr int kThreads = 256;      // most threads per CTA
 constexpr int kSplitIn = 2;        // parts the depth of the w_in product is cut into (bf16)
 constexpr int kTapPre = 2;         // 8-element tap vectors a thread loads ahead
+constexpr int kUnits = 2;          // chunk ring: units of a product a warp (f32: thread) runs a pass
+constexpr int kFillThreads = 128;  // chunk ring: the filler's warpgroup
 constexpr size_t kSmemLimit = 232448;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -171,11 +196,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 // bytes (a multiple of 16) from global to this CTA's shared memory; completion
-// is counted on the mbarrier. Issued by one thread.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, size_t bytes,
+// is counted on the mbarrier, which expects them already. Issued by one thread.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, size_t bytes,
                                           uint64_t* bar) {
-  mbar_expect_tx(bar, (uint32_t)bytes);
   const char* s = static_cast<const char*>(src);
   char* d = static_cast<char*>(dst);
   for (size_t at = 0; at < bytes; at += 32768) {
@@ -185,6 +212,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, size_t byt
         ::"r"(smem_u32(d + at)), "l"(s + at), "r"(part), "r"(smem_u32(bar))
         : "memory");
   }
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, size_t bytes,
+                                          uint64_t* bar) {
+  mbar_expect_tx(bar, (uint32_t)bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 // release/acquire barrier over all threads of the cluster, in two halves
 __device__ __forceinline__ void cluster_arrive() {
@@ -223,32 +255,43 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 
 // ------------------------------------------------------------------- products
 // x: 16 rows of K values (row stride xs) in shared memory, already in the
-// pack dtype; K % 16 == 0. w: this CTA's K x N slice (N % 8 == 0), in shared
-// or global memory.
+// pack dtype; K % 16 == 0. w: this CTA's K x N slice (N % 8 == 0), or a run
+// of its k-steps (16 rows each), in shared memory.
 
 // bf16: w in mma fragment order, [k-step][n-tile][lane][4], lane (g = lane / 4,
-// t = lane % 4) holding w[16 ks + 2t + {0, 1, 8, 9}][8 nt + g]. One warp runs
-// k-steps ks0, ks0 + stride, ... for NTL n-tiles (nt[i]); lane (g, t) ends up
-// with acc[i] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)} of tile nt[i].
-// Two accumulators per tile take the k-steps in turns (the mma's latency is
-// what a chain waits for) and are added at the end.
-template <int NTL>
-__device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, int ks0,
-                                          int stride, const int* nt, const __nv_bfloat16* x,
-                                          int xs, float (*acc)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float odd[NTL][4];
-#pragma unroll
-  for (int i = 0; i < NTL; ++i)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[i][v] = odd[i][v] = 0.0f;
+// t = lane % 4) holding w[16 ks + 2t + {0, 1, 8, 9}][8 nt + g]; w holds the
+// fragments from k-step kb on. One warp runs k-steps ks, ks + stride, ...
+// below ke for NTL n-tiles (nt[i]); lane (g, t) ends up with acc[i] = {(g,
+// 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)} of tile nt[i]. Two accumulators per
+// tile take a product's k-steps in turns (the mma's latency is what a chain
+// waits for): its m-th k-step goes to acc for even m and to odd for odd m,
+// wherever a run of them starts (odd_first: this run starts at an odd m).
+template <int NTL, bool kAnyStart>
+__device__ __forceinline__ void mma_steps(const __nv_bfloat16* w, int kb, int ks, int ke,
+                                          int stride, int N, const int* nt,
+                                          const __nv_bfloat16* x, int xs, float (*acc)[4],
+                                          float (*odd)[4], bool odd_first) {
 #ifndef WN_NO_PRODUCTS
-  const int KS = K >> 4, per = (N >> 3) * 32;   // uint2s per k-step
-  const __nv_bfloat16* xp = x + g * xs + 2 * t + ks0 * 16;
-  const uint2* wp = reinterpret_cast<const uint2*>(w) + lane + (size_t)ks0 * per;
-  int ks = ks0;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int per = (N >> 3) * 32;   // uint2s per k-step
+  const __nv_bfloat16* xp = x + g * xs + 2 * t + ks * 16;
+  const uint2* wp = reinterpret_cast<const uint2*>(w) + lane + (size_t)(ks - kb) * per;
+  if (kAnyStart && odd_first && ks < ke) {
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xp);
+    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xp + 8 * xs);
+    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xp + 8);
+    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(xp + 8 * xs + 8);
+#pragma unroll
+    for (int i = 0; i < NTL; ++i) {
+      const uint2 b = wp[nt[i] * 32];
+      mma_bf16(odd[i], a0, a1, a2, a3, b.x, b.y);
+    }
+    ks += stride;
+    xp += 16 * stride;
+    wp += stride * per;
+  }
 #pragma unroll 2
-  for (; ks + stride < KS; ks += 2 * stride, xp += 32 * stride, wp += 2 * stride * per) {
+  for (; ks + stride < ke; ks += 2 * stride, xp += 32 * stride, wp += 2 * stride * per) {
     const __nv_bfloat16* xq = xp + 16 * stride;
     const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xp);
     const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xp + 8 * xs);
@@ -265,7 +308,7 @@ __device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, 
       mma_bf16(odd[i], c0, c1, c2, c3, d.x, d.y);
     }
   }
-  if (ks < KS) {
+  if (ks < ke) {
     const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xp);
     const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xp + 8 * xs);
     const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xp + 8);
@@ -276,6 +319,21 @@ __device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, 
       mma_bf16(acc[i], a0, a1, a2, a3, b.x, b.y);
     }
   }
+#endif
+}
+
+// The whole depth of a product: k-steps ks0, ks0 + stride, ... of K / 16.
+template <int NTL>
+__device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, int ks0,
+                                          int stride, const int* nt, const __nv_bfloat16* x,
+                                          int xs, float (*acc)[4]) {
+  float odd[NTL][4];
+#pragma unroll
+  for (int i = 0; i < NTL; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[i][v] = odd[i][v] = 0.0f;
+  mma_steps<NTL, false>(w, 0, ks0, K >> 4, stride, N, nt, x, xs, acc, odd, false);
+#ifndef WN_NO_PRODUCTS
 #pragma unroll
   for (int i = 0; i < NTL; ++i)
 #pragma unroll
@@ -283,20 +341,27 @@ __device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, 
 #endif
 }
 
-// f32: w row-major; one thread runs the whole depth for one row and NCOL
-// columns (col[i]).
+// f32: w row-major, from row r0 on; one thread runs rows [r0, r1) of the
+// depth for one row and NCOL columns (col[i]).
+template <int NCOL>
+__device__ __forceinline__ void fma_rows(const float* w, int r0, int r1, int N, const int* col,
+                                         const float* xrow, float* acc) {
+#ifndef WN_NO_PRODUCTS
+  for (int k = r0; k < r1; ++k) {
+    const float xv = xrow[k];
+    const float* wr = w + (size_t)(k - r0) * N;
+#pragma unroll
+    for (int i = 0; i < NCOL; ++i) acc[i] += xv * wr[col[i]];
+  }
+#endif
+}
+
 template <int NCOL>
 __device__ __forceinline__ void fma_chain(const float* w, int K, int N, const int* col,
                                           const float* xrow, float* acc) {
 #pragma unroll
   for (int i = 0; i < NCOL; ++i) acc[i] = 0.0f;
-#ifndef WN_NO_PRODUCTS
-  for (int k = 0; k < K; ++k) {
-    const float xv = xrow[k];
-#pragma unroll
-    for (int i = 0; i < NCOL; ++i) acc[i] += xv * w[(size_t)k * N + col[i]];
-  }
-#endif
+  fma_rows<NCOL>(w, 0, K, N, col, xrow, acc);
 }
 
 // e = start, start + step, ... as (row, col) = (e / n, e % n), dividing once
@@ -408,22 +473,26 @@ struct Params {
   int Cp;             // C_out padded to 8
   int xs, gs, ss;     // row strides of the [taps | cond], gated and head buffers
   int stage_bytes, head_bytes;
-  // chosen at launch
-  int nstage;         // layer blocks held in shared memory (0: read from global)
-  int head_res;       // the head's block held in shared memory
+  // the ring of weights in shared memory (KernelPack.ring_plan)
+  int nstage;         // whole-layer stages, or chunk slots
+  int slot_bytes;     // 0: whole-layer stages, the head's block resident; else a chunk slot
+  int ck[4];          // steps (bf16 k-steps, f32 rows) a chunk of w_in, w_og, w_h1, w_h2 carries
+  int passes[4];      // passes over each product's chunks, kUnits units a warp (f32: thread) each
+  int head_res;       // the head's block held in shared memory (whole-layer stages)
 };
 
 __host__ __device__ inline size_t up128(size_t b) { return (b + 127) / 128 * 128; }
 
 // byte offsets into dynamic shared memory
 struct Layout {
-  size_t stage_stride, headw, xin, gt, hx, o1, part, hbf, sk, lo, xc, first, code, ltab, bars, total;
+  size_t stage_stride, headw, xin, gt, hx, o1, part, bst, hbf, sk, lo, xc, first, code, ltab, bars,
+      total;
 };
 template <typename W> __host__ __device__ inline Layout make_layout(const Params& p) {
   const size_t M = kRows;
   Layout y;
   size_t o = 0;
-  y.stage_stride = up128((size_t)p.stage_bytes);
+  y.stage_stride = up128((size_t)(p.slot_bytes > 0 ? p.slot_bytes : p.stage_bytes));
   o += (size_t)p.nstage * y.stage_stride;
   y.headw = o; o += p.head_res ? up128((size_t)p.head_bytes) : 0;
   y.xin = o;  o += up128(2 * M * p.xs * sizeof(W));
@@ -432,6 +501,8 @@ template <typename W> __host__ __device__ inline Layout make_layout(const Params
   y.o1 = o;   o += up128(M * p.ss * sizeof(W));
   // bf16: the kSplitIn partial sums of the w_in product, [part][tile][lane][4]
   y.part = o; o += sizeof(W) == 2 ? up128(kSplitIn * M * 2 * p.Gq * 4) : 0;
+  // the chunk ring: b_in, copied out of its chunk
+  y.bst = o;  o += p.slot_bytes > 0 ? up128(2 * (size_t)p.Gq * 4) : 0;
   y.hbf = o;  o += up128(M * p.Rq * 4);
   y.sk = o;   o += up128(M * p.Sq * 4);
   y.lo = o;   o += up128(M * p.Cp * 4);
@@ -452,8 +523,9 @@ template <typename W> __host__ __device__ inline Layout make_layout(const Params
 #define WN_STAMP(i)
 #endif
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
+template <typename W, bool kChunk>
+__global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
+    generate_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int M = kRows;
   constexpr bool kBf16 = !std::is_same<W, float>::value;
@@ -465,6 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
   W* hx = reinterpret_cast<W*>(smem + lay.hx);      // M x ss: head input
   W* o1 = reinterpret_cast<W*>(smem + lay.o1);      // M x ss: head hidden
   float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* bst = reinterpret_cast<float*>(smem + lay.bst);
   float* hbf = reinterpret_cast<float*>(smem + lay.hbf);  // M x Rq: own residual columns, f32
   float* sk = reinterpret_cast<float*>(smem + lay.sk);    // M x Sq: own skip sums
   float* lo = reinterpret_cast<float*>(smem + lay.lo);    // M x Cp: head output
@@ -477,7 +550,8 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
   int* l_dil = l_off + p.L;                               //   dilation,
   int* l_mods = l_dil + p.L;   //   t mod ((k - 1) * dilation), for even and odd steps j
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  // bars[2 s], bars[2 s + 1]: stage s holds its w_in slice; the rest of its block
+  // bars[2 s], bars[2 s + 1]: whole-layer stage s holds its w_in slice; the
+  // rest of its block. Chunk ring: slot s is full; slot s is free again.
   uint64_t* bar_head = bars + 2 * p.nstage;   // the head's weights have landed
   uint64_t* bar_x = bar_head + 1;    // all slices of a layer's newest tap have landed
   uint64_t* bar_g = bar_head + 2;    // ... of gated
@@ -489,7 +563,9 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
   // out of the step loop (Walk, the tap tables), nothing in a layer divides,
   // and every product's bias, activation and send run in the registers of
   // the thread that holds the sum.
-  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the threads that compute; the chunk ring's filler is a warpgroup more
+  const int nthr = kChunk ? (int)blockDim.x - kFillThreads : (int)blockDim.x;
   const int NW = nthr >> 5, g = lane >> 2, t4 = lane & 3;
   const int CS = p.CS, rank = (int)cluster.block_rank();
   const int base = (blockIdx.x / CS) * p.spc;
@@ -526,19 +602,97 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
   // n-tiles: 8 gate channels' a and b half)
   const int pairs = Gq >> 3;
   const Walk walk_w(warp, NW, pairs);
+  // the depths of w_in, w_og and the head's products in the chunk ring's
+  // steps: bf16 mma k-steps of 16 rows, f32 single rows
+  constexpr int kRowsStep = kBf16 ? 16 : 1;
+  const int KSin = p.Kin / kRowsStep, KSog = p.Kog / kRowsStep, KSsk = p.Ksk / kRowsStep;
 
   // zero every activation buffer (padding columns and unused rows stay zero)
   {
     uint32_t* z = reinterpret_cast<uint32_t*>(smem + lay.xin);
     const int words = (int)((lay.bars - lay.xin) / 4);
-    for (int e = tid; e < words; e += nthr) z[e] = 0u;
+    for (int e = tid; e < words; e += blockDim.x) z[e] = 0u;
   }
   if (tid == 0) {
-    for (int s = 0; s < 2 * p.nstage + 5; ++s) mbar_init(&bars[s], 1);
+    // a chunk slot is free again once every warp has left it
+    for (int s = 0; s < 2 * p.nstage + 5; ++s)
+      mbar_init(&bars[s], kChunk && s < 2 * p.nstage && (s & 1) ? NW : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
+
+  if constexpr (kChunk) {
+    if (warp >= NW) {
+      // The chunk ring's filler, a warpgroup of its own that gives most of
+      // its registers to the computing ones; its first lane walks the order
+      // in which every warp takes the chunks: per step each layer's w_in
+      // then w_og slice, then the head's w_h1 and w_h2; each product pass
+      // by pass, a pass in chunks of whole steps; each chunk into the next
+      // slot once every computing warp has left what it held. A pass's last
+      // chunk brings the product's biases behind its weights.
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+      if (warp > NW) return;
+      int slot = 0;
+      uint32_t wraps = 0;
+      auto put = [&](const unsigned char* w, int KS, int d, const unsigned char* bias,
+                     uint32_t bias_bytes) {
+        const size_t kstep =
+            (size_t)kRowsStep * (d == 0 ? NA : d == 1 ? NB : d == 2 ? Sq : Cp) * sizeof(W);
+        for (int pass = 0; pass < p.passes[d]; ++pass)
+          for (int k0 = 0; k0 < KS; k0 += p.ck[d]) {
+            const int k1 = min(KS, k0 + p.ck[d]);
+            const uint32_t bytes = (uint32_t)((k1 - k0) * kstep);
+            const uint32_t extra = k1 == KS ? bias_bytes : 0u;
+            if (wraps > 0) mbar_wait(&bars[2 * slot + 1], (wraps - 1) & 1);
+            unsigned char* dst = stages + slot * lay.stage_stride;
+            mbar_expect_tx(&bars[2 * slot], bytes + extra);
+            bulk_copy(dst, w + k0 * kstep, bytes, &bars[2 * slot]);
+            if (extra) bulk_copy(dst + bytes, bias, extra, &bars[2 * slot]);
+            if (++slot == p.nstage) {
+              slot = 0;
+              ++wraps;
+            }
+          }
+      };
+      // the cluster barriers the computing threads pass: before the first
+      // step, after each step's layers (its wait after the head's first
+      // product, so that the head's chunks are on their way before it), and
+      // before they leave
+      cluster_arrive();
+      cluster_wait();
+      for (int j = 0; j < p.n; ++j) {
+        if (lane == 0)
+          for (int l = 0; l < L; ++l) {
+            const unsigned char* blk = wl + (size_t)l * p.stage_bytes;
+            const unsigned char* bias = blk + win_bytes + wog_bytes;
+            put(blk, KSin, 0, bias, NA * 4);
+            put(blk + win_bytes, KSog, 1, bias + NA * 4, NB * 4);
+          }
+        __syncwarp();
+        cluster_arrive();
+        if (lane == 0) {
+          const unsigned char* bias = wh + wh1_bytes + wh2_bytes;
+          put(wh, KSsk, 2, bias, Sq * 4);
+          put(wh + wh1_bytes, KSsk, 3, bias + Sq * 4, Cp * 4);
+        }
+        __syncwarp();
+        cluster_wait();
+      }
+      cluster_arrive();
+      cluster_wait();
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  }
+  // from here on the computing threads alone
+  auto sync = [&]() {
+    if constexpr (kChunk)
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nthr) : "memory");
+    else
+      __syncthreads();
+  };
+
   for (int e = tid; e < M * C_in; e += nthr) {
     const int bi = e / C_in;
     if (bi < nvalid) xc[e] = p.x_cur[(size_t)(base + bi) * C_in + e % C_in];
@@ -555,13 +709,13 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
       off += (k - 1) * l_dil[l];
     }
   }
-  // The ring of weight blocks, filled in two parts so that each part is on
-  // its way again as soon as it is read out: part 0 the w_in slice, part 1
+  // The ring of whole-layer stages, filled in two parts so that each part is
+  // on its way again as soon as it is read out: part 0 the w_in slice, part 1
   // the rest. The next block of part h goes to stage fill_slot[h].
   long long issued[2] = {0, 0};
   int fill_slot[2] = {0, 0}, fill_layer[2] = {0, 0};
   // The last warp has the fewest products to run: its first lane fills.
-  const bool filler = tid == nthr - 32;
+  const bool filler = !kChunk && tid == nthr - 32;
   auto fill = [&](int h) {   // the filler only
     const size_t at = h ? win_bytes : 0, bytes = h ? p.stage_bytes - win_bytes : win_bytes;
     bulk_load(stages + fill_slot[h] * lay.stage_stride + at,
@@ -570,9 +724,9 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
     if (++fill_slot[h] == p.nstage) fill_slot[h] = 0;
     if (++fill_layer[h] == L) fill_layer[h] = 0;
   };
-  const bool refill = p.nstage > 0 && !resident;
+  const bool refill = !resident;
   if (filler) {
-    if (p.head_res) bulk_load(smem + lay.headw, wh, (size_t)p.head_bytes, bar_head);
+    bulk_load(smem + lay.headw, wh, (size_t)p.head_bytes, bar_head);
     for (int h = 0; h < 2; ++h)
       while (issued[h] < p.nstage && issued[h] < total_layers) fill(h);
   }
@@ -583,12 +737,111 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
     mbar_expect_tx(bar_hx, s_bytes);
     mbar_expect_tx(bar_o1, s_bytes);
   }
-  int use_slot = 0;            // the stage the next layer reads,
+  int use_slot = 0;            // the stage or slot read next,
   uint32_t use_parity = 0;     //   and how often the ring has wrapped (mod 2)
   // no CTA sends into a peer before the peer has cleared its buffers and
   // set up its mbarriers
   cluster_arrive();
   cluster_wait();
+
+  // The chunk ring, as the computing warps see it: every warp takes every
+  // chunk, in the order the filler brings them, and leaves it as a warp.
+  auto acquire = [&]() {
+    mbar_wait(&bars[2 * use_slot], use_parity);
+    return static_cast<const unsigned char*>(stages + use_slot * lay.stage_stride);
+  };
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars[2 * use_slot + 1]);
+    if (++use_slot == p.nstage) {
+      use_slot = 0;
+      use_parity ^= 1u;
+    }
+  };
+  // One pass over the KS steps of a product in chunks of ck: step(chunk,
+  // k0, k1) on each, chunk holding steps [k0, k1) of kstep bytes. Returns
+  // the biases behind the last chunk's weights; that chunk stays taken until
+  // the caller, done with them, releases it.
+  auto walk = [&](int KS, int ck, size_t kstep, auto&& step) {
+    for (int k0 = 0;; k0 += ck) {
+      const int k1 = min(KS, k0 + ck);
+      const unsigned char* c = acquire();
+      step(c, k0, k1);
+      if (k1 == KS) return reinterpret_cast<const float*>(c + (size_t)(k1 - k0) * kstep);
+      release();
+    }
+  };
+  // Chunk ring, bf16: a product of single n-tiles (w_og, the head's), pass
+  // by pass up to kUnits of the warp's tiles through every chunk, then
+  // epi(tile, sums, b0, b1) for each, b0 and b1 the biases of the lane's
+  // columns 8 tile + 2 t4 + {0, 1}, read before the last chunk goes back.
+  auto tiles_pass = [&](int d, int KS, int N, const auto* x, int xstride, int tiles,
+                        auto&& skip, auto&& epi) {
+    for (int pass = 0; pass < p.passes[d]; ++pass) {
+      float acc[kUnits][1][4], odd[kUnits][1][4];
+      int nt[kUnits];
+      bool on[kUnits];
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        nt[i] = warp + (pass * kUnits + i) * NW;
+        on[i] = nt[i] < tiles && !skip(nt[i]);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][0][v] = odd[i][0][v] = 0.0f;
+      }
+      const float* bias = walk(KS, p.ck[d], (size_t)16 * N * sizeof(W),
+                               [&](const unsigned char* c, int k0, int k1) {
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i)
+          if (on[i])
+            mma_steps<1, true>(reinterpret_cast<const __nv_bfloat16*>(c), k0, k0, k1, 1, N,
+                               &nt[i], x, xstride, acc[i], odd[i], k0 & 1);
+      });
+      float b[kUnits][2];
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i)
+        if (on[i]) b[i][0] = bias[nt[i] * 8 + 2 * t4], b[i][1] = bias[nt[i] * 8 + 2 * t4 + 1];
+      release();
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        if (!on[i]) continue;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][0][v] += odd[i][0][v];
+        epi(nt[i], acc[i][0], b[i][0], b[i][1]);
+      }
+    }
+  };
+  // Chunk ring, f32: a product of one column an output (w_og, the head's),
+  // pass by pass up to kUnits of the thread's outputs (row, col) of the M x N
+  // through every chunk, then epi(row, col, sum, biases) for each.
+  auto cols_pass = [&](int d, int KS, int N, const auto* x, int xstride, auto&& skip,
+                       auto&& epi) {
+    for (int pass = 0; pass < p.passes[d]; ++pass) {
+      float acc[kUnits][1];
+      int row[kUnits], col[kUnits];
+      bool on[kUnits];
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        const int e = tid + (pass * kUnits + i) * nthr;
+        row[i] = e / N;
+        col[i] = e % N;
+        on[i] = e < M * N && !skip(col[i]);
+        acc[i][0] = 0.0f;
+      }
+      const float* bias = walk(KS, p.ck[d], (size_t)N * sizeof(W),
+                               [&](const unsigned char* c, int k0, int k1) {
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i)
+          if (on[i])
+            fma_rows<1>(reinterpret_cast<const float*>(c), k0, k1, N, &col[i],
+                        x + row[i] * xstride, acc[i]);
+      });
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i)
+        if (on[i]) epi(row[i], col[i], acc[i][0], bias);
+      release();
+    }
+  };
+  auto no_skip = [](int) { return false; };
 
   // The older taps of a layer from the global ring: vector v = tid + u * nthr
   // is 8 channels of one tap of one stream. Where it comes from in a ring row
@@ -680,9 +933,10 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
       l_mods[(j & 1) * L + l] = (p.t0 + j) % ((k - 1) * l_dil[l]);
   };
 
+
   // what the first step's first two layers need that is known already
   set_mods(0);
-  __syncthreads();
+  sync();
   Vec8<W> pre0[kTapPre], pre1[kTapPre], prec;
   taps_load(pre0, 0, 1, l_mods[0]);
   if (L > 1) taps_load(pre1, l_off[1], l_dil[1], l_mods[1]);
@@ -722,7 +976,7 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
     taps_store(pre0, 0, 1, l_mod[0], xin);
     if (L > 1) taps_store(pre1, l_off[1], l_dil[1], l_mod[1], xin + M * xs);
     cond_store(&prec, j);
-    __syncthreads();
+    sync();
     WN_STAMP(1);
 
     for (int l = 0; l < L; ++l) {
@@ -730,22 +984,26 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
       W* xb = xin + (l & 1) * M * xs;          // this layer's [taps | cond]
       W* xn = xin + ((l + 1) & 1) * M * xs;    // the next layer's
 
-      // this layer's block of weights and biases
-      const unsigned char* wst = wl + (size_t)l * p.stage_bytes;
-      if (p.nstage > 0) {
+      // this layer's block of weights and biases: a whole-layer stage holds
+      // it; the chunk ring brings it chunk by chunk in the products below
+      const W* w_in = nullptr;
+      const W* w_og = nullptr;
+      const float* b_in = bst;   // the chunk ring copies b_in here
+      const float* b_og = nullptr;
+      if constexpr (!kChunk) {
         const uint32_t parity = resident ? 0u : use_parity;
         mbar_wait(&bars[2 * use_slot], parity);
         mbar_wait(&bars[2 * use_slot + 1], parity);
-        wst = stages + use_slot * lay.stage_stride;
+        const unsigned char* wst = stages + use_slot * lay.stage_stride;
         if (++use_slot == p.nstage) {
           use_slot = 0;
           use_parity ^= 1u;
         }
+        w_in = reinterpret_cast<const W*>(wst);
+        w_og = reinterpret_cast<const W*>(wst + win_bytes);
+        b_in = reinterpret_cast<const float*>(wst + win_bytes + wog_bytes);
+        b_og = b_in + NA;
       }
-      const W* w_in = reinterpret_cast<const W*>(wst);
-      const W* w_og = reinterpret_cast<const W*>(wst + win_bytes);
-      const float* b_in = reinterpret_cast<const float*>(wst + win_bytes + wog_bytes);
-      const float* b_og = b_in + NA;
       const float* gg = p.g_gate == nullptr ? nullptr : p.g_gate + ((size_t)l * p.B + base) * G;
 
       // ---- [taps | cond] @ w_in slice + b_in (+ global gate), GLU; own gate
@@ -764,34 +1022,116 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
         off2 = l_off[l + 2], dil2 = l_dil[l + 2], mod2 = l_mod[l + 2];
         taps_load(pre, off2, dil2, mod2);
       }
+      // f32: bias, global gate, GLU and the send of gate channel qc of a stream
+      auto glu_send = [&](int row, int qc, float a, float b, const float* bias) {
+        const int ch = rank * Gq + qc;
+        float za = a + bias[qc], zg = b + bias[Gq + qc];
+        if (gg != nullptr && ch < G2 && row < nvalid) {
+          za += gg[(size_t)row * G + ch];
+          zg += gg[(size_t)row * G + G2 + ch];
+        }
+        send(CS, gt, row * gs + ch, glu<W>(za, zg), bar_g);
+      };
       if constexpr (kBf16) {
         // A warp's item: one pair of n-tiles for one of kSplitIn parts of the
         // k-steps; the partial sums meet in shared memory.
-        Walk w = walk_w;
-        for (int item = warp; item < pairs * kSplitIn; item += NW, w.next()) {
-          const int nt[2] = {w.col, pairs + w.col};
-          float acc[2][4];
-          mma_chain<2>(w_in, p.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
-          float4* dst = reinterpret_cast<float4*>(part) + ((w.row * pairs + w.col) * 2) * 32 + lane;
+        auto put_part = [&](int sp, int pr, const float (*acc)[4]) {
+          float4* dst = reinterpret_cast<float4*>(part) + ((sp * pairs + pr) * 2) * 32 + lane;
           dst[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
           dst[32] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+        };
+        if constexpr (kChunk) {
+          // pass by pass, up to kUnits of the warp's items through every
+          // chunk
+          for (int pass = 0; pass < p.passes[0]; ++pass) {
+            float acc[kUnits][2][4], odd[kUnits][2][4];
+            int nt[kUnits][2], sp[kUnits];
+            bool on[kUnits];
+#pragma unroll
+            for (int i = 0; i < kUnits; ++i) {
+              const int item = warp + (pass * kUnits + i) * NW;
+              on[i] = item < pairs * kSplitIn;
+              sp[i] = item / pairs;
+              nt[i][0] = item % pairs;
+              nt[i][1] = pairs + nt[i][0];
+#pragma unroll
+              for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int v = 0; v < 4; ++v) acc[i][a][v] = odd[i][a][v] = 0.0f;
+            }
+            const float* bias = walk(KSin, p.ck[0], (size_t)16 * NA * sizeof(W),
+                                     [&](const unsigned char* c, int k0, int k1) {
+#pragma unroll
+              for (int i = 0; i < kUnits; ++i) {
+                if (!on[i]) continue;
+                // the item's first k-step in the chunk; its m-th of the item
+                const int ks = k0 + ((sp[i] - k0) & (kSplitIn - 1));
+                mma_steps<2, true>(reinterpret_cast<const __nv_bfloat16*>(c), k0, ks, k1,
+                                   kSplitIn, NA, nt[i], xb, xs, acc[i], odd[i],
+                                   ((ks - sp[i]) / kSplitIn) & 1);
+              }
+            });
+            // b_in out of its chunk, so that the chunk goes back now
+            for (int e = tid; e < NA; e += nthr) bst[e] = bias[e];
+            release();
+#pragma unroll
+            for (int i = 0; i < kUnits; ++i) {
+              if (!on[i]) continue;
+#pragma unroll
+              for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int v = 0; v < 4; ++v) acc[i][a][v] += odd[i][a][v];
+              put_part(sp[i], nt[i][0], acc[i]);
+            }
+          }
+        } else {
+          Walk w = walk_w;
+          for (int item = warp; item < pairs * kSplitIn; item += NW, w.next()) {
+            const int nt[2] = {w.col, pairs + w.col};
+            float acc[2][4];
+            mma_chain<2>(w_in, p.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
+            put_part(w.row, w.col, acc);
+          }
         }
       } else {
-        Walk w = walk_g;
-        for (int e = tid; e < M * Gq; e += nthr, w.next()) {
-          const int row = w.row, qc = w.col, ch = rank * Gq + qc;
-          const int col[2] = {qc, Gq + qc};
-          float acc[2];
-          fma_chain<2>(w_in, p.Kin, NA, col, xb + row * xs, acc);
-          float za = acc[0] + b_in[qc], zg = acc[1] + b_in[Gq + qc];
-          if (gg != nullptr && ch < G2 && row < nvalid) {
-            za += gg[(size_t)row * G + ch];
-            zg += gg[(size_t)row * G + G2 + ch];
+        if constexpr (kChunk) {
+          for (int pass = 0; pass < p.passes[0]; ++pass) {
+            float acc[kUnits][2];
+            int row[kUnits], col[kUnits][2];
+            bool on[kUnits];
+#pragma unroll
+            for (int i = 0; i < kUnits; ++i) {
+              const int e = tid + (pass * kUnits + i) * nthr;
+              on[i] = e < M * Gq;
+              row[i] = e / Gq;
+              col[i][0] = e % Gq;
+              col[i][1] = Gq + col[i][0];
+              acc[i][0] = acc[i][1] = 0.0f;
+            }
+            const float* bias = walk(KSin, p.ck[0], (size_t)NA * sizeof(W),
+                                     [&](const unsigned char* c, int k0, int k1) {
+#pragma unroll
+              for (int i = 0; i < kUnits; ++i)
+                if (on[i])
+                  fma_rows<2>(reinterpret_cast<const float*>(c), k0, k1, NA, col[i],
+                              xb + row[i] * xs, acc[i]);
+            });
+#pragma unroll
+            for (int i = 0; i < kUnits; ++i)
+              if (on[i]) glu_send(row[i], col[i][0], acc[i][0], acc[i][1], bias);
+            release();
           }
-          send(CS, gt, row * gs + ch, glu<W>(za, zg), bar_g);
+        } else {
+          Walk w = walk_g;
+          for (int e = tid; e < M * Gq; e += nthr, w.next()) {
+            const int col[2] = {w.col, Gq + w.col};
+            float acc[2];
+            fma_chain<2>(w_in, p.Kin, NA, col, xb + w.row * xs, acc);
+            glu_send(w.row, w.col, acc[0], acc[1], b_in);
+          }
         }
       }
-      __syncthreads();
+      sync();
       // Every thread is past this layer's w_in slice and, since the layer
       // before, past the rest of that layer's block.
       if (filler && refill) {
@@ -835,22 +1175,21 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
       W* row0 = ring + (size_t)l_mod[0] * ring_row + (size_t)base * R;
       W* rown = last ? nullptr
                      : ring + (size_t)(l_off[l + 1] + l_mod[l + 1]) * ring_row + (size_t)base * R;
+      // the last layer's residual is not used
+      auto skip_res = [&](int c) { return c < Rq && last && l != 0; };
       if constexpr (kBf16) {
         // a warp per n-tile; bias, residual or skip sum and the send run in
         // the registers that hold the sums
-        for (int tile = warp; tile < (NB >> 3); tile += NW) {
+        auto og_tile = [&](int tile, const float* acc, float b0, float b1) {
           const int col0 = tile * 8;
-          const bool res = col0 < Rq;
-          if (res && last && l != 0) continue;   // the last layer's residual is not used
-          float acc[1][4], v[4];
-          mma_chain<1>(w_og, p.Kog, NB, 0, 1, &tile, gt, gs, acc);
-          if (res) {
+          float v[4];
+          if (col0 < Rq) {
             float h0[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int row = g + 8 * (i >> 1), c = col0 + 2 * t4 + (i & 1);
               h0[i] = hbf[row * Rq + c];
-              v[i] = (acc[0][i] + b_og[c] + h0[i]) * sqrt_half;
+              v[i] = (acc[i] + ((i & 1) ? b1 : b0) + h0[i]) * sqrt_half;
               hbf[row * Rq + c] = v[i];
             }
             const int ch = rank * Rq + col0 + 2 * t4;   // even: a pair of channels per store
@@ -871,24 +1210,30 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int row = g + 8 * (i >> 1), c = col0 - Rq + 2 * t4 + (i & 1);
-              const float s = sk[row * Sq + c] + acc[0][i] + b_og[Rq + c];
+              const float s = sk[row * Sq + c] + acc[i] + ((i & 1) ? b1 : b0);
               sk[row * Sq + c] = s;
               v[i] = fmaxf(s * sqrt_inv_L, 0.0f);   // head input: ReLU of the scaled skip sum
             }
             if (last) send_tile(CS, hx, ss, rank * Sq + col0 - Rq, v, bar_hx);
           }
+        };
+        if constexpr (kChunk) {
+          tiles_pass(1, KSog, NB, gt, gs, NB >> 3, [&](int tile) { return skip_res(tile * 8); },
+                     og_tile);
+        } else {
+          for (int tile = warp; tile < (NB >> 3); tile += NW) {
+            if (skip_res(tile * 8)) continue;
+            float acc[1][4];
+            mma_chain<1>(w_og, p.Kog, NB, 0, 1, &tile, gt, gs, acc);
+            og_tile(tile, acc[0], b_og[tile * 8 + 2 * t4], b_og[tile * 8 + 2 * t4 + 1]);
+          }
         }
       } else {
-        Walk w = walk_b;
-        for (int e = tid; e < M * NB; e += nthr, w.next()) {
-          const int row = w.row, c = w.col;
-          if (c < Rq && last && l != 0) continue;
-          float acc[1];
-          fma_chain<1>(w_og, p.Kog, NB, &c, gt + row * gs, acc);
+        auto og_out = [&](int row, int c, float acc, const float* bias) {
           if (c < Rq) {
             const int ch = rank * Rq + c;
             const float h0 = hbf[row * Rq + c];
-            const float h1 = (acc[0] + b_og[c] + h0) * sqrt_half;
+            const float h1 = (acc + bias[c] + h0) * sqrt_half;
             hbf[row * Rq + c] = h1;
             if (row < nvalid && ch < R) {
               if (l == 0) row0[(size_t)row * R + ch] = from_f<W>(h0);
@@ -896,10 +1241,22 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
             }
             if (!last) send(CS, xn, row * xs + (k - 1) * Rp + ch, h1, bar_x);
           } else {
-            const float s = sk[row * Sq + c - Rq] + acc[0] + b_og[c];
+            const float s = sk[row * Sq + c - Rq] + acc + bias[c];
             sk[row * Sq + c - Rq] = s;
             if (last)
               send(CS, hx, row * ss + rank * Sq + c - Rq, fmaxf(s * sqrt_inv_L, 0.0f), bar_hx);
+          }
+        };
+        if constexpr (kChunk) {
+          cols_pass(1, KSog, NB, gt, gs, skip_res, og_out);
+        } else {
+          Walk w = walk_b;
+          for (int e = tid; e < M * NB; e += nthr, w.next()) {
+            const int row = w.row, c = w.col;
+            if (skip_res(c)) continue;
+            float acc[1];
+            fma_chain<1>(w_og, p.Kog, NB, &c, gt + row * gs, acc);
+            og_out(row, c, acc[0], b_og);
           }
         }
       }
@@ -912,36 +1269,53 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
     cluster_arrive();
 
     // ---- head: 1x1 (own columns) -> ReLU -> 1x1 (all columns, every CTA)
-    const unsigned char* whb = wh;
-    if (p.head_res) {
+    const W* w_h1 = nullptr;
+    const W* w_h2 = nullptr;
+    const float* b_h1 = nullptr;
+    const float* b_h2 = nullptr;
+    if constexpr (!kChunk) {
       mbar_wait(bar_head, 0u);
-      whb = smem + lay.headw;
+      const unsigned char* whb = smem + lay.headw;
+      w_h1 = reinterpret_cast<const W*>(whb);
+      w_h2 = reinterpret_cast<const W*>(whb + wh1_bytes);
+      b_h1 = reinterpret_cast<const float*>(whb + wh1_bytes + wh2_bytes);
+      b_h2 = b_h1 + Sq;
     }
-    const W* w_h1 = reinterpret_cast<const W*>(whb);
-    const W* w_h2 = reinterpret_cast<const W*>(whb + wh1_bytes);
-    const float* b_h1 = reinterpret_cast<const float*>(whb + wh1_bytes + wh2_bytes);
-    const float* b_h2 = b_h1 + Sq;
     mbar_wait(bar_hx, h_round & 1);
     if (tid == 0) mbar_expect_tx(bar_hx, s_bytes);
     if constexpr (kBf16) {
-      for (int tile = warp; tile < (Sq >> 3); tile += NW) {
-        float acc[1][4], v[4];
-        mma_chain<1>(w_h1, p.Ksk, Sq, 0, 1, &tile, hx, ss, acc);
+      auto h1_tile = [&](int tile, const float* acc, float b0, float b1) {
+        float v[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[i] = fmaxf(acc[0][i] + b_h1[tile * 8 + 2 * t4 + (i & 1)], 0.0f);
+        for (int i = 0; i < 4; ++i) v[i] = fmaxf(acc[i] + ((i & 1) ? b1 : b0), 0.0f);
         send_tile(CS, o1, ss, rank * Sq + tile * 8, v, bar_o1);
+      };
+      if constexpr (kChunk) {
+        tiles_pass(2, KSsk, Sq, hx, ss, Sq >> 3, no_skip, h1_tile);
+      } else {
+        for (int tile = warp; tile < (Sq >> 3); tile += NW) {
+          float acc[1][4];
+          mma_chain<1>(w_h1, p.Ksk, Sq, 0, 1, &tile, hx, ss, acc);
+          h1_tile(tile, acc[0], b_h1[tile * 8 + 2 * t4], b_h1[tile * 8 + 2 * t4 + 1]);
+        }
       }
     } else {
-      Walk w = walk_s;
-      for (int e = tid; e < M * Sq; e += nthr, w.next()) {
-        float acc[1];
-        fma_chain<1>(w_h1, p.Ksk, Sq, &w.col, hx + w.row * ss, acc);
-        send(CS, o1, w.row * ss + rank * Sq + w.col, fmaxf(acc[0] + b_h1[w.col], 0.0f), bar_o1);
+      auto h1_out = [&](int row, int col, float acc, const float* bias) {
+        send(CS, o1, row * ss + rank * Sq + col, fmaxf(acc + bias[col], 0.0f), bar_o1);
+      };
+      if constexpr (kChunk) {
+        cols_pass(2, KSsk, Sq, hx, ss, no_skip, h1_out);
+      } else {
+        Walk w = walk_s;
+        for (int e = tid; e < M * Sq; e += nthr, w.next()) {
+          float acc[1];
+          fma_chain<1>(w_h1, p.Ksk, Sq, &w.col, hx + w.row * ss, acc);
+          h1_out(w.row, w.col, acc[0], b_h1);
+        }
       }
     }
     if (j + 1 < p.n) set_mods(j + 1);
-    __syncthreads();
+    sync();
     // the rest of the last layer's block is read out too
     if (filler && refill && issued[1] < total_layers) fill(1);
     WN_STAMP(2 + 4 * L);
@@ -958,26 +1332,39 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
     ++h_round;
     if (tid == 0) mbar_expect_tx(bar_o1, s_bytes);
     if constexpr (kBf16) {
-      for (int tile = warp; tile < (Cp >> 3); tile += NW) {
-        float acc[1][4];
-        mma_chain<1>(w_h2, p.Ksk, Cp, 0, 1, &tile, o1, ss, acc);
+      auto h2_tile = [&](int tile, const float* acc, float b0, float b1) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = g + 8 * (i >> 1), c = tile * 8 + 2 * t4 + (i & 1);
-          lo[row * Cp + c] = acc[0][i] + b_h2[c];
+          lo[row * Cp + c] = acc[i] + ((i & 1) ? b1 : b0);
+        }
+      };
+      if constexpr (kChunk) {
+        tiles_pass(3, KSsk, Cp, o1, ss, Cp >> 3, no_skip, h2_tile);
+      } else {
+        for (int tile = warp; tile < (Cp >> 3); tile += NW) {
+          float acc[1][4];
+          mma_chain<1>(w_h2, p.Ksk, Cp, 0, 1, &tile, o1, ss, acc);
+          h2_tile(tile, acc[0], b_h2[tile * 8 + 2 * t4], b_h2[tile * 8 + 2 * t4 + 1]);
         }
       }
     } else {
-      Walk w = walk_c;
-      for (int e = tid; e < M * Cp; e += nthr, w.next()) {
-        float acc[1];
-        fma_chain<1>(w_h2, p.Ksk, Cp, &w.col, o1 + w.row * ss, acc);
-        lo[e] = acc[0] + b_h2[w.col];
+      auto h2_out = [&](int row, int col, float acc, const float* bias) {
+        lo[row * Cp + col] = acc + bias[col];
+      };
+      if constexpr (kChunk) {
+        cols_pass(3, KSsk, Cp, o1, ss, no_skip, h2_out);
+      } else {
+        Walk w = walk_c;
+        for (int e = tid; e < M * Cp; e += nthr, w.next()) {
+          float acc[1];
+          fma_chain<1>(w_h2, p.Ksk, Cp, &w.col, o1 + w.row * ss, acc);
+          h2_out(w.row, w.col, acc[0], b_h2);
+        }
       }
     }
-    __syncthreads();
+    sync();
     WN_STAMP(3 + 4 * L);
-
     // ---- sampling: a warp per stream, the same in every CTA; rank 0 writes
     for (int bi = warp; bi < nvalid; bi += NW) {
       const int b = base + bi;
@@ -1049,7 +1436,7 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
         }
       }
     }
-    __syncthreads();
+    sync();
     WN_STAMP(4 + 4 * L);
   }
 
@@ -1063,36 +1450,22 @@ __global__ void __launch_bounds__(kThreads, 1) generate_kernel(const Params p) {
   cluster_wait();
 }
 
-// info (host, may be null): [stages in shared memory, head weights resident,
-// dynamic shared-memory bytes, clusters the card can hold at once]
-template <typename W>
-cudaError_t launch(Params p, int threads, int max_stages, int* info, cudaStream_t stream) {
-  if (threads < 32 || threads > kThreads || threads % 32) return cudaErrorInvalidValue;
-  // Shared memory: the activation buffers, then layer blocks. A ring needs
-  // two stages; the head's block stays resident too unless that costs the
-  // ring its second stage. Without a ring the weights are read from global
-  // memory.
-  auto fits = [&](int stages, int head_res) {
-    p.nstage = stages;
-    p.head_res = head_res;
-    return make_layout<W>(p).total <= kSmemLimit;
-  };
-  const int need = p.L < 2 ? p.L : 2;
-  const int cap = max_stages >= 0 && max_stages < p.L ? max_stages : p.L;
-  int ns = 0, hr = 0;
-  for (int h = 1; h >= 0 && ns == 0; --h)
-    for (int s = cap; s >= need && s > 0 && ns == 0; --s)
-      if (fits(s, h)) ns = s, hr = h;
-  if (ns == 0) hr = fits(0, 1);
-  p.nstage = ns;
-  p.head_res = hr;
+
+// info (host, may be null): [stages or chunk slots in shared memory, head
+// weights resident, dynamic shared-memory bytes, clusters the card can hold
+// at once, chunk ring]
+template <typename W, bool kChunk>
+cudaError_t launch_ring(Params p, int threads, int* info, cudaStream_t stream) {
+  p.head_res = kChunk ? 0 : 1;
   const size_t bytes = make_layout<W>(p).total;
-  cudaError_t err = cudaFuncSetAttribute(generate_kernel<W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = generate_kernel<W, kChunk>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(((p.B + p.spc - 1) / p.spc) * p.CS));
-  cfg.blockDim = dim3((unsigned)threads);
+  cfg.blockDim = dim3((unsigned)(threads + (kChunk ? kFillThreads : 0)));
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1107,21 +1480,49 @@ cudaError_t launch(Params p, int threads, int max_stages, int* info, cudaStream_
     info[1] = p.head_res;
     info[2] = (int)bytes;
     info[3] = -1;
+    info[4] = kChunk;
     int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, generate_kernel<W>, &cfg) == cudaSuccess)
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess)
       info[3] = clusters;
     else
       (void)cudaGetLastError();
   }
-  err = cudaLaunchKernelEx(&cfg, generate_kernel<W>, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The ring as planned: whole-layer stages with the head's block resident, or
+// chunk slots whose chunks and passes cover every product.
+template <typename W>
+cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
+  if (threads < 32 || threads > kThreads || threads % 32 || p.nstage < 1) return cudaErrorInvalidValue;
+  if (p.slot_bytes == 0)
+    return p.nstage <= p.L ? launch_ring<W, false>(p, threads, info, stream) : cudaErrorInvalidValue;
+  if (threads % 128) return cudaErrorInvalidValue;   // whole warpgroups
+  const int rows = sizeof(W) == 2 ? 16 : 1;   // rows a step of the chunk ring
+  const int KS[4] = {p.Kin / rows, p.Kog / rows, p.Ksk / rows, p.Ksk / rows};
+  const int N[4] = {2 * p.Gq, p.Rq + p.Sq, p.Sq, p.Cp};
+  for (int d = 0; d < 4; ++d) {
+    // units: bf16 n-tiles (w_in: pairs of them, in kSplitIn parts), a warp
+    // a unit; f32 outputs (w_in: gate channels of a stream), a thread each
+    const long long units = sizeof(W) == 2 ? (d == 0 ? N[0] / 16 * kSplitIn : N[d] / 8)
+                                           : (long long)kRows * (d == 0 ? p.Gq : N[d]);
+    const long long workers = sizeof(W) == 2 ? threads / 32 : threads;
+    const long long chunk =
+        (long long)(p.ck[d] < KS[d] ? p.ck[d] : KS[d]) * rows * N[d] * sizeof(W) + 4 * N[d];
+    if (p.ck[d] < 1 || chunk > p.slot_bytes || (long long)p.passes[d] * kUnits * workers < units)
+      return cudaErrorInvalidValue;
+  }
+  return launch_ring<W, true>(p, threads, info, stream);
 }
 
 }  // namespace
 
-// plan: [CS, streams per cluster, threads, max stages (-1: as many as fit),
-//        Gq, Rq, Sq, Kin, Kog, Ksk, Cp, xs, gs, ss, stage_bytes, head_bytes]
-// (host ints). trace: device buffer of 4 L + 5 clock stamps, or null.
+// plan: [CS, streams per cluster, threads, stages or chunk slots, Gq, Rq, Sq,
+//        Kin, Kog, Ksk, Cp, xs, gs, ss, stage_bytes, head_bytes, slot_bytes
+//        (0: whole-layer stages), chunk k-steps x 4, passes x 4] (host ints,
+//        ops/cuda_generate.py KernelPack.plan). trace: device buffer of
+//        4 L + 5 clock stamps, or null. info: 5 host ints or null.
 extern "C" int wn_generate(
     const void* w_first, const void* b_first, const void* wl, const void* wh,
     const void* cond, long long cond_sb, const void* g_gate, void* ring, void* x_cur,
@@ -1142,16 +1543,22 @@ extern "C" int wn_generate(
   p.C_in = C_in; p.C_out = C_out; p.cin = cin;
   p.head = head; p.deterministic = deterministic;
   p.CS = plan[0]; p.spc = plan[1];
-  const int threads = plan[2], max_stages = plan[3];
+  const int threads = plan[2];
+  p.nstage = plan[3];
   p.Gq = plan[4]; p.Rq = plan[5]; p.Sq = plan[6];
   p.Kin = plan[7]; p.Kog = plan[8]; p.Ksk = plan[9]; p.Cp = plan[10];
   p.xs = plan[11]; p.gs = plan[12]; p.ss = plan[13];
   p.stage_bytes = plan[14]; p.head_bytes = plan[15];
-  p.nstage = 0; p.head_res = 0;
+  p.slot_bytes = plan[16];
+  for (int d = 0; d < 4; ++d) {
+    p.ck[d] = plan[17 + d];
+    p.passes[d] = plan[21 + d];
+  }
+  p.head_res = 0;
   if (p.CS < 1 || p.CS > 8 || (p.CS & (p.CS - 1)) || p.spc < 1 || p.spc > kRows || B < 1 ||
       k < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? (int)launch<__nv_bfloat16>(p, threads, max_stages, info, s)
-              : (int)launch<float>(p, threads, max_stages, info, s);
+  return bf16 ? (int)launch<__nv_bfloat16>(p, threads, info, s)
+              : (int)launch<float>(p, threads, info, s);
 }

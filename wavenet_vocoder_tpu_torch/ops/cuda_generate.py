@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -312,6 +312,100 @@ def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype
     return sum(_up(b, 128) for b in sizes), block
 
 
+class RingPlan(NamedTuple):
+    """How a CTA's weights reach its shared memory (``ring_plan``).
+
+    ``slot_bytes`` 0: ``stages`` whole layer blocks (all layers when they
+    fit, else a ring refilled as layers are read out) beside the head's
+    block. Else the chunk ring: ``stages`` slots of ``slot_bytes``, through
+    which the kernel's filler streams, step after step, each layer's w_in
+    then w_og slice and the head's w_h1 then w_h2 in chunks of whole steps
+    (bf16 k-steps of 16 rows, f32 rows; ``chunk`` of them, a product's last
+    chunk shorter), each product ``passes`` times, ``RING_UNITS`` units of
+    its work a pass; a pass's last chunk carries the product's biases
+    behind its weights."""
+    stages: int
+    slot_bytes: int
+    chunk: Tuple[int, int, int, int]     # w_in, w_og, w_h1, w_h2
+    passes: Tuple[int, int, int, int]
+    smem_bytes: int                      # all the kernel's shared memory
+
+    @property
+    def chunked(self) -> bool:
+        return self.slot_bytes > 0
+
+
+RING_SLOTS = 2      # chunks the ring holds where that many fit
+RING_UNITS = 2      # units a warp (f32: a thread) runs through a pass (kUnits)
+
+
+def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
+                  threads: int = KERNEL_THREADS):
+    """(steps, bytes a step, columns, units a warp or thread runs) of w_in,
+    w_og, w_h1 and w_h2 in one CTA's slice. A step is a k-step of 16 rows
+    (bf16, an mma's depth) or one row (f32). A unit is a pair of n-tiles over
+    one of SPLIT_IN parts of the k-steps (bf16 w_in), an n-tile (bf16), or
+    one stream's output (f32: a gate channel's pair of columns for w_in)."""
+    d = _kernel_dims(spec, cluster_size)
+    M, NW = CLUSTER_STREAMS, threads // 32
+    cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cp"])
+    depth = (d["Kin"], d["Kog"], d["Ksk"], d["Ksk"])
+    if dtype == torch.bfloat16:
+        rows, elt = 16, 2
+        units = [-(-n // NW) for n in (cols[0] // 16 * SPLIT_IN, *(
+            c // 8 for c in cols[1:]))]
+    else:
+        rows, elt = 1, 4
+        units = [-(-M * n // threads) for n in (d["Gq"], *cols[1:])]
+    return tuple((K // rows, rows * N * elt, N, u)
+                 for K, N, u in zip(depth, cols, units))
+
+
+def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
+              threads: int = KERNEL_THREADS, max_stages: int = -1
+              ) -> Optional[RingPlan]:
+    """The ring ``csrc/generate.cu`` runs for one cluster size, or None
+    where not even a one-slot chunk ring fits beside the activation buffers.
+
+    Whole layer blocks where two fit (or one, for a one-layer model) with
+    the head's block, as many as fit up to every layer (``max_stages`` >= 0
+    caps them; 0 forces the chunk ring). Else the chunk ring: RING_SLOTS
+    slots where each holds a step of every product and its biases, fewer
+    where not, the slots sharing out what the activation buffers leave;
+    each product's chunk as many steps as a slot holds. Few large chunks
+    run faster than many small ones: every chunk costs each warp a wait and
+    a release, and the filler a round trip."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    fixed, block = kernel_smem_bytes(spec, cluster_size, dtype)
+    d = _kernel_dims(spec, cluster_size)
+    head = (d["Ksk"] * (d["Sq"] + d["Cp"]) * elt + (d["Sq"] + d["Cp"]) * 4)
+
+    def total(stages, stride, head_bytes=0):   # make_layout's total
+        # the chunk ring (no head block) copies b_in out of its chunk
+        return (stages * _up(stride, 128) + _up(head_bytes, 128) + fixed
+                - _up(5 * 8, 128) + _up((2 * stages + 5) * 8, 128)
+                + (0 if head_bytes else _up(8 * d["Gq"], 128)))
+
+    L = spec.layers
+    cap = L if max_stages < 0 or max_stages >= L else max_stages
+    for s in range(cap, min(L, 2) - 1, -1):
+        if s > 0 and total(s, block, head) <= SMEM_BYTES:
+            return RingPlan(s, 0, (0,) * 4, (0,) * 4, total(s, block, head))
+    prods = ring_products(spec, cluster_size, dtype, threads)
+    for slots in range(RING_SLOTS, 0, -1):
+        slot = (SMEM_BYTES - total(slots, 0)) // slots // 128 * 128
+        chunk = [min(KS, (slot - 4 * N) // step) for KS, step, N, _ in prods]
+        if min(chunk) >= 1:
+            break
+    else:
+        return None
+    slot_bytes = max(c * step + 4 * N
+                     for c, (_, step, N, _) in zip(chunk, prods))
+    passes = tuple(max(1, -(-units // RING_UNITS)) for *_, units in prods)
+    return RingPlan(slots, slot_bytes, tuple(chunk), passes,
+                    total(slots, slot_bytes))
+
+
 def pick_cluster(spec: WaveNetSpec, B: int) -> Tuple[int, int]:
     """(CTAs per cluster, streams per cluster) for B streams. 16 streams (one
     mma row tile) per cluster, fewer when B is. The cluster is the largest
@@ -336,9 +430,10 @@ def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
     ``generate_steps`` pads the ring of a residual width that is not a
     multiple of 8. The kernel keeps at most 4096 channels a width and 512
     output channels a stream, needs two taps or more, and holds its
-    activation buffers for 16 streams in one block's shared memory at the
-    cluster size (every size ``pick_cluster`` may choose for this spec when
-    none is given); ``generate_steps`` raises with the reason otherwise."""
+    activation buffers for 16 streams and a ring of weights
+    (``ring_plan``) in one block's shared memory at the cluster size (every
+    size ``pick_cluster`` may choose for this spec when none is given);
+    ``generate_steps`` raises with the reason otherwise."""
     G, R, S = spec.gate_channels, spec.residual_channels, spec.skip_out_channels
     if max(G, R + S) > 4096 or spec.out_channels > 512 \
             or spec.kernel_size < 2:
@@ -352,12 +447,13 @@ def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
     else:
         sizes = [cluster_size]
     for cs in sizes:
-        fixed, _ = kernel_smem_bytes(spec, cs, dtype)
-        if fixed > SMEM_BYTES:
+        if ring_plan(spec, cs, dtype) is None:
+            fixed, _ = kernel_smem_bytes(spec, cs, dtype)
             return False, (
                 f"the generation kernel's buffers for 16 streams of this "
                 f"model take {fixed} bytes of shared memory at cluster size "
-                f"{cs}; a block has {SMEM_BYTES}")
+                f"{cs}, and a ring of one step of its weights does not fit "
+                f"beside them; a block has {SMEM_BYTES}")
     return True, ""
 
 
@@ -403,6 +499,7 @@ class KernelPack:
                  cluster_size: int):
         dtype, dev = packed["w_first"].dtype, packed["w_first"].device
         CS = self.cluster_size = int(cluster_size)
+        self.spec, self._rings = spec, {}
         L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
         G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
         cin = spec.cin_channels if spec.has_local_conditioning else 0
@@ -485,13 +582,27 @@ class KernelPack:
                              else flat.reshape(*flat.shape[:-1], K, N))
         return out
 
+    def ring_plan(self, threads: int = KERNEL_THREADS,
+                  max_stages: int = -1) -> RingPlan:
+        """``ring_plan`` for this pack, made once per (threads, max_stages)."""
+        key = (threads, max_stages)
+        if key not in self._rings:
+            plan = ring_plan(self.spec, self.cluster_size, self.dtype, threads,
+                             max_stages)
+            if plan is None:
+                raise ValueError(kernel_supports(self.spec, self.dtype,
+                                                 self.cluster_size)[1])
+            self._rings[key] = plan
+        return self._rings[key]
+
     def plan(self, streams: int, threads: int, max_stages: int):
         """The host int array ``wn_generate`` takes as ``plan``."""
-        d = self.dims
-        vals = [self.cluster_size, streams, threads, max_stages,
+        d, ring = self.dims, self.ring_plan(threads, max_stages)
+        vals = [self.cluster_size, streams, threads, ring.stages,
                 d["Gq"], d["Rq"], d["Sq"], d["Kin"], d["Kog"], d["Ksk"],
                 d["Cp"], d["xs"], d["gs"], d["ss"],
-                self.wl.shape[2], self.wh.shape[1]]
+                self.wl.shape[2], self.wh.shape[1], ring.slot_bytes,
+                *ring.chunk, *ring.passes]
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -566,14 +677,16 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     fallback between the two.
 
     ``kpack`` is the kernel-side pack of ``packed`` (``kernel_pack``); it is
-    made and cached here when not given. For sweeps and tests: ``_cluster``
-    = (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
-    ``_max_stages`` caps the layer blocks held in shared memory (0: weights
-    read from global memory); ``_defines`` launches a variant build
-    (``NO_PRODUCTS``: a timing aid, outputs mean nothing; ``TRACE``: clock
-    stamps of the last step of cluster 0 go to ``_trace``, an int64 tensor
-    of 4 L + 5 values); ``_info`` receives [stages, head weights resident,
-    shared bytes, clusters the card holds at once].
+    made and cached here when not given. The launch takes the ring its
+    ``ring_plan`` gives; the counter ``generate.chunked_launches`` counts
+    those that took the chunk ring. For sweeps and tests: ``_cluster`` =
+    (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
+    ``_max_stages`` caps the whole layer blocks held in shared memory (0:
+    the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
+    a timing aid, outputs mean nothing; ``TRACE``: clock stamps of the last
+    step of cluster 0 go to ``_trace``, an int64 tensor of 4 L + 5 values);
+    ``_info`` receives [stages or chunk slots, head weights resident,
+    shared bytes, clusters the card holds at once, chunk ring].
     """
     B, n = out.shape
     dev, dtype = ring.device, packed["w_first"].dtype
@@ -628,7 +741,7 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
             or kpack.w_first is not packed["w_first"]):
         raise ValueError("kpack was not made from this packed dict for "
                          f"cluster size {cs}")
-    info = (ctypes.c_int * 4)() if _info is not None else None
+    info = (ctypes.c_int * 5)() if _info is not None else None
     plan = kpack.plan(streams, KERNEL_THREADS, int(_max_stages))
     ptr = lambda a: None if a is None else a.data_ptr()
     # the kernel reads and writes ring rows 8 channels a vector: a residual
@@ -656,6 +769,8 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     if _info is not None:
         _info[:] = list(info)
     profiling.count("generate.launches")
+    if kpack.ring_plan(KERNEL_THREADS, int(_max_stages)).chunked:
+        profiling.count("generate.chunked_launches")
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,9 @@ phases. Recording is on while a torch profiler records, or after
 profiler stamps its events with, so the port's intervals line up with the
 trace's device ops. ``count(name, n)`` adds to a named counter
 (``counters``); the kernel wrappers count their launches there
-(``generate.launches``, ``train_fwd.launches``, ``train_fwd.tc_launches``,
+(``generate.launches``, ``generate.chunked_launches`` for those that
+stream their weights through the chunk ring, ``train_fwd.launches``,
+``train_fwd.tc_launches``,
 ``train_fwd.fma_launches``, the same three of ``train_bwd``,
 ``mel.launches``). ``reset()`` empties the store. The store is shared by
 all threads of a process.
