@@ -50,16 +50,29 @@ class Run:
                            generator=gen).cpu().numpy()
         cuts = np.cumsum([0] + self.frames)
         self.mels = [flat[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
-        # warm both streams on a short utterance: the first, steady and
-        # closing segments' shapes
+        # warm both streams on a short utterance: the first segments' and
+        # the closing segment's shapes, greedy and sampled
         seg = p["segment_frames"]
-        warm = self.mels[0][:, :3 * seg]
         for s in self.streams.values():
-            s.reset()
-            for f in range(0, warm.shape[1], seg):
-                s.feed(warm[:, f:f + seg])
-            s.flush()
+            self._warm(s, self.mels[0][:, :3 * seg])
+        # then one stream on an utterance of each length modulo a segment
+        # that the mix holds, fed past the growth of the conditioning
+        # window (the upsample net's context: cin_pad frames a side and a
+        # frame a stretch layer, each way): the steady window and each
+        # short last feed, which a 3-segment utterance does not reach
+        context = 2 * (keys["cin_pad"]
+                       + len(keys["upsample_params"]["upsample_scales"]))
+        full = 2 + -(-context // seg)
+        longest = max(self.mels, key=lambda m: m.shape[1])
+        for r in sorted({f % seg for f in self.frames}):
+            self._warm(self.streams[False], longest[:, :full * seg + r])
         harness.sync(dev)
+
+    def _warm(self, stream, mel) -> None:
+        stream.reset()
+        for f in range(0, mel.shape[1], self.p["segment_frames"]):
+            stream.feed(mel[:, f:f + self.p["segment_frames"]])
+        stream.flush()
 
     def _utterance(self, u: int, start: float, seconds: float, trace):
         """Feed utterance u segment by segment; False once the window is

@@ -2,15 +2,21 @@
 plain reference.
 
 Served audio: the reference runs once over each judged utterance with the
-samples the program served as its inputs (teacher forcing) and gives, at
-every step, each mixture component's score and value. A greedy step serves
-the clipped mean of its most likely component; a sampled step the clipped
-logistic draw of the component with the best Gumbel-perturbed logit, from
-uniforms keyed by (seed, stream row, step, draw) that the reference works
-out again from the request's seed. The gap of a served sample x is the
-least, over components k, of the larger of (best score - score k) and
-|x - value k|: how far the reference has to be moved for x to be its
-answer. ``token_gap`` is the widest gap over the greedy requests' steps,
+samples the program served as its inputs (teacher forcing: the sample
+before each step, zero before the first; for the categorical head the
+one-hot of the code before, code 127 before the first) and gives, at every
+step, each candidate's score and value (``wavenet.candidates``): a mixture
+component, or a class of the categorical head. A greedy step serves the
+value of its most likely candidate (a component's clipped mean, a class's
+code); a sampled step that of the candidate with the best Gumbel-perturbed
+logit, a component's value being its clipped logistic or Gaussian draw,
+from uniforms keyed by (seed, stream row, step, draw) that the reference
+works out again from the request's seed. The gap of a served sample x is
+the least, over candidates k, of the larger of (best score - score k) and
+the distance of x from value k (|x - value k|; for a code 0 where they are
+equal, else infinite): how far the reference has to be moved for x to be
+its answer. For a code that is the shortfall of the served class's score.
+``token_gap`` is the widest gap over the greedy requests' steps,
 ``sampled_gap`` over the sampled requests'.
 
 Training: the batches are worked out again from the raw dump (each row's
@@ -38,30 +44,55 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from benchmark.reference import wavenet as ref
 
 PREEMPHASIS = 0.85     # the decoder's inverse pre-emphasis coefficient
+FIRST_CODE = 127       # the categorical head's input before the first step
+
+
+def mulaw(x: np.ndarray, mu: int) -> np.ndarray:
+    """Mu-law companding, [-1, 1] -> [-1, 1]."""
+    return np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
 
 
 def served_samples(wav: np.ndarray, keys: dict) -> np.ndarray:
     """Undo the program's waveform decode (gain, inverse pre-emphasis) to get
-    the samples the network produced, in float64: (B, T) -> (B, T)."""
+    what the network produced: (B, T) -> (B, T), float64 samples, or for
+    ``mulaw-quantize`` int64 codes, each the code nearest in the mu-law
+    domain (the waveform holds inv_mulaw(2 code / mu - 1) up to the
+    decode's rounding, far inside half a code)."""
     y = np.asarray(wav, np.float64)
     if keys.get("global_gain_scale", 0) > 0:
         y = y * keys["global_gain_scale"]
     if keys.get("postprocess") == "inv_preemphasis":
         prev = np.concatenate([np.zeros_like(y[:, :1]), y[:, :-1]], axis=1)
         y = y - PREEMPHASIS * prev
+    if keys["input_type"] == "mulaw-quantize":
+        mu = keys["quantize_channels"] - 1
+        return np.rint((mulaw(y, mu) + 1.0) / 2.0 * mu).astype(np.int64)
     return y
 
 
-def _gaps(o: torch.Tensor, x: torch.Tensor, log_scale_min: float,
-          u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    score, value = ref.mol_candidates(o, log_scale_min, u)
+def _gaps(score: torch.Tensor, value: torch.Tensor, x: torch.Tensor,
+          exact: bool = False) -> torch.Tensor:
     sgap = score.amax(-1, keepdim=True) - score
-    vgap = (x[..., None] - value).abs()
+    if exact:
+        vgap = torch.where(value == x[..., None], 0.0, float("inf"))
+    else:
+        vgap = (x[..., None] - value).abs()
     return torch.maximum(sgap, vgap).amin(-1)
+
+
+def _inputs(keys: dict, x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """The teacher-forced inputs of steps [a, b) of the served ``x`` (T,):
+    (1, b - a, in_channels)."""
+    if ref.head(keys) == "categorical":
+        codes = x.long()
+        prev = torch.cat([codes.new_full((1,), FIRST_CODE), codes[:-1]])
+        return F.one_hot(prev[a:b], ref.in_channels(keys)).float()[None]
+    return torch.cat([x.new_zeros(1), x[:-1]])[None, a:b, None]
 
 
 @torch.no_grad()
@@ -78,8 +109,7 @@ def served_gap(weights: Dict[str, torch.Tensor], keys: dict,
     with the receptive field's history before each."""
     p = {k: v.to(device).float() for k, v in weights.items()}
     q = ref.fp8 if control == "fp8" else ref.identity
-    lsm = keys["log_scale_min"]
-    n = keys["out_channels"] // 3
+    exact = ref.head(keys) == "categorical"
     rf = 1 + sum((keys["kernel_size"] - 1) * d for d in ref.dilations(keys))
     worst, gaps = 0.0, []
     for item in items:
@@ -88,22 +118,22 @@ def served_gap(weights: Dict[str, torch.Tensor], keys: dict,
         cq = c if control is None else ref.conditioning(p, keys, mel_t, q)
         x_t = torch.as_tensor(item["x"], device=device).float()
         T = x_t.shape[0]
-        inputs = torch.cat([x_t.new_zeros(1), x_t[:-1]])[None, :, None]
         for a in range(0, T, block):
             b = min(T, a + block)
             h = max(0, a - rf)
             u = None
             if item["noise"] is not None:
                 seed, row = item["noise"]
-                u = ref.counter_uniforms(seed, row, a, b - a, n + 1,
-                                         device)[None]
-            o = ref.forward(p, keys, inputs[:, h:b], c[:, h:b])[:, a - h:]
+                u = ref.counter_uniforms(seed, row, a, b - a,
+                                         ref.draws(keys), device)[None]
+            inputs = _inputs(keys, x_t, h, b)
+            o = ref.forward(p, keys, inputs, c[:, h:b])[:, a - h:]
             if control is None:
                 judged = x_t[None, a:b]
             else:
-                oq = ref.forward(p, keys, inputs[:, h:b], cq[:, h:b], q)
-                judged = ref.mol_sample(oq[:, a - h:], lsm, u)
-            g = _gaps(o, judged, lsm, u)
+                oq = ref.forward(p, keys, inputs, cq[:, h:b], q)
+                judged = ref.sample(keys, oq[:, a - h:], u)
+            g = _gaps(*ref.candidates(keys, o, u), judged, exact)
             worst = max(worst, float(g.max()))
             gaps.append(g.flatten().cpu())
     if not gaps:

@@ -1,5 +1,4 @@
-"""Plain PyTorch WaveNet with a mixture-of-logistics head: the benchmark's
-reference.
+"""Plain PyTorch WaveNet: the benchmark's reference.
 
 Written from the published description (van den Oord et al. 2016, and
 r9y9/wavenet_vocoder's ``wavenet.py``, ``modules.py``, ``upsample.py`` and
@@ -7,6 +6,10 @@ r9y9/wavenet_vocoder's ``wavenet.py``, ``modules.py``, ``upsample.py`` and
 residual blocks with local conditioning, the skip head, a mel upsampler of
 one unpadded context conv and nearest-neighbour stretches each smoothed by a
 (1, 2s+1) conv, the discretized MoL likelihood, Adam and the EMA shadow.
+The input is a raw (or mu-law) sample or, for ``mulaw-quantize``, the
+one-hot of a mu-law code; the head is a mixture of logistics, a (mixture
+of) Gaussian(s) or a categorical over the codes (``head``), each with its
+sampler's candidates.
 
 It imports nothing but torch: no JAX and nothing of the program under test.
 Parameters are a dict of tensors under the names of the program's state dict
@@ -50,6 +53,22 @@ def dilations(cfg: dict) -> List[int]:
     return [2 ** (i % per_stack) for i in range(cfg["layers"])]
 
 
+def in_channels(cfg: dict) -> int:
+    """The network's input channels: 1 for a scalar input (``raw``,
+    ``mulaw``), the one-hot's ``quantize_channels`` for ``mulaw-quantize``."""
+    scalar = cfg["input_type"] in ("raw", "mulaw")
+    return 1 if scalar else cfg["quantize_channels"]
+
+
+def head(cfg: dict) -> str:
+    """The head the configuration serves: ``categorical`` over the codes of
+    a one-hot input, else ``mol`` (Logistic) or ``gaussian`` (Normal)."""
+    if in_channels(cfg) > 1:
+        return "categorical"
+    heads = {"Logistic": "mol", "Normal": "gaussian"}
+    return heads[cfg["output_distribution"]]
+
+
 def param_shapes(cfg: dict) -> Dict[str, tuple]:
     """Name -> shape of every parameter, in the program's state-dict names."""
     R, G, S = (cfg["residual_channels"], cfg["gate_channels"],
@@ -63,7 +82,7 @@ def param_shapes(cfg: dict) -> Dict[str, tuple]:
         if bias:
             shapes[f"{name}.bias"] = (o,)
 
-    wn("first_conv", R, 1)
+    wn("first_conv", R, in_channels(cfg))
     for l in range(cfg["layers"]):
         wn(f"conv_layers.{l}.conv", G, R, k)
         wn(f"conv_layers.{l}.conv1x1c", G, cin, bias=False)
@@ -110,8 +129,10 @@ def conditioning(p: Params, cfg: dict, mel: torch.Tensor,
 
 def forward(p: Params, cfg: dict, x: torch.Tensor, c: torch.Tensor,
             q: Quant = identity) -> torch.Tensor:
-    """Teacher-forced network: inputs x (B, T, 1), conditioning c (B, T, C)
-    at the sample rate -> head output (B, T, 3 * mixtures)."""
+    """Teacher-forced network: inputs x (B, T, in_channels), a scalar
+    sample or the one-hot of a mu-law code (``first_conv`` is a 1x1 conv,
+    ``_dense``, either way), conditioning c (B, T, C) at the sample rate ->
+    head output (B, T, out_channels)."""
     k = cfg["kernel_size"]
     h = _dense(p, "first_conv", x, q)
     skips = 0.0
@@ -159,7 +180,9 @@ def counter_uniforms(seed: int, row: int, t0: int, T: int, draws: int,
     (T, draws) f32 in [1e-5, 1 - 1e-5]. Step t's key is
     mix(mix(mix(seed) ^ row) ^ t), draw d's 24 bits are mix(key ^ d) >> 8.
     A mixture step draws one Gumbel per component (draws 0..n-1), then one
-    uniform for the logistic's inverse CDF (draw n)."""
+    uniform for the logistic's inverse CDF (draw n) or two for the
+    Gaussian's Box-Muller normal (draws n, n + 1; 0 and 1 for a single
+    Gaussian); a categorical step one Gumbel per class (draws 0..C-1)."""
     i64 = dict(dtype=torch.int64, device=device)
     k0 = mix32(torch.tensor(seed & M32, **i64))
     t = (torch.arange(t0, t0 + T, **i64) & M32)
@@ -167,6 +190,10 @@ def counter_uniforms(seed: int, row: int, t0: int, T: int, draws: int,
     bits = mix32(keys[:, None] ^ torch.arange(draws, **i64)[None]) >> 8
     u = bits.to(torch.float32) * (1.0 / (1 << 24))
     return u.clamp(1e-5, 1.0 - 1e-5)
+
+
+def _gumbel(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return logits - torch.log(-torch.log(u[..., :logits.shape[-1]]))
 
 
 def mol_candidates(o: torch.Tensor, log_scale_min: float,
@@ -178,16 +205,75 @@ def mol_candidates(o: torch.Tensor, log_scale_min: float,
     if u is None:
         return logits, means.clamp(-1.0, 1.0)
     n = logits.shape[-1]
-    score = logits - torch.log(-torch.log(u[..., :n]))
+    score = _gumbel(logits, u)
     un = u[..., n:n + 1]
     draw = means + torch.exp(log_scales) * (torch.log(un) - torch.log(1.0 - un))
     return score, draw.clamp(-1.0, 1.0)
 
 
-def mol_sample(o: torch.Tensor, log_scale_min: float,
-               u: torch.Tensor = None) -> torch.Tensor:
-    """The sample of each step: the value of the best-scoring component."""
-    score, value = mol_candidates(o, log_scale_min, u)
+def categorical_candidates(o: torch.Tensor, u: torch.Tensor = None):
+    """Each class's (score, value) at every step: the logit, Gumbel-perturbed
+    by draw c when sampled (``OneHotCategorical`` of the softmax, drawn by
+    Gumbel-max), and the class's code."""
+    score = o if u is None else _gumbel(o, u)
+    value = torch.arange(o.shape[-1], device=o.device,
+                         dtype=o.dtype).expand_as(o)
+    return score, value
+
+
+def gaussian_split(o: torch.Tensor):
+    """(logits, means, log_stds): a mixture packs [logits, means, log_stds];
+    a single Gaussian [mean, log_std] in 2 channels, its one logit 0."""
+    if o.shape[-1] == 2:
+        return torch.zeros_like(o[..., :1]), o[..., :1], o[..., 1:2]
+    n = o.shape[-1] // 3
+    return o[..., :n], o[..., n:2 * n], o[..., 2 * n:3 * n]
+
+
+def gaussian_candidates(o: torch.Tensor, u: torch.Tensor = None):
+    """Each component's (score, value), after r9y9's
+    ``sample_from_mix_gaussian``: greedy, the logit and the clipped mean;
+    sampled, the Gumbel-perturbed logit and clip(mean + exp(log_std) * z),
+    z a standard normal. The published sampler applies no floor to log_std
+    (its ``log_scale_min`` is unused), and neither does this. z is
+    Box-Muller's sqrt(-2 ln u_a) cos(2 pi u_b) from the two draws after a
+    mixture's Gumbels, draws 0 and 1 for a single Gaussian (whose one
+    candidate's score is beside the point)."""
+    logits, means, log_stds = gaussian_split(o)
+    if u is None:
+        return logits, means.clamp(-1.0, 1.0)
+    d0 = 0 if o.shape[-1] == 2 else logits.shape[-1]
+    ua, ub = u[..., d0:d0 + 1], u[..., d0 + 1:d0 + 2]
+    z = torch.sqrt(-2.0 * torch.log(ua)) * torch.cos(2.0 * math.pi * ub)
+    draw = means + torch.exp(log_stds) * z
+    return _gumbel(logits, u), draw.clamp(-1.0, 1.0)
+
+
+def draws(cfg: dict) -> int:
+    """Uniforms a sampled step of the configuration's head draws."""
+    C, h = cfg["out_channels"], head(cfg)
+    if h == "categorical":
+        return C
+    if h == "gaussian":
+        return 2 if C == 2 else C // 3 + 2
+    return C // 3 + 1
+
+
+def candidates(cfg: dict, o: torch.Tensor, u: torch.Tensor = None):
+    """(score, value) of every candidate of the configuration's head."""
+    h = head(cfg)
+    if h == "mol":
+        return mol_candidates(o, cfg["log_scale_min"], u)
+    if h == "gaussian":
+        return gaussian_candidates(o, u)
+    return categorical_candidates(o, u)
+
+
+def sample(cfg: dict, o: torch.Tensor, u: torch.Tensor = None
+           ) -> torch.Tensor:
+    """The sample of each step: the value of the best-scoring candidate (a
+    code for the categorical head)."""
+    score, value = candidates(cfg, o, u)
     k = score.argmax(-1, keepdim=True)
     return torch.gather(value, -1, k)[..., 0]
 

@@ -73,13 +73,12 @@ def test_gap_is_zero_for_the_references_own_answer(sampled):
     T = c.shape[1]
     noise = (12345, 0) if sampled else None
     u = None if noise is None else ref.counter_uniforms(
-        *noise, 0, T, keys["out_channels"] // 3 + 1)
+        *noise, 0, T, ref.draws(keys))
     x = torch.zeros(T)
     for t in range(T):          # the reference's own decode
         inp = torch.cat([x.new_zeros(1), x[:-1]])[None, :, None]
-        x[t] = ref.mol_sample(ref.forward(w, keys, inp, c)[:, t],
-                              keys["log_scale_min"],
-                              None if u is None else u[t][None])[0]
+        x[t] = ref.sample(keys, ref.forward(w, keys, inp, c)[:, t],
+                          None if u is None else u[t][None])[0]
     item = {"mel": mel[0].numpy(), "x": x.numpy(), "noise": noise}
     assert checks.served_gap(w, keys, [item], "cpu")["gap"] < 1e-5
     x2 = x.clone()

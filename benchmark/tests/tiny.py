@@ -24,6 +24,8 @@ TRAFFIC = {"synth_batch": {"lengths_s": [0.01, 0.02], "trace_seconds": 0.1},
            "train_dump": {"utterances": 8, "lengths_s": [0.12, 0.2],
                           "trace_seconds": 0.1}}
 SECONDS = {"synth_batch": 3.0, "stream_segments": 6.0, "train_dump": 2.0}
+# a kind not named in these tables keeps its own traffic and runs this long
+DEFAULT_SECONDS = 3.0
 
 
 def spec(root=harness.ROOT) -> dict:
@@ -58,7 +60,8 @@ def run(name: str, seed: int = 2 ** 31 + 5, trace: bool = False,
     c, keys = cell(name, root)
     # the profiler slows a CPU run several times over: a traced run gets
     # twice the window, so that an untraced rest follows the trace
-    seconds = SECONDS[c.traffic["kind"]] * (2 if trace else 1)
+    seconds = SECONDS.get(c.traffic["kind"], DEFAULT_SECONDS) * (
+        2 if trace else 1)
     return run_cell(c, seed, seconds, trace,
                     torch.device("cpu"), time.time(), keys=keys,
                     peaks=yardstick.H100_SXM, **kw)
