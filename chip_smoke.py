@@ -136,7 +136,10 @@ Phases (each failure ends the run with a non-zero exit):
                 models, 30L3S (30 layers, 3 stacks) and 512ch (512/512/256),
                 bf16, against its plain version as phase 2 holds it at
                 B=32 and B=256, and one 256-step launch at B=256 timed
-                beside its plain version and bound; then ``python -m
+                beside its plain version and bound; r9y9's mu-law 256
+                recipe (its categorical head split over the cluster) timed
+                the same way at B=256 and B=16, with the plan each launch
+                took and its counters; then ``python -m
                 wavenet_vocoder_tpu_torch.bench`` in subprocesses: synthesis
                 at the flagship (B=256 and 128, with the compact B=64 train
                 record), 30L3S and 512ch (B=256, one timed iteration;
@@ -149,7 +152,7 @@ Phases (each failure ends the run with a non-zero exit):
                 phase 3's B=256 request. The kernels line counts the runs'
                 launches as ``bench_launches`` and gives the big models'
                 launch times (``ms_30L3S``, ``bound_ms_512ch``,
-                ``ms_512ch.b128``, ...);
+                ``ms_512ch.b128``, ``ms_mulaw256.b16``, ...);
  14. quality  — the sampled-audio quality net: one backward of the stack at
                 the quality model's widths in the healthy build twice (all
                 eight gradients bitwise equal) and in each fault build (dx0
@@ -681,20 +684,23 @@ def _launch_inputs(spec, B, n):
     _, rows = cg.buffer_layout(spec)
     ring = torch.zeros(rows, B, spec.residual_channels, dtype=torch.bfloat16,
                        device="cuda")
-    return cond, x0, ring, torch.empty(B, n, device="cuda")
+    return cond, x0, ring, torch.empty(B, n, device="cuda", dtype=(
+        torch.float32 if spec.scalar_input else torch.int32))
 
 
 def _time_launch(tag, packed, spec, inputs, iters):
     """One sampling launch on ``inputs`` (_launch_inputs) timed beside its
     plain version and its bound, printed after ``tag``. The timing launches
-    are not counted."""
+    are not counted. A categorical model's launches carry one x_cur on, as
+    a stream does: a fresh one-hot x_cur is checked on the host first."""
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     cond, x0, ring, out = inputs
     B, n = out.shape
+    x_cat = x0.clone()
 
     def launch(fn):
-        fn(packed, spec, ring, x0.clone(), out, cond, None, t0=0, seed=1,
-           deterministic=False)
+        fn(packed, spec, ring, x0.clone() if spec.scalar_input else x_cat,
+           out, cond, None, t0=0, seed=1, deterministic=False)
 
     saved = _launches("generate.launches")
     ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=iters)
@@ -2720,10 +2726,63 @@ def _big_models(report):
                 f"{tag} one step of B=128", packed, model.spec, inputs)
         del model, packed
         torch.cuda.empty_cache()
+    timing.update(_mulaw256_launches(rows, failures))
     report["bench_kernel_vs_plain"] = rows
     if failures:
         fail("generation kernel disagrees with its plain version:\n"
              + "\n".join(failures))
+    return timing
+
+
+def _mulaw256_launches(rows, failures):
+    """r9y9's mu-law 256 recipe (egs/mulaw256; 30 layers in 3 stacks,
+    128/256/128, a 256-way categorical head split over the cluster), seed 1:
+    against its plain version as phase 2 holds a model (f32 and bf16 packs,
+    B=16 on clusters of 8 and B=256 on clusters of 4; its rows and failures
+    appended to ``rows`` and ``failures``), then one bf16 256-step launch at
+    B=256 (the chunk ring) and B=16 (four whole layer blocks) timed as the
+    30L3S line is, with the plan each took (``_info``) and the launch
+    counters. Returns {mulaw256.bB: timing}."""
+    import torch
+
+    from wavenet_vocoder_tpu_torch.config import Config
+    from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, spec_from_config
+    from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "egs/mulaw256/conf/mulaw256_wavenet.json")) as f:
+        cfg = Config().override_from_dict(json.load(f))
+    model = WaveNet(spec_from_config(cfg),
+                    generator=torch.Generator().manual_seed(1)).to("cuda").eval()
+    spec = model.spec
+    mine, bad = _check_model(
+        model, [(B, cg.DEFAULT_CHUNK, True) for B in (16, 256)],
+        ("float32", "bfloat16"), "[bench-kernel] mulaw256", dict(model="mulaw256"))
+    rows += mine
+    failures += bad
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    timing = {}
+    for B in (256, 16):
+        tag = f"[bench-kernel] mulaw256 B={B}"
+        inputs = _launch_inputs(spec, B, cg.DEFAULT_CHUNK)
+        cond, x0, ring, out = inputs
+        names = ("launches", "chunked_launches", "split_head_launches")
+        before = [_launches(f"generate.{n}") for n in names]
+        info = []
+        cg.generate_steps(packed, spec, ring.clone(), x0.clone(), out, cond,
+                          t0=0, seed=1, _info=info)
+        torch.cuda.synchronize()
+        counts = dict(zip(names, (_launches(f"generate.{n}") - b
+                                  for n, b in zip(names, before))))
+        print(f"{tag} plan: {info[0]} {'chunk slots' if info[4] else 'stages'}, "
+              f"head resident {info[1]}, {info[2]} B of shared memory, "
+              f"{info[3]} clusters at once; counters {counts}", flush=True)
+        if counts["split_head_launches"] != 1 or counts["chunked_launches"] != (B > 240):
+            fail(f"mulaw256 B={B}: counters {counts}")
+        timing[f"mulaw256.b{B}"] = dict(
+            _time_launch(tag, packed, spec, inputs, iters=3),
+            plan=info, counters=counts)
+    del model, packed
+    torch.cuda.empty_cache()
     return timing
 
 

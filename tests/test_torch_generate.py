@@ -270,24 +270,37 @@ WIDTHS = {
                  skip_out_channels=4, cin_channels=80),
     "odd": dict(layers=2, stacks=1, residual_channels=5, gate_channels=6,
                 skip_out_channels=3, cin_channels=3),
+    # a categorical head of 20 classes, split over the cluster: at 8 CTAs
+    # (8 classes each) ranks 3 to 7 hold padding alone
+    "categorical": dict(layers=3, stacks=1, residual_channels=16,
+                        gate_channels=32, skip_out_channels=16,
+                        cin_channels=4, out_channels=20, scalar_input=False),
 }
 
 
+def _width_spec(width):
+    return WaveNetSpec(**{"out_channels": 30, "scalar_input": True,
+                          **WIDTHS[width]})
+
+
 def _packed(width, dtype, seed=5):
-    spec = WaveNetSpec(out_channels=30, scalar_input=True, **WIDTHS[width])
+    spec = _width_spec(width)
     model = WaveNet(spec, generator=torch.Generator().manual_seed(seed))
     packed = cg.pack_weights(model, dtype=dtype)
     return spec, {n: a.detach().clone() for n, a in packed.items()}
 
 
 def _public_from_slices(kp, spec):
-    """The kernel-side slices, unpadded and put back in the public order."""
+    """The kernel-side slices, unpadded and put back in the public order;
+    a split head's w_h2 and b_h2 from every CTA's block of classes, a whole
+    one's from CTA 0."""
     sl, d, CS = kp.slices(), kp.dims, kp.cluster_size
     L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
     G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
     cin = spec.cin_channels
     Gq, Rq, Sq = d["Gq"], d["Rq"], d["Sq"]
     Rp = CS * Rq
+    heads = range(CS) if cg.split_head(spec) else range(1)
     cat = lambda parts: torch.cat(list(parts), dim=-1)
     # columns: CTA r holds [a-half | b-half] of gate channels r*Gq ...
     a = cat(sl["w_in"][r][..., :Gq] for r in range(CS))[..., :G2]
@@ -308,7 +321,8 @@ def _public_from_slices(kp, spec):
         "b_og": torch.cat([b_res, b_skip], dim=-1),
         "w_h1": cat(sl["w_h1"][r] for r in range(CS))[:S, :S],
         "b_h1": cat(sl["b_h1"][r] for r in range(CS))[:S],
-        "w_h2": sl["w_h2"][0][:S, :C], "b_h2": sl["b_h2"][0][:C],
+        "w_h2": cat(sl["w_h2"][r] for r in heads)[:S, :C],
+        "b_h2": cat(sl["b_h2"][r] for r in heads)[:C],
     }
 
 
@@ -326,12 +340,13 @@ def test_kernel_pack_slices_restore_packed(width, dtype, cs):
         assert torch.equal(a, packed[name]), name
     # what is not a weight is padding: the blocks hold no other mass
     sl = kp.slices()
-    for name in ("w_in", "w_og", "w_h1", "b_in", "b_og", "b_h1"):
+    split = ("w_h2", "b_h2") if cg.split_head(spec) else ()
+    for name in ("w_in", "w_og", "w_h1", "b_in", "b_og", "b_h1") + split:
         assert float(sl[name].float().abs().sum()) == pytest.approx(
             float(packed[name].float().abs().sum()), rel=1e-6), name
     d = kp.dims
     assert d["Kin"] % 16 == 0 and d["Kog"] % 16 == 0 and d["Ksk"] % 16 == 0
-    assert all(d[n] % 8 == 0 for n in ("Gq", "Rq", "Sq", "Cp"))
+    assert all(d[n] % 8 == 0 for n in ("Gq", "Rq", "Sq", "Cq"))
     assert all(d[n] % 64 == 8 for n in ("xs", "gs", "ss"))
     assert kp.wl.shape[2] % 16 == 0 and kp.wh.shape[1] % 16 == 0
     # the first 1x1 conv as the kernel reads it: zero columns up to the
@@ -414,7 +429,7 @@ def test_picker_covers_every_stream(width, dtype, B):
     """(c) The picker's cluster shape puts every stream into exactly one
     cluster, stays within what the kernel is built for, and leaves room in
     shared memory for the activation buffers."""
-    spec = WaveNetSpec(out_channels=30, scalar_input=True, **WIDTHS[width])
+    spec = _width_spec(width)
     dt = getattr(torch, dtype)
     cs, streams = cg.pick_cluster(spec, B)
     assert cs in cg.CLUSTER_SIZES and 1 <= streams <= cg.CLUSTER_STREAMS

@@ -7,7 +7,9 @@ They import nothing of JAX, so they run on a machine that has only the port:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
+import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from wavenet_vocoder_tpu_torch.ops import cuda_train as ct
 from wavenet_vocoder_tpu_torch.ops import fused_train as ft
 from wavenet_vocoder_tpu_torch.utils import profiling
 
+EGS = Path(__file__).resolve().parent.parent / "egs"
 HEADS = {
     "categorical": dict(out_channels=256, scalar_input=False),
     "mol": dict(out_channels=30, scalar_input=True,
@@ -296,6 +299,123 @@ def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
                           torch.empty(2, 4, device=cuda),
                           torch.zeros(2, 4, 4, device=cuda), t0=0, seed=0,
                           _cluster=cluster)
+
+
+def _mulaw256_launch(packed, spec, cond, ring0, x0, det, cluster=None,
+                     info=None):
+    """(codes, ring, x_cur, split-head and chunk-ring launches counted) of
+    one 32-step launch from t0 = 7."""
+    B, n = x0.shape[0], cond.shape[1]
+    ring, x_cur = ring0.clone(), x0.clone()
+    out = torch.empty(B, n, device="cuda", dtype=torch.int32)
+    before = [_count(c) for c in ("generate.split_head_launches",
+                                  "generate.chunked_launches")]
+    cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=7, seed=9,
+                      deterministic=det, _cluster=cluster, _info=info)
+    torch.cuda.synchronize()
+    after = [_count(c) for c in ("generate.split_head_launches",
+                                 "generate.chunked_launches")]
+    return (out.cpu(), ring.float().cpu(), x_cur.cpu(),
+            [a - b for a, b in zip(after, before)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("det", [True, False], ids=["greedy", "sample"])
+@pytest.mark.parametrize("B", [16, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mulaw256_split_head_matches_plain(cuda, dtype, B, det):
+    """r9y9's mu-law 256 recipe at its published widths (30 layers in 3
+    stacks, 128/256/128, one-hot 256 in, 256 classes): every launch splits
+    the categorical head over the cluster (``generate.split_head_launches``).
+    f32 packs: codes equal the plain version's (32 steps from t0 = 7, at
+    B=16 on clusters of 8 and B=256 on clusters of 4). bf16 packs: at
+    clusters of 8 the launch keeps four whole layer blocks (not the chunk
+    ring), and its codes are the bits of the same launch on clusters of 1,
+    one CTA holding all 256 classes (no exchange); bf16 against the plain
+    version parts streams at rounding ties of greedy logits, which a
+    sum-order change alone reproduces on the CPU."""
+    spec = spec_from_config(Config().override_from_dict(json.loads(
+        (EGS / "mulaw256/conf/mulaw256_wavenet.json").read_text())))
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(13)).to(cuda)
+    dt = getattr(torch, dtype)
+    packed = cg.pack_weights(model, dtype=dt)
+    n = 32
+    rs = np.random.RandomState(B)
+    _, rows = cg.buffer_layout(spec)
+    ring0 = torch.from_numpy(rs.randn(rows, B, 128).astype(np.float32) * 0.5
+                             ).to(cuda, dt)
+    cond = torch.from_numpy(rs.randn(B, n, 80).astype(np.float32)).to(cuda, dt)
+    x0 = torch.nn.functional.one_hot(torch.from_numpy(
+        rs.randint(0, 256, B)), 256).float().to(cuda)
+    cs = cg.pick_cluster(spec, B)[0]
+    assert cs == (8 if B == 16 else 4)
+    info = []
+    k_out, k_ring, k_x, counted = _mulaw256_launch(packed, spec, cond, ring0,
+                                                   x0, det, info=info)
+    chunked = dtype == "float32" or cs == 4
+    assert counted == [1, int(chunked)] and info[4] == int(chunked)
+    if not chunked:
+        assert info[0] == 4 and info[1] == 1
+    assert len(set(k_out.flatten().tolist())) > 3
+    assert torch.equal(k_x, torch.nn.functional.one_hot(
+        k_out[:, -1].long(), 256).float())
+    if dtype == "float32":
+        ring, x_cur = ring0.clone(), x0.clone()
+        out = torch.empty(B, n, device=cuda, dtype=torch.int32)
+        cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond, None,
+                                t0=7, seed=9, deterministic=det)
+        assert torch.equal(k_out, out.cpu())
+        assert torch.equal(k_x, x_cur.cpu())
+        torch.testing.assert_close(k_ring, ring.cpu(), rtol=0, atol=1e-3)
+    else:
+        one = _mulaw256_launch(packed, spec, cond, ring0, x0, det, (1, 16))
+        assert one[3] == [1, 1]
+        assert torch.equal(k_out, one[0]) and torch.equal(k_ring, one[1])
+        assert torch.equal(k_x, one[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("det", [True, False], ids=["greedy", "sample"])
+def test_categorical_generator_runs_under_inference_mode(cuda, det):
+    """The categorical kernel reads its first code from x_cur's one-hot row
+    (a zero row: no input), so ``FusedGenerator`` serves it under
+    ``torch.inference_mode`` (whose tensors carry no version counter):
+    three carried segments give the codes and state of the same calls
+    outside it, and the first launch's codes equal the plain version's."""
+    spec = WaveNetSpec(layers=4, stacks=2, residual_channels=8,
+                       gate_channels=16, skip_out_channels=8, cin_channels=4,
+                       out_channels=256, scalar_input=False)
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(5)).to(cuda)
+    gen = cg.FusedGenerator(model, weight_dtype=torch.float32, chunk=16)
+    B = 5
+    c_up = torch.randn(B, 48, 4, generator=torch.Generator().manual_seed(6)
+                       ).to(cuda)
+    x0 = torch.nn.functional.one_hot(torch.tensor([3, 40, 0, 255, 77]),
+                                     256).float().to(cuda)
+    x0[2].zero_()
+
+    def segments():
+        out, state = [], None
+        for a in range(0, 48, 16):
+            o, state = gen(c_up=c_up[:, a:a + 16], seed=4, deterministic=det,
+                           initial_input=None if state else x0, state=state,
+                           return_state=True)
+            out.append(o.clone())
+        return torch.cat(out, 1).cpu(), state[0].clone().cpu()
+
+    want = segments()
+    with torch.inference_mode():
+        got = segments()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[1], torch.nn.functional.one_hot(
+        got[0][:, -1].long(), 256).float())
+    _, rows = cg.buffer_layout(spec)
+    ring, x_cur = torch.zeros(rows, B, 8, device=cuda), x0.clone()
+    out = torch.empty(B, 16, device=cuda, dtype=torch.int32)
+    cg.generate_steps_plain(gen.packed, spec, ring, x_cur, out,
+                            c_up[:, :16].contiguous(), None, t0=0, seed=4,
+                            deterministic=det)
+    assert torch.equal(got[0][:, :16], out.cpu())
 
 
 # ----------------------------------------------------------------------

@@ -50,9 +50,14 @@
 //     barrier inside a layer: a buffer is free for the next round because a
 //     sender only gets there after it has received what the reader sent
 //     after reading. Skip sums stay local to the CTA that owns the columns
-//     and are gathered once for the head. The head's second 1x1 and the
-//     sampler run redundantly in every CTA with the same hash, so the sample
-//     needs no broadcast.
+//     and are gathered once for the head. The scalar heads' second 1x1 (a
+//     few columns) and sampler run redundantly in every CTA with the same
+//     hash, so the sample needs no broadcast. The categorical head is split
+//     like every other product: CTA r holds classes [r*Cq, (r+1)*Cq) of
+//     w_h2, adds their Gumbel noise (keyed by the absolute class) and sends
+//     its best (score, class) a stream to every CTA, each of which reduces
+//     the CS candidates in rank order to the same code. Its one-hot input
+//     is kept as that code: the first 1x1 conv is a row of w_first.
 //   * What does not depend on the current step is fetched ahead. The weights
 //     are repacked once per pack (ops/cuda_generate.py::kernel_pack) so that
 //     a CTA's slice of a layer is one contiguous block in mma fragment order;
@@ -470,7 +475,8 @@ struct Params {
   int CS, spc;        // CTAs per cluster, streams per cluster
   int Gq, Rq, Sq;     // gate, residual, skip channels a CTA owns (multiples of 8)
   int Kin, Kog, Ksk;  // padded depths of w_in, w_og and the head products (% 16)
-  int Cp;             // C_out padded to 8
+  int Cq;             // the head's output columns a CTA holds (padded to 8): all C_out
+                      // for the scalar heads, its share of the classes for the categorical
   int xs, gs, ss;     // row strides of the [taps | cond], gated and head buffers
   int stage_bytes, head_bytes;
   // the ring of weights in shared memory (KernelPack.ring_plan)
@@ -485,9 +491,12 @@ __host__ __device__ inline size_t up128(size_t b) { return (b + 127) / 128 * 128
 
 // byte offsets into dynamic shared memory
 struct Layout {
-  size_t stage_stride, headw, xin, gt, hx, o1, part, bst, hbf, sk, lo, xc, first, code, ltab, bars,
-      total;
+  size_t stage_stride, headw, xin, gt, hx, o1, part, bst, hbf, sk, lo, xc, cand, first, code,
+      ltab, bars, total;
 };
+constexpr int kBars = 5;   // mbarriers besides the ring's: the head's weights, four exchanges
+// the categorical head is split over the cluster (and its candidates take an mbarrier more)
+__host__ __device__ inline bool split_head(const Params& p) { return p.head == 0; }
 template <typename W> __host__ __device__ inline Layout make_layout(const Params& p) {
   const size_t M = kRows;
   Layout y;
@@ -505,12 +514,15 @@ template <typename W> __host__ __device__ inline Layout make_layout(const Params
   y.bst = o;  o += p.slot_bytes > 0 ? up128(2 * (size_t)p.Gq * 4) : 0;
   y.hbf = o;  o += up128(M * p.Rq * 4);
   y.sk = o;   o += up128(M * p.Sq * 4);
-  y.lo = o;   o += up128(M * p.Cp * 4);
-  y.xc = o;   o += up128(M * p.C_in * 4);
+  y.lo = o;   o += up128(M * p.Cq * 4);
+  // the scalar heads' current input; the split head keeps codes instead and
+  // takes every CTA's candidate (score, class) a stream
+  y.xc = o;   o += split_head(p) ? 0 : up128(M * p.C_in * 4);
+  y.cand = o; o += split_head(p) ? up128(M * (size_t)p.CS * 8) : 0;
   y.first = o; o += up128(2 * (size_t)p.CS * p.Rq * 4);
   y.code = o; o += up128(M * 4);
   y.ltab = o; o += up128((size_t)p.L * 16);
-  y.bars = o; o += up128((size_t)(2 * p.nstage + 5) * 8);
+  y.bars = o; o += up128((size_t)(2 * p.nstage + kBars + split_head(p)) * 8);
   y.total = o;
   return y;
 }
@@ -540,8 +552,9 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   float* bst = reinterpret_cast<float*>(smem + lay.bst);
   float* hbf = reinterpret_cast<float*>(smem + lay.hbf);  // M x Rq: own residual columns, f32
   float* sk = reinterpret_cast<float*>(smem + lay.sk);    // M x Sq: own skip sums
-  float* lo = reinterpret_cast<float*>(smem + lay.lo);    // M x Cp: head output
-  float* xc = reinterpret_cast<float*>(smem + lay.xc);    // M x C_in: current input
+  float* lo = reinterpret_cast<float*>(smem + lay.lo);    // M x Cq: head output
+  float* xc = reinterpret_cast<float*>(smem + lay.xc);    // M x C_in: current input (scalar heads)
+  uint2* cand = reinterpret_cast<uint2*>(smem + lay.cand);  // M x CS: each CTA's (score, class)
   // the first conv's bias and, for a scalar input, its one row of weights
   float* first_b = reinterpret_cast<float*>(smem + lay.first);
   float* first_w = first_b + p.CS * p.Rq;
@@ -557,6 +570,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   uint64_t* bar_g = bar_head + 2;    // ... of gated
   uint64_t* bar_hx = bar_head + 3;   // ... of the head's input
   uint64_t* bar_o1 = bar_head + 4;   // ... of the head's hidden layer
+  uint64_t* bar_cd = bar_head + 5;   // every CTA's candidates (split head)
 
   // A CTA runs few warps and a step is one long chain, so a step's time is
   // the length of the instruction stream along it: index arithmetic is hoisted
@@ -572,7 +586,8 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   const int nvalid = min(p.spc, p.B - base);
   const int L = p.L, R = p.R, G = p.G, G2 = p.G / 2;
   const int k = p.k, cin = p.cin, C_in = p.C_in, C_out = p.C_out;
-  const int Gq = p.Gq, Rq = p.Rq, Sq = p.Sq, Rp = CS * Rq, Cp = p.Cp;
+  const int Gq = p.Gq, Rq = p.Rq, Sq = p.Sq, Rp = CS * Rq, Cq = p.Cq;
+  const bool split = split_head(p);
   const int xs = p.xs, gs = p.gs, ss = p.ss;
   const int NA = 2 * Gq, NB = Rq + Sq;
   const W* w_first = static_cast<const W*>(p.w_first);
@@ -581,7 +596,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   const size_t win_bytes = (size_t)p.Kin * NA * sizeof(W);
   const size_t wog_bytes = (size_t)p.Kog * NB * sizeof(W);
   const size_t wh1_bytes = (size_t)p.Ksk * Sq * sizeof(W);
-  const size_t wh2_bytes = (size_t)p.Ksk * Cp * sizeof(W);
+  const size_t wh2_bytes = (size_t)p.Ksk * Cq * sizeof(W);
   const W* cond = static_cast<const W*>(p.cond);
   W* ring = static_cast<W*>(p.ring);
   const size_t ring_row = (size_t)p.B * R;
@@ -593,11 +608,12 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   const uint32_t x_bytes = (uint32_t)(M * Rp * sizeof(W));
   const uint32_t g_bytes = (uint32_t)(M * CS * Gq * sizeof(W));
   const uint32_t s_bytes = (uint32_t)(M * CS * Sq * sizeof(W));
-  uint32_t x_round = 0, g_round = 0, h_round = 0;   // rounds waited for so far
+  const uint32_t c_bytes = (uint32_t)(nvalid * CS * 8);
+  uint32_t x_round = 0, g_round = 0, h_round = 0, c_round = 0;   // rounds waited for so far
   const Walk walk_p(tid, nthr, Rp);
   // a thread's outputs (row, col) of each product
   const Walk walk_g(tid, nthr, Gq), walk_b(tid, nthr, NB), walk_s(tid, nthr, Sq);
-  const Walk walk_c(tid, nthr, Cp);
+  const Walk walk_c(tid, nthr, Cq);
   // bf16: a warp's items of the w_in product, (part of the k-steps, pair of
   // n-tiles: 8 gate channels' a and b half)
   const int pairs = Gq >> 3;
@@ -615,7 +631,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   }
   if (tid == 0) {
     // a chunk slot is free again once every warp has left it
-    for (int s = 0; s < 2 * p.nstage + 5; ++s)
+    for (int s = 0; s < 2 * p.nstage + kBars + split; ++s)
       mbar_init(&bars[s], kChunk && s < 2 * p.nstage && (s & 1) ? NW : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -638,7 +654,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       auto put = [&](const unsigned char* w, int KS, int d, const unsigned char* bias,
                      uint32_t bias_bytes) {
         const size_t kstep =
-            (size_t)kRowsStep * (d == 0 ? NA : d == 1 ? NB : d == 2 ? Sq : Cp) * sizeof(W);
+            (size_t)kRowsStep * (d == 0 ? NA : d == 1 ? NB : d == 2 ? Sq : Cq) * sizeof(W);
         for (int pass = 0; pass < p.passes[d]; ++pass)
           for (int k0 = 0; k0 < KS; k0 += p.ck[d]) {
             const int k1 = min(KS, k0 + p.ck[d]);
@@ -674,7 +690,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         if (lane == 0) {
           const unsigned char* bias = wh + wh1_bytes + wh2_bytes;
           put(wh, KSsk, 2, bias, Sq * 4);
-          put(wh + wh1_bytes, KSsk, 3, bias + Sq * 4, Cp * 4);
+          put(wh + wh1_bytes, KSsk, 3, bias + Sq * 4, Cq * 4);
         }
         __syncwarp();
         cluster_wait();
@@ -693,9 +709,28 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       __syncthreads();
   };
 
-  for (int e = tid; e < M * C_in; e += nthr) {
-    const int bi = e / C_in;
-    if (bi < nvalid) xc[e] = p.x_cur[(size_t)(base + bi) * C_in + e % C_in];
+  if (split) {
+    // a one-hot row's code: the index of its nonzero entry (C_in: a zero
+    // row, no input), a warp a stream
+    for (int bi = warp; bi < M; bi += NW) {
+      int c = C_in;
+      if (bi < nvalid) {
+        const float* x = p.x_cur + (size_t)(base + bi) * C_in;
+        for (int c0 = 0; c0 < C_in; c0 += 32) {
+          const unsigned hit = __ballot_sync(0xffffffffu, c0 + lane < C_in && x[c0 + lane] != 0.0f);
+          if (hit) {
+            c = c0 + __ffs(hit) - 1;
+            break;
+          }
+        }
+      }
+      if (lane == 0) code[bi] = c;
+    }
+  } else {
+    for (int e = tid; e < M * C_in; e += nthr) {
+      const int bi = e / C_in;
+      if (bi < nvalid) xc[e] = p.x_cur[(size_t)(base + bi) * C_in + e % C_in];
+    }
   }
   for (int ch = tid; ch < R; ch += nthr) {
     first_b[ch] = p.b_first[ch];
@@ -736,6 +771,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     mbar_expect_tx(bar_g, g_bytes);
     mbar_expect_tx(bar_hx, s_bytes);
     mbar_expect_tx(bar_o1, s_bytes);
+    if (split) mbar_expect_tx(bar_cd, c_bytes);
   }
   int use_slot = 0;            // the stage or slot read next,
   uint32_t use_parity = 0;     //   and how often the ring has wrapped (mod 2)
@@ -955,15 +991,10 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         const int bi = w.row, ch = w.col;
         float v = 0.0f;
         if (ch < R) {
-          if (p.head == 0 && j > 0) {   // one-hot input: a row lookup
+          if (split) {   // one-hot input, kept as its code: a row lookup
             if (code[bi] < C_in) v = to_f(w_first[(size_t)code[bi] * R + ch]);
-          } else if (C_in == 1) {
+          } else {       // a scalar input
             v = rnd<W>(xc[bi]) * first_w[ch];
-          } else {
-            for (int i = 0; i < C_in; ++i) {
-              const float xv = xc[bi * C_in + i];
-              if (xv != 0.0f) v += rnd<W>(xv) * to_f(w_first[(size_t)i * R + ch]);
-            }
           }
           v += first_b[ch];
         }
@@ -1336,60 +1367,63 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = g + 8 * (i >> 1), c = tile * 8 + 2 * t4 + (i & 1);
-          lo[row * Cp + c] = acc[i] + ((i & 1) ? b1 : b0);
+          lo[row * Cq + c] = acc[i] + ((i & 1) ? b1 : b0);
         }
       };
       if constexpr (kChunk) {
-        tiles_pass(3, KSsk, Cp, o1, ss, Cp >> 3, no_skip, h2_tile);
+        tiles_pass(3, KSsk, Cq, o1, ss, Cq >> 3, no_skip, h2_tile);
       } else {
-        for (int tile = warp; tile < (Cp >> 3); tile += NW) {
+        for (int tile = warp; tile < (Cq >> 3); tile += NW) {
           float acc[1][4];
-          mma_chain<1>(w_h2, p.Ksk, Cp, 0, 1, &tile, o1, ss, acc);
+          mma_chain<1>(w_h2, p.Ksk, Cq, 0, 1, &tile, o1, ss, acc);
           h2_tile(tile, acc[0], b_h2[tile * 8 + 2 * t4], b_h2[tile * 8 + 2 * t4 + 1]);
         }
       }
     } else {
       auto h2_out = [&](int row, int col, float acc, const float* bias) {
-        lo[row * Cp + col] = acc + bias[col];
+        lo[row * Cq + col] = acc + bias[col];
       };
       if constexpr (kChunk) {
-        cols_pass(3, KSsk, Cp, o1, ss, no_skip, h2_out);
+        cols_pass(3, KSsk, Cq, o1, ss, no_skip, h2_out);
       } else {
         Walk w = walk_c;
-        for (int e = tid; e < M * Cp; e += nthr, w.next()) {
+        for (int e = tid; e < M * Cq; e += nthr, w.next()) {
           float acc[1];
-          fma_chain<1>(w_h2, p.Ksk, Cp, &w.col, o1 + w.row * ss, acc);
+          fma_chain<1>(w_h2, p.Ksk, Cq, &w.col, o1 + w.row * ss, acc);
           h2_out(w.row, w.col, acc[0], b_h2);
         }
       }
     }
     sync();
     WN_STAMP(3 + 4 * L);
-    // ---- sampling: a warp per stream, the same in every CTA; rank 0 writes
+    // ---- sampling, a warp per stream. Categorical: each CTA's best of its
+    // classes to every CTA, then the reduction over the cluster. Scalar
+    // heads: the same in every CTA. Rank 0 writes.
     for (int bi = warp; bi < nvalid; bi += NW) {
       const int b = base + bi;
-      const float* o = lo + bi * Cp;
+      const float* o = lo + bi * Cq;
       const uint32_t key = mix32(mix32(mix32(p.seed) ^ (uint32_t)b) ^ (uint32_t)t);
-      if (p.head == 0) {
-        // argmax of logits (+ Gumbel noise); ties go to the lowest index
+      if (split) {
+        // argmax of this CTA's logits (+ Gumbel noise, keyed by the class);
+        // ties go to the lowest class
         float best = -INFINITY;
         int arg = C_out;
-        for (int c = lane; c < C_out; c += 32) {
+        for (int c = lane, cls = rank * Cq + lane; c < Cq && cls < C_out; c += 32, cls += 32) {
           float v = o[c];
-          if (!p.deterministic) v -= logf(-logf(uniform(key, (uint32_t)c)));
-          if (v > best || arg == C_out) { best = v; arg = c; }
+          if (!p.deterministic) v -= logf(-logf(uniform(key, (uint32_t)cls)));
+          if (v > best || arg == C_out) { best = v; arg = cls; }
         }
         for (int m = 16; m > 0; m >>= 1) {
           float ob = __shfl_xor_sync(0xffffffffu, best, m);
           int oa = __shfl_xor_sync(0xffffffffu, arg, m);
           if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
         }
-        if (arg >= C_out) arg = C_out - 1;
-        if (lane == 0) {
-          code[bi] = arg;
-          if (rank == 0) static_cast<int*>(p.out)[b * p.out_sb + j] = arg;
-        }
-        for (int c = lane; c < C_in; c += 32) xc[bi * C_in + c] = c == arg ? 1.0f : 0.0f;
+        // lane 0's candidate, lane r to CTA r
+        best = __shfl_sync(0xffffffffu, best, 0);
+        arg = __shfl_sync(0xffffffffu, arg, 0);
+        if (lane < CS)
+          st_async(map_rank(smem_u32(cand + bi * CS + rank), lane), __float_as_uint(best),
+                   (uint32_t)arg, map_rank(smem_u32(bar_cd), lane));
       } else {
         float mean, ls;
         int nr = 1;
@@ -1436,14 +1470,38 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         }
       }
     }
+    if (split) {
+      // every CTA reduces the CS candidates of a stream in rank order, ties
+      // to the lower class, and so reaches the same code. The buffer is free
+      // again before any peer sends the next step's: that comes after this
+      // CTA's next gated slice, which comes after the sync below.
+      mbar_wait(bar_cd, c_round & 1);
+      ++c_round;
+      if (tid == 0) mbar_expect_tx(bar_cd, c_bytes);
+      for (int bi = tid; bi < nvalid; bi += nthr) {
+        float best = __uint_as_float(cand[bi * CS].x);
+        int arg = (int)cand[bi * CS].y;
+        for (int r = 1; r < CS; ++r) {
+          const float ob = __uint_as_float(cand[bi * CS + r].x);
+          const int oa = (int)cand[bi * CS + r].y;
+          if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
+        }
+        if (arg >= C_out) arg = C_out - 1;
+        code[bi] = arg;
+        if (rank == 0) static_cast<int*>(p.out)[(base + bi) * p.out_sb + j] = arg;
+      }
+    }
     sync();
     WN_STAMP(4 + 4 * L);
   }
 
+  // the last input: x_cur, for the categorical head the one-hot rows of its codes
   if (rank == 0)
     for (int e = tid; e < M * C_in; e += nthr) {
       const int bi = e / C_in;
-      if (bi < nvalid) p.x_cur[(size_t)(base + bi) * C_in + e % C_in] = xc[e];
+      if (bi < nvalid)
+        p.x_cur[(size_t)(base + bi) * C_in + e % C_in] =
+            split ? (e % C_in == code[bi] ? 1.0f : 0.0f) : xc[e];
     }
   // no CTA leaves while a peer may still send into its shared memory
   cluster_arrive();
@@ -1501,7 +1559,7 @@ cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
   if (threads % 128) return cudaErrorInvalidValue;   // whole warpgroups
   const int rows = sizeof(W) == 2 ? 16 : 1;   // rows a step of the chunk ring
   const int KS[4] = {p.Kin / rows, p.Kog / rows, p.Ksk / rows, p.Ksk / rows};
-  const int N[4] = {2 * p.Gq, p.Rq + p.Sq, p.Sq, p.Cp};
+  const int N[4] = {2 * p.Gq, p.Rq + p.Sq, p.Sq, p.Cq};
   for (int d = 0; d < 4; ++d) {
     // units: bf16 n-tiles (w_in: pairs of them, in kSplitIn parts), a warp
     // a unit; f32 outputs (w_in: gate channels of a stream), a thread each
@@ -1519,7 +1577,7 @@ cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
 }  // namespace
 
 // plan: [CS, streams per cluster, threads, stages or chunk slots, Gq, Rq, Sq,
-//        Kin, Kog, Ksk, Cp, xs, gs, ss, stage_bytes, head_bytes, slot_bytes
+//        Kin, Kog, Ksk, Cq, xs, gs, ss, stage_bytes, head_bytes, slot_bytes
 //        (0: whole-layer stages), chunk k-steps x 4, passes x 4] (host ints,
 //        ops/cuda_generate.py KernelPack.plan). trace: device buffer of
 //        4 L + 5 clock stamps, or null. info: 5 host ints or null.
@@ -1546,7 +1604,7 @@ extern "C" int wn_generate(
   const int threads = plan[2];
   p.nstage = plan[3];
   p.Gq = plan[4]; p.Rq = plan[5]; p.Sq = plan[6];
-  p.Kin = plan[7]; p.Kog = plan[8]; p.Ksk = plan[9]; p.Cp = plan[10];
+  p.Kin = plan[7]; p.Kog = plan[8]; p.Ksk = plan[9]; p.Cq = plan[10];
   p.xs = plan[11]; p.gs = plan[12]; p.ss = plan[13];
   p.stage_bytes = plan[14]; p.head_bytes = plan[15];
   p.slot_bytes = plan[16];

@@ -12,7 +12,9 @@ place, so a generation can be continued launch after launch:
   * ``ring (total_rows, B, R)`` in the pack dtype: every layer's dilated ring
     buffer packed along the rows (``buffer_layout``), with the JAX kernel's
     read-before-write modular indexing;
-  * ``x_cur (B, C_in)`` f32: the next step's input.
+  * ``x_cur (B, C_in)`` f32: the next step's input; for the categorical
+    head the one-hot row of the last code (a zero row: no input), which the
+    kernel reads as the index of the row's nonzero entry.
 
 The kernel reads a second, kernel-side pack (``kernel_pack``): every
 product's columns cut into one slice per CTA of a thread-block cluster,
@@ -281,16 +283,32 @@ def _row_stride(K: int) -> int:
     return K + (8 - K) % 64
 
 
+def split_head(spec: WaveNetSpec) -> bool:
+    """Whether the kernel splits the head's second 1x1 and its sampler over
+    the cluster's CTAs: the categorical head (a class a column, Gumbel-max
+    over the classes). The scalar heads' few columns stay whole in every CTA."""
+    return head_code(spec) == 0
+
+
 def _kernel_dims(spec: WaveNetSpec, cluster_size: int) -> Dict[str, int]:
-    """Widths, depths and strides of the kernel-side pack (see KernelPack)."""
+    """Widths, depths and strides of the kernel-side pack (see KernelPack).
+    ``Cq``: the output columns of the head a CTA holds, C_out padded to 8,
+    or for a split head its 1/CS share of them, padded to 8."""
     CS, k = cluster_size, spec.kernel_size
     cin = spec.cin_channels if spec.has_local_conditioning else 0
     Gq, Rq, Sq = (_up(-(-w // CS), 8) for w in (
         spec.gate_channels // 2, spec.residual_channels, spec.skip_out_channels))
     Kin, Kog, Ksk = _up(k * CS * Rq + cin, 16), _up(CS * Gq, 16), _up(CS * Sq, 16)
+    C = spec.out_channels
     return dict(Gq=Gq, Rq=Rq, Sq=Sq, Kin=Kin, Kog=Kog, Ksk=Ksk,
-                Cp=_up(spec.out_channels, 8), xs=_row_stride(Kin),
-                gs=_row_stride(Kog), ss=_row_stride(Ksk))
+                Cq=_up(-(-C // CS) if split_head(spec) else C, 8),
+                xs=_row_stride(Kin), gs=_row_stride(Kog), ss=_row_stride(Ksk))
+
+
+def _barriers(spec: WaveNetSpec) -> int:
+    """The kernel's mbarriers besides the ring's: the head's weights, the
+    four exchanges, and the split head's candidates."""
+    return 5 + split_head(spec)
 
 
 def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype
@@ -300,14 +318,17 @@ def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype
     (``make_layout``) before it gives the rest to the weights."""
     d = _kernel_dims(spec, cluster_size)
     elt = 2 if dtype == torch.bfloat16 else 4
-    M = CLUSTER_STREAMS
+    M, split = CLUSTER_STREAMS, split_head(spec)
     NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
+    # a split head keeps its input as codes (no one-hot rows) and takes
+    # every CTA's (score, class) candidate a stream
     sizes = [2 * M * d["xs"] * elt, M * d["gs"] * elt, M * d["ss"] * elt,
              M * d["ss"] * elt, SPLIT_IN * NA * M * 4 if elt == 2 else 0,
              M * d["Rq"] * 4, M * d["Sq"] * 4,
-             M * d["Cp"] * 4, M * spec.in_channels * 4,
+             M * d["Cq"] * 4, 0 if split else M * spec.in_channels * 4,
+             M * cluster_size * 8 if split else 0,
              2 * cluster_size * d["Rq"] * 4, M * 4,
-             spec.layers * 16, 5 * 8]
+             spec.layers * 16, _barriers(spec) * 8]
     block = (d["Kin"] * NA + d["Kog"] * NB) * elt + (NA + NB) * 4
     return sum(_up(b, 128) for b in sizes), block
 
@@ -348,7 +369,7 @@ def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
     one stream's output (f32: a gate channel's pair of columns for w_in)."""
     d = _kernel_dims(spec, cluster_size)
     M, NW = CLUSTER_STREAMS, threads // 32
-    cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cp"])
+    cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"])
     depth = (d["Kin"], d["Kog"], d["Ksk"], d["Ksk"])
     if dtype == torch.bfloat16:
         rows, elt = 16, 2
@@ -378,12 +399,13 @@ def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
     elt = 2 if dtype == torch.bfloat16 else 4
     fixed, block = kernel_smem_bytes(spec, cluster_size, dtype)
     d = _kernel_dims(spec, cluster_size)
-    head = (d["Ksk"] * (d["Sq"] + d["Cp"]) * elt + (d["Sq"] + d["Cp"]) * 4)
+    head = (d["Ksk"] * (d["Sq"] + d["Cq"]) * elt + (d["Sq"] + d["Cq"]) * 4)
+    nbar = _barriers(spec)
 
     def total(stages, stride, head_bytes=0):   # make_layout's total
         # the chunk ring (no head block) copies b_in out of its chunk
         return (stages * _up(stride, 128) + _up(head_bytes, 128) + fixed
-                - _up(5 * 8, 128) + _up((2 * stages + 5) * 8, 128)
+                - _up(nbar * 8, 128) + _up((2 * stages + nbar) * 8, 128)
                 + (0 if head_bytes else _up(8 * d["Gq"], 128)))
 
     L = spec.layers
@@ -485,15 +507,17 @@ def _from_fragment_order(f: torch.Tensor, K: int, N: int) -> torch.Tensor:
 class KernelPack:
     """What ``csrc/generate.cu`` reads for one cluster size, as bytes: per CTA
     ``r`` of the cluster and per layer, one contiguous block [w_in slice |
-    w_og slice | b_in | b_og] (``wl``), and per CTA [w_h1 slice | w_h2 |
-    b_h1 slice | b_h2] (``wh``); weights in the pack dtype, biases f32 in
-    the same column order. Every width is cut into ``cluster_size`` blocks of ``Gq``
-    gate, ``Rq`` residual and ``Sq`` skip channels (multiples of 8, zero
-    padded past the real width); a w_in slice holds both GLU halves of its
-    gate channels, [a | b]. Depths are padded with zero rows to multiples of
-    16: ``Kin`` = k taps of ``CS*Rq`` channels, then cond; ``Kog`` and
-    ``Ksk`` the padded gate and skip widths. bf16 slices are in mma fragment
-    order, f32 slices row-major."""
+    w_og slice | b_in | b_og] (``wl``), and per CTA [w_h1 slice | w_h2 slice
+    | b_h1 slice | b_h2 slice] (``wh``); weights in the pack dtype, biases
+    f32 in the same column order. Every width is cut into ``cluster_size``
+    blocks of ``Gq`` gate, ``Rq`` residual and ``Sq`` skip channels
+    (multiples of 8, zero padded past the real width); a w_in slice holds
+    both GLU halves of its gate channels, [a | b]. w_h2 is cut into blocks
+    of ``Cq`` classes for a split head (``split_head``), and whole (``Cq``
+    = C_out padded) in every CTA otherwise. Depths are padded with zero rows
+    to multiples of 16: ``Kin`` = k taps of ``CS*Rq`` channels, then cond;
+    ``Kog`` and ``Ksk`` the padded gate and skip widths. bf16 slices are in
+    mma fragment order, f32 slices row-major."""
 
     def __init__(self, packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
                  cluster_size: int):
@@ -504,8 +528,8 @@ class KernelPack:
         G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
         cin = spec.cin_channels if spec.has_local_conditioning else 0
         d = self.dims = _kernel_dims(spec, CS)
-        Gq, Rq, Sq, Kin, Kog, Ksk, Cp = (d[n] for n in (
-            "Gq", "Rq", "Sq", "Kin", "Kog", "Ksk", "Cp"))
+        Gq, Rq, Sq, Kin, Kog, Ksk, Cq = (d[n] for n in (
+            "Gq", "Rq", "Sq", "Kin", "Kog", "Ksk", "Cq"))
         Gp, Rp, Sp = CS * Gq, CS * Rq, CS * Sq
         self.dtype, self.bf16 = dtype, dtype == torch.bfloat16
         zeros = lambda *shape: torch.zeros(*shape, dtype=dtype, device=dev)
@@ -529,9 +553,12 @@ class KernelPack:
         w_h1 = zeros(Ksk, Sp)
         w_h1[:S, :S] = packed["w_h1"]
         w_h1 = w_h1.reshape(Ksk, CS, Sq).permute(1, 0, 2)
+        split = split_head(spec)
+        Cp = CS * Cq if split else Cq     # the head's padded columns
         w_h2 = zeros(Ksk, Cp)
         w_h2[:S, :C] = packed["w_h2"]
-        w_h2 = w_h2.expand(CS, Ksk, Cp)
+        w_h2 = (w_h2.reshape(Ksk, CS, Cq).permute(1, 0, 2) if split
+                else w_h2.expand(CS, Ksk, Cq))
         lay = _fragment_order if self.bf16 else (lambda m: m.flatten(-2))
         raw = lambda a: a.contiguous().view(torch.uint8)
         fz = lambda *shape: torch.zeros(*shape, device=dev)
@@ -550,7 +577,8 @@ class KernelPack:
         self.wh = torch.cat([raw(lay(w_h1.contiguous())),
                              raw(lay(w_h2.contiguous())),
                              raw(b_h1.reshape(CS, Sq)),
-                             raw(b_h2.expand(CS, Cp))], dim=1).contiguous()
+                             raw(b_h2.reshape(CS, Cq) if split
+                                 else b_h2.expand(CS, Cq))], dim=1).contiguous()
         self.w_first = packed["w_first"]
         # the first 1x1 conv as the kernel reads it: its columns padded with
         # zeros to the ring's width, a multiple of 8 (generate_steps)
@@ -560,16 +588,16 @@ class KernelPack:
     def slices(self) -> Dict[str, torch.Tensor]:
         """The per-CTA slices as row-major matrices and their biases: w_in
         (CS, L, Kin, 2 Gq), w_og (CS, L, Kog, Rq + Sq), w_h1 (CS, Ksk, Sq),
-        w_h2 (CS, Ksk, Cp); b_in (CS, L, 2 Gq), b_og (CS, L, Rq + Sq), b_h1
-        (CS, Sq), b_h2 (CS, Cp)."""
+        w_h2 (CS, Ksk, Cq); b_in (CS, L, 2 Gq), b_og (CS, L, Rq + Sq), b_h1
+        (CS, Sq), b_h2 (CS, Cq)."""
         d, width = self.dims, 2 if self.bf16 else 4
         NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
         out = {}
         for blob, parts in ((self.wl, (("w_in", d["Kin"], NA), ("w_og", d["Kog"], NB),
                                        ("b_in", 0, NA), ("b_og", 0, NB))),
                             (self.wh, (("w_h1", d["Ksk"], d["Sq"]),
-                                       ("w_h2", d["Ksk"], d["Cp"]),
-                                       ("b_h1", 0, d["Sq"]), ("b_h2", 0, d["Cp"])))):
+                                       ("w_h2", d["Ksk"], d["Cq"]),
+                                       ("b_h1", 0, d["Sq"]), ("b_h2", 0, d["Cq"])))):
             at = 0
             for name, K, N in parts:
                 if K == 0:   # a bias
@@ -600,7 +628,7 @@ class KernelPack:
         d, ring = self.dims, self.ring_plan(threads, max_stages)
         vals = [self.cluster_size, streams, threads, ring.stages,
                 d["Gq"], d["Rq"], d["Sq"], d["Kin"], d["Kog"], d["Ksk"],
-                d["Cp"], d["xs"], d["gs"], d["ss"],
+                d["Cq"], d["xs"], d["gs"], d["ss"],
                 self.wl.shape[2], self.wh.shape[1], ring.slot_bytes,
                 *ring.chunk, *ring.passes]
         return (ctypes.c_int * len(vals))(*vals)
@@ -679,7 +707,9 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     ``kpack`` is the kernel-side pack of ``packed`` (``kernel_pack``); it is
     made and cached here when not given. The launch takes the ring its
     ``ring_plan`` gives; the counter ``generate.chunked_launches`` counts
-    those that took the chunk ring. For sweeps and tests: ``_cluster`` =
+    those that took the chunk ring, ``generate.split_head_launches`` those
+    whose head was split over the cluster (``split_head``: categorical, its
+    x_cur rows one-hot or zero, unchecked here). For sweeps and tests: ``_cluster`` =
     (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
     ``_max_stages`` caps the whole layer blocks held in shared memory (0:
     the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
@@ -771,6 +801,8 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     profiling.count("generate.launches")
     if kpack.ring_plan(KERNEL_THREADS, int(_max_stages)).chunked:
         profiling.count("generate.chunked_launches")
+    if split_head(spec):
+        profiling.count("generate.split_head_launches")
 
 
 # ----------------------------------------------------------------------
@@ -841,6 +873,9 @@ class FusedGenerator:
         log_scale_min is accepted and not applied, as in the JAX kernel.
         T is padded to a multiple of ``chunk`` (conditioning repeats its last
         frame) and the output trimmed.
+
+        initial_input: (B, C_in) first input; a categorical model's rows are
+        one-hot (or zero), checked where given, else it raises.
 
         state: (x_cur, ring, t) from an earlier call's returned state —
         resumes generation at absolute step t with the same ``seed``, so
@@ -914,7 +949,13 @@ class FusedGenerator:
         elif initial_input is None:
             x_cur = default_initial_input(spec, B, device=dev)
         else:
-            x_cur = as_dev(initial_input).reshape(B, -1).float().clone()
+            x_cur = torch.as_tensor(initial_input).reshape(B, -1).float()
+            if split_head(spec) and not bool(
+                    (((x_cur == 0) | (x_cur == 1)).all(dim=1)
+                     & (x_cur.sum(dim=1) <= 1)).all()):
+                raise ValueError("initial_input of a categorical model must "
+                                 "hold one-hot (or zero) rows")
+            x_cur = as_dev(x_cur).clone()
         _, rows = buffer_layout(spec)
         Bs = B // n
         runs = []

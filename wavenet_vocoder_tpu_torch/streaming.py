@@ -32,7 +32,7 @@ import torch
 from wavenet_vocoder_tpu_torch.config import Config
 from wavenet_vocoder_tpu_torch.dsp import audio
 from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet
-from wavenet_vocoder_tpu_torch.ops.mulaw import inv_mulaw, inv_mulaw_quantize
+from wavenet_vocoder_tpu_torch.ops.mulaw import inv_mulaw, inv_mulaw_codes
 from wavenet_vocoder_tpu_torch.synthesis import (
     ENGINES,
     _seed_from,
@@ -227,8 +227,9 @@ class StreamingSynthesizer:
         cfg = self.cfg
         mu = cfg.quantize_channels - 1
         if cfg.is_mulaw_quantize:
-            codes = samples if samples.ndim == 2 else np.argmax(samples, -1)
-            wav = np.asarray(inv_mulaw_quantize(codes, mu), np.float64)
+            with profiling.span("stream.inv_mulaw"):
+                codes = samples if samples.ndim == 2 else np.argmax(samples, -1)
+                wav = inv_mulaw_codes(codes, mu)
         elif cfg.input_type == "mulaw":
             x = samples if samples.ndim == 2 else samples[..., 0]
             wav = np.asarray(inv_mulaw(x, mu), np.float64)
