@@ -323,7 +323,8 @@ KERNEL_B, KERNEL_T = 4, 512
 SERVE_BATCHES = (32, 32, 32, 256)
 # The serving batches, each run by the cluster shape the serving path picks
 # for it (``pick_cluster``: 16 streams a cluster, of 8 CTAs at B=32 and of 4
-# at B=256), for one launch of DEFAULT_CHUNK steps; bf16 packs are held over
+# at B=256; the mu-law 256 model's bf16 packs 32 streams a cluster of 8 at
+# B=256), for one launch of DEFAULT_CHUNK steps; bf16 packs are held over
 # CHECK_STEPS single steps and then over one CHECK_STEPS-step launch from
 # the same state.
 CHECK_BATCHES = (32, 256)
@@ -445,7 +446,7 @@ def _check(packed, spec, cond, x0, dtype, dname, T, det, serving):
     tol = TOL[dname] if spec.scalar_input else 0.0
     B = x0.shape[0]
     row = dict(B=B, dtype=dname, deterministic=det, tol=tol,
-               cluster=cg.pick_cluster(spec, B))
+               cluster=cg.pick_cluster(spec, B, dtype))
     bad = []
     if dname == "float32" or not serving:
         a = _trajectory(cg.generate_steps, packed, spec, cond, x0, dtype, T,
@@ -671,6 +672,11 @@ def bound_ms(spec, packed, B, n, dtype_bytes, peak_flops):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+# the generation kernel's launch counters (``generate.<name>``)
+_GENERATE_COUNTERS = ("launches", "chunked_launches", "split_head_launches",
+                      "wide_cluster_launches")
+
+
 def _launch_inputs(spec, B, n):
     """(cond, x0, ring, out) of one n-step bf16 launch at B from zero
     state, cond drawn from seed 5."""
@@ -688,27 +694,30 @@ def _launch_inputs(spec, B, n):
         torch.float32 if spec.scalar_input else torch.int32))
 
 
-def _time_launch(tag, packed, spec, inputs, iters):
+def _time_launch(tag, packed, spec, inputs, iters, cluster=None):
     """One sampling launch on ``inputs`` (_launch_inputs) timed beside its
-    plain version and its bound, printed after ``tag``. The timing launches
-    are not counted. A categorical model's launches carry one x_cur on, as
-    a stream does: a fresh one-hot x_cur is checked on the host first."""
+    plain version and its bound, printed after ``tag``, on the picker's
+    cluster shape or ``cluster``. The timing launches are not counted. A
+    categorical model's launches carry one x_cur on, as a stream does: a
+    fresh one-hot x_cur is checked on the host first."""
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     cond, x0, ring, out = inputs
     B, n = out.shape
     x_cat = x0.clone()
 
-    def launch(fn):
+    def launch(fn, **kw):
         fn(packed, spec, ring, x0.clone() if spec.scalar_input else x_cat,
-           out, cond, None, t0=0, seed=1, deterministic=False)
+           out, cond, None, t0=0, seed=1, deterministic=False, **kw)
 
-    saved = _launches("generate.launches")
-    ms = cuda_time_ms(lambda: launch(cg.generate_steps), iters=iters)
+    names = [f"generate.{n}" for n in _GENERATE_COUNTERS]
+    saved = {n: _launches(n) for n in names}
+    ms = cuda_time_ms(lambda: launch(cg.generate_steps, _cluster=cluster),
+                      iters=iters)
     plain_ms = cuda_time_ms(lambda: launch(cg.generate_steps_plain),
                             iters=1, warmup=1)
-    _set_launches({"generate.launches": saved})
+    _set_launches(saved)
     b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, peak("bf16"))
-    cs = cg.pick_cluster(spec, B)
+    cs = cluster or cg.pick_cluster(spec, B)
     print(f"{tag} B={B} n={n} bf16 cluster {cs[0]}x{cs[1]}: {ms:.3f} "
           f"ms/launch ({ms * 1e3 / n:.1f} us/step); plain {plain_ms:.1f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
@@ -760,7 +769,8 @@ def phase_timing(report, model):
     B, n = 256, cg.DEFAULT_CHUNK
     packed = cg.pack_weights(model, dtype=torch.bfloat16)
     cond, x0, ring, out = inputs = _launch_inputs(spec, B, n)
-    saved = _launches("generate.launches")
+    saved = {f"generate.{n}": _launches(f"generate.{n}")
+             for n in _GENERATE_COUNTERS}
     timing = _time_launch("[time] kernel", packed, spec, inputs, iters=5)
 
     def timed(Bs, **kw):
@@ -772,12 +782,15 @@ def phase_timing(report, model):
                               cond[:Bs], None, t0=0, seed=1, _info=info, **kw)
         return cuda_time_ms(go, iters=3), info
 
-    # cluster size x streams per cluster
+    # cluster size x streams per cluster (32: two row tiles, where whole
+    # layer blocks fit beside their buffers)
     sweep = []
     for Bs in (1, 32, 256):
         for cs in (2, 4, 8):
-            for streams in (8, 16):
-                if streams > max(Bs, 8) or (Bs == 256 and streams == 8):
+            for streams in (8, 16, 32):
+                if streams > max(Bs, 8) or (Bs == 256 and streams == 8) or (
+                        streams == 32 and cg.ring_plan(
+                            spec, cs, torch.bfloat16, rows=32) is None):
                     continue
                 t, info = timed(Bs, _cluster=(cs, streams))
                 sweep.append(dict(B=Bs, cluster_size=cs, streams=streams,
@@ -800,7 +813,7 @@ def phase_timing(report, model):
     trace = _step_cycles("[time] one step of B=32", packed, spec,
                          (cond[:32], x0[:32], ring[:, :32], out[:32]))
     # timing launches are not the path's
-    _set_launches({"generate.launches": saved})
+    _set_launches(saved)
     report["timing"] = dict(timing, sweep=sweep, no_products=no_products,
                             trace=trace)
     return dict(name="wn_generate", route="cuda", source=KERNEL_SOURCE,
@@ -2697,21 +2710,27 @@ def _big_models(report):
                         generator=torch.Generator().manual_seed(1))
         model = model.to("cuda").eval()
         tag = f"[bench-kernel] {name:6s}"
-        before = [_launches(f"generate.{n}") for n in ("launches", "chunked_launches")]
+        names = ("launches", "chunked_launches", "wide_cluster_launches")
+        before = [_launches(f"generate.{n}") for n in names]
         mine, bad = _check_model(
             model, [(B, cg.DEFAULT_CHUNK, True) for B in CHECK_BATCHES],
             ("bfloat16",), tag, dict(model=name))
         rows += mine
         failures += bad
         # 512ch's layer blocks never fit two stages, 30L3S's always do: the
-        # first streams every launch through the chunk ring, the second none
-        launched, chunked = (_launches(f"generate.{n}") - b for n, b in zip(
-            ("launches", "chunked_launches"), before))
-        print(f"{tag} {launched} launches, {chunked} through the chunk ring",
-              flush=True)
+        # first streams every launch through the chunk ring, the second none;
+        # neither takes 32-stream clusters (512ch has no room for them,
+        # 30L3S's clusters of 4 keep whole layer blocks)
+        launched, chunked, wide = (_launches(f"generate.{n}") - b
+                                   for n, b in zip(names, before))
+        print(f"{tag} {launched} launches, {chunked} through the chunk ring, "
+              f"{wide} on 32-stream clusters", flush=True)
         if chunked != (launched if name == "512ch" else 0):
             failures.append(f"{name}: {chunked} of {launched} launches took "
                             f"the chunk ring")
+        if wide:
+            failures.append(f"{name}: {wide} of {launched} launches on "
+                            f"32-stream clusters")
         packed = cg.pack_weights(model, dtype=torch.bfloat16)
         timing[name] = _time_launch(
             tag, packed, model.spec,
@@ -2738,11 +2757,13 @@ def _mulaw256_launches(rows, failures):
     """r9y9's mu-law 256 recipe (egs/mulaw256; 30 layers in 3 stacks,
     128/256/128, a 256-way categorical head split over the cluster), seed 1:
     against its plain version as phase 2 holds a model (f32 and bf16 packs,
-    B=16 on clusters of 8 and B=256 on clusters of 4; its rows and failures
-    appended to ``rows`` and ``failures``), then one bf16 256-step launch at
-    B=256 (the chunk ring) and B=16 (four whole layer blocks) timed as the
+    B=16 on clusters of 8, B=256 on 32-stream clusters of 8 (bf16) and on
+    clusters of 4 (f32); its rows and failures appended to ``rows`` and
+    ``failures``), then one bf16 256-step launch at B=256 (two row tiles,
+    two whole layer blocks) and B=16 (four whole layer blocks) timed as the
     30L3S line is, with the plan each took (``_info``) and the launch
-    counters. Returns {mulaw256.bB: timing}."""
+    counters, and B=256 again on 16-stream clusters of 4 (the chunk ring).
+    Returns {mulaw256.bB: timing}."""
     import torch
 
     from wavenet_vocoder_tpu_torch.config import Config
@@ -2765,7 +2786,7 @@ def _mulaw256_launches(rows, failures):
         tag = f"[bench-kernel] mulaw256 B={B}"
         inputs = _launch_inputs(spec, B, cg.DEFAULT_CHUNK)
         cond, x0, ring, out = inputs
-        names = ("launches", "chunked_launches", "split_head_launches")
+        names = _GENERATE_COUNTERS
         before = [_launches(f"generate.{n}") for n in names]
         info = []
         cg.generate_steps(packed, spec, ring.clone(), x0.clone(), out, cond,
@@ -2776,11 +2797,16 @@ def _mulaw256_launches(rows, failures):
         print(f"{tag} plan: {info[0]} {'chunk slots' if info[4] else 'stages'}, "
               f"head resident {info[1]}, {info[2]} B of shared memory, "
               f"{info[3]} clusters at once; counters {counts}", flush=True)
-        if counts["split_head_launches"] != 1 or counts["chunked_launches"] != (B > 240):
+        if (counts["split_head_launches"] != 1 or counts["chunked_launches"] != 0
+                or counts["wide_cluster_launches"] != (B > 240)):
             fail(f"mulaw256 B={B}: counters {counts}")
         timing[f"mulaw256.b{B}"] = dict(
             _time_launch(tag, packed, spec, inputs, iters=3),
             plan=info, counters=counts)
+        if B > 240:
+            # the cluster shape the picker took before 32-stream clusters
+            timing[f"mulaw256.b{B}.4x16"] = _time_launch(
+                tag, packed, spec, inputs, iters=3, cluster=(4, 16))
     del model, packed
     torch.cuda.empty_cache()
     return timing

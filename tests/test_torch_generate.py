@@ -431,7 +431,7 @@ def test_picker_covers_every_stream(width, dtype, B):
     shared memory for the activation buffers."""
     spec = _width_spec(width)
     dt = getattr(torch, dtype)
-    cs, streams = cg.pick_cluster(spec, B)
+    cs, streams = cg.pick_cluster(spec, B, dt)
     assert cs in cg.CLUSTER_SIZES and 1 <= streams <= cg.CLUSTER_STREAMS
     assert 8 * cs <= max(8, min(spec.gate_channels // 2,
                                 spec.residual_channels,
@@ -442,10 +442,11 @@ def test_picker_covers_every_stream(width, dtype, B):
         assert 0 < hi - lo <= streams
         seen[lo:hi] += 1
     assert (seen == 1).all() and len(groups) == -(-B // streams)
-    fixed, block = cg.kernel_smem_bytes(spec, cs, dt)
+    fixed, block = cg.kernel_smem_bytes(spec, cs, dt, 32 if streams > 16 else 16)
     assert fixed <= cg.SMEM_BYTES and block > 0
     if width == "flagship":
-        # 15 clusters of 8 CTAs fit an H100 at once; past that, clusters of 4
+        # 15 clusters of 8 CTAs fit an H100 at once; past that, clusters of
+        # 4 (whole layer blocks fit them: no 32-stream clusters)
         assert (cs, streams) == (8 if B <= 240 else 4, min(B, 16))
         if dtype == "bfloat16":     # and two layers' weights fit beside them
             assert fixed + 2 * block <= cg.SMEM_BYTES

@@ -137,19 +137,27 @@ def test_chunk_ring_fits_shared_memory(name, dtype, cs):
 
 @pytest.mark.parametrize("B", [1, 240, 256])
 def test_flagship_keeps_whole_layer_stages(B):
-    """The flagship's bf16 launches keep whole layer blocks, four at
-    clusters of 8 and two at clusters of 4, the head's block resident;
-    ``_max_stages=0`` forces the chunk ring, as does an f32 pack (two f32
-    blocks do not fit)."""
+    """The flagship's bf16 launches keep whole layer blocks, the head's
+    block resident: four at clusters of 8 (B <= 240), two at clusters of 4
+    (B=256; 32-stream clusters of 8 would keep two as well, but the
+    picker keeps them for models whose clusters of 4 stream the chunk
+    ring). ``_max_stages=0`` forces the chunk ring, as does an f32 pack
+    (two f32 blocks do not fit); at 32 streams nothing does (the chunk ring
+    runs one row tile)."""
     spec = spec_from_config(Config())
-    cs, _ = cg.pick_cluster(spec, B)
+    cs, streams = cg.pick_cluster(spec, B)
     plan = cg.ring_plan(spec, cs, torch.bfloat16)
     assert not plan.chunked and plan.stages == {8: 4, 4: 2}[cs]
-    assert (cs == 8) == (B <= 240)
-    assert cg.ring_plan(spec, cs, torch.bfloat16, max_stages=0).chunked
-    assert cg.ring_plan(spec, cs, torch.float32).chunked
-    capped = cg.ring_plan(spec, cs, torch.bfloat16, max_stages=2)
-    assert not capped.chunked and capped.stages == 2
+    assert (cs, streams) == ((8, min(B, 16)) if B <= 240 else (4, 16))
+    assert cg.ring_plan(spec, 8, torch.bfloat16, rows=32).stages == 2
+    for c in (cs, 4):
+        assert not cg.ring_plan(spec, c, torch.bfloat16).chunked
+        assert cg.ring_plan(spec, c, torch.bfloat16, max_stages=0).chunked
+        assert cg.ring_plan(spec, c, torch.float32).chunked
+        capped = cg.ring_plan(spec, c, torch.bfloat16, max_stages=2)
+        assert not capped.chunked and capped.stages == 2
+    assert cg.ring_plan(spec, 8, torch.bfloat16, max_stages=0, rows=32) is None
+    assert cg.ring_plan(spec, 8, torch.float32, rows=32) is None
 
 
 def test_kernel_pack_plan_carries_the_ring():
@@ -186,28 +194,30 @@ def test_supports_exactly_where_a_ring_fits():
 def test_mulaw256_splits_its_head_to_keep_whole_layer_stages(B):
     """The mu-law 256 recipe's categorical head is split over the cluster:
     at clusters of 8 each CTA holds 32 of the 256 classes, and its bf16
-    launches keep four whole layer blocks with the head's block resident,
-    as the 30-layer MoL model does; at clusters of 4 (B=256) two layer
-    blocks and the head still do not fit, and the chunk ring streams a
-    64-class slice of w_h2 in one pass."""
+    launches keep whole layer blocks with the head's block resident, as the
+    30-layer MoL model does: four at 16 streams a cluster, two at 32 (B=256).
+    At clusters of 4 (16 streams; the picker's choice at B=256 before
+    32-stream clusters) two layer blocks and the head do not fit, and the
+    chunk ring streams a 64-class slice of w_h2 in one pass."""
     spec = SPECS["mulaw256"]()
     assert cg.split_head(spec) and not cg.split_head(SPECS["30L3S"]())
-    cs, _ = cg.pick_cluster(spec, B)
-    assert (cs == 8) == (B <= 240)
-    plan = cg.ring_plan(spec, cs, torch.bfloat16)
-    d = cg._kernel_dims(spec, cs)
-    assert d["Cq"] == 256 // cs
-    if cs == 8:
-        assert not plan.chunked and plan.stages == 4
-        assert plan.stages == cg.ring_plan(SPECS["30L3S"](), cs,
-                                           torch.bfloat16).stages
-    else:
-        assert plan.chunked and plan.stages == cg.RING_SLOTS
-        assert cg.ring_plan(spec, cs, torch.bfloat16, max_stages=2) == plan
-        KS, step, N, units = cg.ring_products(spec, cs, torch.bfloat16)[3]
-        assert N == d["Cq"] == 64 and step == 16 * 64 * 2
-        assert plan.chunk[3] == KS and plan.passes[3] == 1
+    cs, streams = cg.pick_cluster(spec, B)
+    rows = 32 if streams > 16 else 16
+    assert (cs, rows) == ((8, 16) if B <= 240 else (8, 32))
+    plan = cg.ring_plan(spec, cs, torch.bfloat16, rows=rows)
+    assert cg._kernel_dims(spec, cs)["Cq"] == 256 // cs
+    assert not plan.chunked and plan.stages == (4 if rows == 16 else 2)
+    assert plan.stages == cg.ring_plan(SPECS["30L3S"](), cs, torch.bfloat16,
+                                       rows=rows).stages
     assert plan.smem_bytes <= cg.SMEM_BYTES
+    four = cg.ring_plan(spec, 4, torch.bfloat16)
+    d = cg._kernel_dims(spec, 4)
+    assert four.chunked and four.stages == cg.RING_SLOTS
+    assert cg.ring_plan(spec, 4, torch.bfloat16, max_stages=2) == four
+    KS, step, N, units = cg.ring_products(spec, 4, torch.bfloat16)[3]
+    assert N == d["Cq"] == 64 and step == 16 * 64 * 2
+    assert four.chunk[3] == KS and four.passes[3] == 1
+    assert four.smem_bytes <= cg.SMEM_BYTES
 
 
 # every plan of the heads that are not split, as before the categorical
@@ -244,3 +254,75 @@ def test_unsplit_heads_keep_their_plans(name):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         plan = cg.ring_plan(spec, cs, dtype)
         assert plan == (None if want is None else cg.RingPlan(*want)), (cs, dt)
+
+
+# bf16 at clusters of 8 and 32 rows: (activation buffers, one layer block,
+# plan or None). Buffers, M = 32 rows, bf16 (2 B), each rounded up to 128 B
+# (the row strides xs, gs, ss are Kin, Kog, Ksk moved to 8 mod 64):
+#   [taps | cond] 2 M xs 2 + gated M gs 2 + head in and hidden 2 M ss 2
+#   + w_in partials 4 parts (SPLIT_IN x 2 row tiles) x 2 Gq x M x 4
+#   + residual M Rq 4 + skips
+#   M Sq 4 + head out M Cq 4 + input M C_in 4 (a split head: candidates
+#   M x 8 CTAs x 8) + first conv 2 x 8 Rq 4 + codes M 4 + L x 16 + barriers.
+# mulaw256 (Gq = Rq = Sq = 16, Kin = 3 x 128 + 80 = 464, xs 520, Kog =
+# Ksk = 128, gs = ss = 136, Cq = 32, 30 layers, 6 barriers):
+#   66,560 + 8,704 + 2 x 8,704 + 16,384 + 2,048 + 2,048 + 4,096 + 2,048
+#   + 1,024 + 128 + 512 + 128 = 121,088; a layer block (464 x 32 + 128 x
+#   32) x 2 + (32 + 32) x 4 = 38,144; the head's block 128 x (16 + 32) x 2
+#   + 48 x 4 = 12,480 -> 12,544; two stages and their 2 x 2 barriers:
+#   2 x 38,144 + 12,544 + 121,088 - 128 + 128 = 209,920 of 232,448.
+# flagship: 24 layers, 5 barriers, C_in 1 (128 B) and no candidates, Cq 32
+#   (30 columns padded): 119,040 and 207,872.
+# 512ch (Gq 32, Rq 64, Sq 32, Kin 3 x 512 + 80 = 1,616): its buffers alone
+#   take 318,720 B.
+WIDE_PLANS = {"mulaw256": (121088, 38144, (2, 209920)),
+              "flagship": (119040, 38144, (2, 207872)),
+              "512ch": (318720, 256640, None)}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_PLANS))
+def test_plans_at_32_rows(name):
+    """A cluster of 32 streams (two mma row tiles) doubles every activation
+    buffer: the mu-law 256 and flagship models still keep two whole layer
+    blocks beside the head's at clusters of 8 (bf16), 512ch has no plan
+    (its 32-row buffers alone pass a block's shared memory), and no model
+    gets a 32-row chunk ring or an f32 32-row plan here."""
+    spec = SPECS[name]()
+    fixed, block, want = WIDE_PLANS[name]
+    assert cg.kernel_smem_bytes(spec, 8, torch.bfloat16, 32) == (fixed, block)
+    assert cg.kernel_smem_bytes(spec, 8, torch.bfloat16)[1] == block
+    plan = cg.ring_plan(spec, 8, torch.bfloat16, rows=32)
+    if want is None:
+        assert plan is None and fixed > cg.SMEM_BYTES
+    else:
+        assert plan == cg.RingPlan(want[0], 0, (0,) * 4, (0,) * 4, want[1])
+        assert plan.smem_bytes <= cg.SMEM_BYTES
+    assert cg.ring_plan(spec, 8, torch.bfloat16, max_stages=0, rows=32) is None
+    assert cg.ring_plan(spec, 8, torch.float32, rows=32) is None
+
+
+# (model, B) -> (CTAs, streams) a cluster: 16-stream clusters of 8 while
+# they all fit the card (B <= 240); past that clusters of 4, unless their
+# plan is the chunk ring and 32-stream clusters of 8 keep whole layer
+# blocks (mulaw256); 512ch has no 32-row plan, and the flagship's clusters
+# of 4 keep whole blocks. At B=512 both shapes take two waves.
+PICKS = {B: {"mulaw256": (8, min(B, 16)) if B <= 240 else (8, 32),
+             "flagship": (8, min(B, 16)) if B <= 240 else (4, 16),
+             "512ch": (8, min(B, 16)) if B <= 240 else (4, 16)}
+         for B in (1, 16, 128, 240, 241, 256, 480, 512)}
+
+
+@pytest.mark.parametrize("name", ["mulaw256", "flagship", "512ch"])
+@pytest.mark.parametrize("B", sorted(PICKS))
+def test_picker_at_the_benchmark_models(B, name):
+    """What ``pick_cluster`` chooses for the benchmark's bf16 models, from
+    the spec's widths, B and the plans alone; the grid's waves the fewest
+    the two ways give; f32 packs never take 32-stream clusters here."""
+    spec = SPECS[name]()
+    cs, streams = cg.pick_cluster(spec, B)
+    assert (cs, streams) == PICKS[B][name]
+    rows = 32 if streams > 16 else 16
+    assert cg.ring_plan(spec, cs, torch.bfloat16, rows=rows) is not None
+    waves = lambda c, s: -(-(-(-B // s)) // (cg.RESIDENT_CTAS // c))
+    assert waves(cs, streams) == (1 if B <= 480 else 2)
+    assert cg.pick_cluster(spec, B, torch.float32)[1] <= 16

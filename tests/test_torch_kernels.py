@@ -49,9 +49,11 @@ def _model(seed, **kw):
 
 
 # (CTAs per cluster, streams per cluster): what the picker returns at this
-# width for B=3 and B=17, clusters whose CTAs own only padding (2, 8), and
-# small groups that leave most of a tile empty
-CLUSTERS = {"picked": None, "1x2": (1, 2), "2x16": (2, 16), "8x5": (8, 5)}
+# width for B=3 and B=17, clusters whose CTAs own only padding (2, 8), small
+# groups that leave most of a tile empty, and two row tiles of which the
+# second is idle (B=3) or partly used (B=17)
+CLUSTERS = {"picked": None, "1x2": (1, 2), "2x16": (2, 16), "8x5": (8, 5),
+            "1x32": (1, 32), "8x32": (8, 32)}
 
 
 @pytest.mark.cuda
@@ -286,10 +288,10 @@ def test_stream_alone_equals_stream_in_batch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [(3, 16), (8, 17), (8, 0)])
+@pytest.mark.parametrize("cluster", [(3, 16), (8, 33), (8, 0)])
 def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
     """The override of the picker takes a cluster of 1, 2, 4 or 8 CTAs
-    and 1 to 16 streams per cluster, and nothing else."""
+    and 1 to 32 streams per cluster, and nothing else."""
     model = _model(0, **HEADS["mol"]).to(cuda)
     packed = cg.pack_weights(model, dtype=torch.float32)
     _, rows = cg.buffer_layout(model.spec)
@@ -301,20 +303,25 @@ def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
                           _cluster=cluster)
 
 
+def _mulaw256_spec():
+    return spec_from_config(Config().override_from_dict(json.loads(
+        (EGS / "mulaw256/conf/mulaw256_wavenet.json").read_text())))
+
+
 def _mulaw256_launch(packed, spec, cond, ring0, x0, det, cluster=None,
                      info=None):
-    """(codes, ring, x_cur, split-head and chunk-ring launches counted) of
-    one 32-step launch from t0 = 7."""
+    """(codes, ring, x_cur, split-head, chunk-ring and wide-cluster launches
+    counted) of one 32-step launch from t0 = 7."""
     B, n = x0.shape[0], cond.shape[1]
     ring, x_cur = ring0.clone(), x0.clone()
     out = torch.empty(B, n, device="cuda", dtype=torch.int32)
-    before = [_count(c) for c in ("generate.split_head_launches",
-                                  "generate.chunked_launches")]
+    names = ("generate.split_head_launches", "generate.chunked_launches",
+             "generate.wide_cluster_launches")
+    before = [_count(c) for c in names]
     cg.generate_steps(packed, spec, ring, x_cur, out, cond, t0=7, seed=9,
                       deterministic=det, _cluster=cluster, _info=info)
     torch.cuda.synchronize()
-    after = [_count(c) for c in ("generate.split_head_launches",
-                                 "generate.chunked_launches")]
+    after = [_count(c) for c in names]
     return (out.cpu(), ring.float().cpu(), x_cur.cpu(),
             [a - b for a, b in zip(after, before)])
 
@@ -328,14 +335,14 @@ def test_mulaw256_split_head_matches_plain(cuda, dtype, B, det):
     stacks, 128/256/128, one-hot 256 in, 256 classes): every launch splits
     the categorical head over the cluster (``generate.split_head_launches``).
     f32 packs: codes equal the plain version's (32 steps from t0 = 7, at
-    B=16 on clusters of 8 and B=256 on clusters of 4). bf16 packs: at
-    clusters of 8 the launch keeps four whole layer blocks (not the chunk
-    ring), and its codes are the bits of the same launch on clusters of 1,
+    B=16 on clusters of 8 and B=256 on clusters of 4). bf16 packs run on
+    clusters of 8, at B=256 of 32 streams (two row tiles), and keep four
+    (B=16) or two (B=256) whole layer blocks, not the chunk ring; their
+    codes are the bits of the same launch on clusters of 1 and 16 streams,
     one CTA holding all 256 classes (no exchange); bf16 against the plain
     version parts streams at rounding ties of greedy logits, which a
     sum-order change alone reproduces on the CPU."""
-    spec = spec_from_config(Config().override_from_dict(json.loads(
-        (EGS / "mulaw256/conf/mulaw256_wavenet.json").read_text())))
+    spec = _mulaw256_spec()
     model = WaveNet(spec, generator=torch.Generator().manual_seed(13)).to(cuda)
     dt = getattr(torch, dtype)
     packed = cg.pack_weights(model, dtype=dt)
@@ -347,15 +354,16 @@ def test_mulaw256_split_head_matches_plain(cuda, dtype, B, det):
     cond = torch.from_numpy(rs.randn(B, n, 80).astype(np.float32)).to(cuda, dt)
     x0 = torch.nn.functional.one_hot(torch.from_numpy(
         rs.randint(0, 256, B)), 256).float().to(cuda)
-    cs = cg.pick_cluster(spec, B)[0]
-    assert cs == (8 if B == 16 else 4)
+    cs, streams = cg.pick_cluster(spec, B, dt)
+    wide = dtype == "bfloat16" and B == 256
+    assert (cs, streams) == ((8, 32) if wide else (8 if B == 16 else 4, 16))
     info = []
     k_out, k_ring, k_x, counted = _mulaw256_launch(packed, spec, cond, ring0,
                                                    x0, det, info=info)
     chunked = dtype == "float32" or cs == 4
-    assert counted == [1, int(chunked)] and info[4] == int(chunked)
+    assert counted == [1, int(chunked), int(wide)] and info[4] == int(chunked)
     if not chunked:
-        assert info[0] == 4 and info[1] == 1
+        assert info[0] == (2 if wide else 4) and info[1] == 1
     assert len(set(k_out.flatten().tolist())) > 3
     assert torch.equal(k_x, torch.nn.functional.one_hot(
         k_out[:, -1].long(), 256).float())
@@ -369,9 +377,60 @@ def test_mulaw256_split_head_matches_plain(cuda, dtype, B, det):
         torch.testing.assert_close(k_ring, ring.cpu(), rtol=0, atol=1e-3)
     else:
         one = _mulaw256_launch(packed, spec, cond, ring0, x0, det, (1, 16))
-        assert one[3] == [1, 1]
+        assert one[3] == [1, 1, 0]
         assert torch.equal(k_out, one[0]) and torch.equal(k_ring, one[1])
         assert torch.equal(k_x, one[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("det", [True, False], ids=["greedy", "sample"])
+@pytest.mark.parametrize("B", [256, 250])
+@pytest.mark.parametrize("name", ["mol", "mulaw256"])
+def test_wide_clusters_equal_two_row_tiles(cuda, name, B, det):
+    """At clusters of 8, launches whose clusters own 32 streams (two mma row
+    tiles; ``generate.wide_cluster_launches``) give the bits of launches
+    whose clusters own 16 over the same streams: outputs, ring and x_cur
+    over two carried 256-step launches from a random state, for the mol
+    recipe's model and the mu-law 256 recipe's (bf16, whole-layer stages).
+    At B=250 the last 32-stream cluster holds 26 streams."""
+    spec = spec_from_config(Config()) if name == "mol" else _mulaw256_spec()
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(17)).to(cuda)
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    n = cg.DEFAULT_CHUNK
+    rs = np.random.RandomState(B)
+    _, rows = cg.buffer_layout(spec)
+    ring0 = torch.from_numpy(rs.randn(rows, B, 128).astype(np.float32) * 0.5
+                             ).to(cuda, torch.bfloat16)
+    cond = torch.from_numpy(rs.randn(B, 2 * n, 80).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    if spec.scalar_input:
+        x0 = torch.from_numpy(rs.uniform(-1, 1, (B, 1)).astype(np.float32)).to(cuda)
+    else:
+        x0 = torch.nn.functional.one_hot(torch.from_numpy(
+            rs.randint(0, 256, B)), 256).float().to(cuda)
+    names = ("generate.launches", "generate.wide_cluster_launches",
+             "generate.chunked_launches")
+    runs = {}
+    for streams in (32, 16):
+        ring, x_cur = ring0.clone(), x0.clone()
+        out = torch.empty(B, 2 * n, device=cuda, dtype=(
+            torch.float32 if spec.scalar_input else torch.int32))
+        before, info = [_count(c) for c in names], []
+        for t0 in (0, n):
+            cg.generate_steps(packed, spec, ring, x_cur, out[:, t0:t0 + n],
+                              cond[:, t0:t0 + n], t0=t0, seed=5,
+                              deterministic=det, _cluster=(8, streams),
+                              _info=info)
+        torch.cuda.synchronize()
+        counted = [_count(c) - b for c, b in zip(names, before)]
+        assert counted == [2, 2 if streams == 32 else 0, 0]
+        assert info[0] == (2 if streams == 32 else 4) and info[4] == 0
+        runs[streams] = (out.cpu(), ring.float().cpu(), x_cur.cpu())
+    wide, narrow = runs[32], runs[16]
+    assert len(set(wide[0].flatten().tolist())) > 3
+    for a, b in zip(wide, narrow):
+        assert torch.equal(a, b)
+    assert cg.pick_cluster(spec, B) == ((8, 32) if name == "mulaw256" else (4, 16))
 
 
 @pytest.mark.cuda

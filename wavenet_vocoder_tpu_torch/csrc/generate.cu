@@ -22,13 +22,14 @@
 //
 // What this design does about it:
 //   * A thread-block cluster of CS CTAs (CS in 1, 2, 4, 8, the portable
-//     sizes) owns up to 16 streams and splits the output columns of every
-//     product: CTA r holds gate channels [r*Gq, (r+1)*Gq) of each w_in[l]
-//     (both GLU halves of them), residual and skip channels [r*Rq, ...) and
-//     [r*Sq, ...) of each w_og[l], and the matching columns of the head's
-//     first 1x1. Each CTA so pulls 1/CS of the weights a step, and the weights
-//     are read once per 16 streams instead of once per 1 or 2. Clusters never
-//     talk to each other, so a grid larger than the card runs in waves.
+//     sizes) owns up to 16 streams (32: below) and splits the output columns
+//     of every product: CTA r holds gate channels [r*Gq, (r+1)*Gq) of each
+//     w_in[l] (both GLU halves of them), residual and skip channels [r*Rq,
+//     ...) and [r*Sq, ...) of each w_og[l], and the matching columns of the
+//     head's first 1x1. Each CTA so pulls 1/CS of the weights a step, and the
+//     weights are read once per 16 streams instead of once per 1 or 2.
+//     Clusters never talk to each other, so a grid larger than the card runs
+//     in waves.
 //   * 16 streams are the M=16 tile of mma.sync.aligned.m16n8k16 (bf16 in, f32
 //     out); wgmma needs M=64, which 16 streams a cluster do not fill. The
 //     deep product (w_in) is cut into kSplitIn parts of its k-steps, a warp per
@@ -38,10 +39,24 @@
 //     per n-tile, and bias, residual or skip sum and the send run in the
 //     registers that hold the sums. The order of every sum depends on the
 //     product's depth alone, so a stream's result does not depend on which
-//     streams share its cluster, on the threads, or (where no channel needs
-//     padding) on the cluster size. f32 packs take the same structure with
-//     FP32 FMAs, a thread per output (TF32 would lose the whole-run agreement
-//     with the plain version).
+//     streams share its cluster, on the threads, on the row tiles (below),
+//     or (where no channel needs padding) on the cluster size. f32 packs
+//     take the same structure with FP32 FMAs, a thread per output (TF32
+//     would lose the whole-run agreement with the plain version).
+//   * A cluster of 17-32 streams (generate_kernel<W, false, 2>) runs two row
+//     tiles, so that B=256 fills 8 clusters of 8 CTAs in one wave where
+//     16-stream clusters would have to shrink to 4 CTAs. The buffers, the
+//     exchanges, the tap gathers and the sampler (8 lanes a stream) take 32
+//     rows; a w_in item runs both tiles with one read of each weight
+//     fragment, over the k-steps of one of a kSplitIn part's two sums (acc
+//     or odd), so that every warp has an item; the shallow products take a
+//     warp per n-tile and row tile. Each CTA then computes what a CTA of a
+//     16-stream cluster of 4 does, but the cluster sends and gathers twice
+//     as many copies of each stream's activations: on an H100 a step takes
+//     ~2% longer, so the picker takes two tiles only where clusters of 4
+//     would stream the chunk ring (ops/cuda_generate.py::pick_cluster). The
+//     32 rows' buffers leave room for whole-layer stages only; the chunk
+//     ring runs one row tile.
 //   * Activations cross the cluster through distributed shared memory: after
 //     the GLU each CTA sends its slice of `gated` into every CTA's buffer,
 //     after w_og its slice of the new residual (the next layer's newest tap),
@@ -129,10 +144,11 @@ namespace cgr = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 16;          // streams a cluster owns: the rows of an mma tile
+constexpr int kTileRows = 16;      // streams of one mma row tile
+constexpr int kMaxTiles = 2;       // row tiles a cluster owns at most
 constexpr int kThreads = 256;      // most threads per CTA
 constexpr int kSplitIn = 2;        // parts the depth of the w_in product is cut into (bf16)
-constexpr int kTapPre = 2;         // 8-element tap vectors a thread loads ahead
+constexpr int kTapPre = 2;         // 8-element tap vectors a thread loads ahead, a row tile
 constexpr int kUnits = 2;          // chunk ring: units of a product a warp (f32: thread) runs a pass
 constexpr int kFillThreads = 128;  // chunk ring: the filler's warpgroup
 constexpr size_t kSmemLimit = 232448;
@@ -346,6 +362,46 @@ __device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, 
 #endif
 }
 
+// Two row tiles of the w_in product, bf16 (generate_kernel<W, false, 2>):
+// one accumulator per row tile mt and n-tile nt[i], acc[mt * NTL + i], over
+// k-steps ks0, ks0 + stride, ... of K / 16 in that order, each weight
+// fragment read once for both tiles. With stride twice mma_chain's, the
+// parts ks0 and ks0 + stride / 2 are that chain's acc and odd sums.
+template <int NTL, int TILES>
+__device__ __forceinline__ void mma_run(const __nv_bfloat16* w, int K, int N, int ks0,
+                                        int stride, const int* nt, const __nv_bfloat16* x,
+                                        int xs, float (*acc)[4]) {
+#pragma unroll
+  for (int i = 0; i < TILES * NTL; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[i][v] = 0.0f;
+#ifndef WN_NO_PRODUCTS
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int per = (N >> 3) * 32;   // uint2s per k-step
+  const __nv_bfloat16* xp = x + g * xs + 2 * t + ks0 * 16;
+  const uint2* wp = reinterpret_cast<const uint2*>(w) + lane + (size_t)ks0 * per;
+#pragma unroll 2
+  for (int ks = ks0; ks < (K >> 4); ks += stride, xp += 16 * stride, wp += stride * per) {
+    uint32_t a[TILES][4];
+#pragma unroll
+    for (int mt = 0; mt < TILES; ++mt) {
+      const __nv_bfloat16* r = xp + 16 * mt * xs;
+      a[mt][0] = *reinterpret_cast<const uint32_t*>(r);
+      a[mt][1] = *reinterpret_cast<const uint32_t*>(r + 8 * xs);
+      a[mt][2] = *reinterpret_cast<const uint32_t*>(r + 8);
+      a[mt][3] = *reinterpret_cast<const uint32_t*>(r + 8 * xs + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < NTL; ++i) {
+      const uint2 b = wp[nt[i] * 32];
+#pragma unroll
+      for (int mt = 0; mt < TILES; ++mt)
+        mma_bf16(acc[mt * NTL + i], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b.x, b.y);
+    }
+  }
+#endif
+}
+
 // f32: w row-major, from row r0 on; one thread runs rows [r0, r1) of the
 // depth for one row and NCOL columns (col[i]).
 template <int NCOL>
@@ -440,6 +496,12 @@ template <> struct Vec8<__nv_bfloat16> {
   __device__ __forceinline__ void store(__nv_bfloat16* p) const {
     *reinterpret_cast<uint4*>(p) = u;
   }
+  __device__ __forceinline__ float get(int i) const {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&u)[i]);
+  }
+  __device__ __forceinline__ void set(int i, float v) {
+    reinterpret_cast<__nv_bfloat16*>(&u)[i] = __float2bfloat16(v);
+  }
 };
 template <> struct Vec8<float> {
   float4 a, b;
@@ -451,6 +513,12 @@ template <> struct Vec8<float> {
   __device__ __forceinline__ void store(float* p) const {
     reinterpret_cast<float4*>(p)[0] = a;
     reinterpret_cast<float4*>(p)[1] = b;
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return i < 4 ? (&a.x)[i] : (&b.x)[i - 4];
+  }
+  __device__ __forceinline__ void set(int i, float v) {
+    if (i < 4) (&a.x)[i] = v; else (&b.x)[i - 4] = v;
   }
 };
 
@@ -497,8 +565,9 @@ struct Layout {
 constexpr int kBars = 5;   // mbarriers besides the ring's: the head's weights, four exchanges
 // the categorical head is split over the cluster (and its candidates take an mbarrier more)
 __host__ __device__ inline bool split_head(const Params& p) { return p.head == 0; }
-template <typename W> __host__ __device__ inline Layout make_layout(const Params& p) {
-  const size_t M = kRows;
+// tiles: the cluster's mma row tiles, 16 streams each
+template <typename W> __host__ __device__ inline Layout make_layout(const Params& p, int tiles) {
+  const size_t M = (size_t)kTileRows * tiles;
   Layout y;
   size_t o = 0;
   y.stage_stride = up128((size_t)(p.slot_bytes > 0 ? p.slot_bytes : p.stage_bytes));
@@ -508,8 +577,9 @@ template <typename W> __host__ __device__ inline Layout make_layout(const Params
   y.gt = o;   o += up128(M * p.gs * sizeof(W));
   y.hx = o;   o += up128(M * p.ss * sizeof(W));
   y.o1 = o;   o += up128(M * p.ss * sizeof(W));
-  // bf16: the kSplitIn partial sums of the w_in product, [part][tile][lane][4]
-  y.part = o; o += sizeof(W) == 2 ? up128(kSplitIn * M * 2 * p.Gq * 4) : 0;
+  // bf16: the partial sums of the w_in product, kSplitIn x tiles parts,
+  // [part][pair of n-tiles][row tile][GLU half][lane][4]
+  y.part = o; o += sizeof(W) == 2 ? up128(kSplitIn * tiles * M * 2 * p.Gq * 4) : 0;
   // the chunk ring: b_in, copied out of its chunk
   y.bst = o;  o += p.slot_bytes > 0 ? up128(2 * (size_t)p.Gq * 4) : 0;
   y.hbf = o;  o += up128(M * p.Rq * 4);
@@ -535,14 +605,21 @@ template <typename W> __host__ __device__ inline Layout make_layout(const Params
 #define WN_STAMP(i)
 #endif
 
-template <typename W, bool kChunk>
+// kTiles: the mma row tiles of 16 streams a cluster owns (1 or 2); the chunk
+// ring runs one.
+template <typename W, bool kChunk, int kTiles>
 __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     generate_kernel(const Params p) {
+  static_assert(kTiles == 1 || (kTiles == kMaxTiles && !kChunk), "the chunk ring runs one row tile");
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = kRows;
+  constexpr int M = kTileRows * kTiles;
+  constexpr int kPre = kTapPre * kTiles;   // tap vectors a thread loads ahead
+  // bf16: parts of the w_in product's k-steps, each a warp's item with a pair
+  // of n-tiles (two row tiles: each part a single chain of both tiles)
+  constexpr int kParts = kSplitIn * kTiles;
   constexpr bool kBf16 = !std::is_same<W, float>::value;
   cgr::cluster_group cluster = cgr::this_cluster();
-  const Layout lay = make_layout<W>(p);
+  const Layout lay = make_layout<W>(p, kTiles);
   unsigned char* stages = smem;
   W* xin = reinterpret_cast<W*>(smem + lay.xin);    // 2 x M x xs: [taps | cond], by layer parity
   W* gt = reinterpret_cast<W*>(smem + lay.gt);      // M x gs: gated, all CTAs' slices
@@ -809,8 +886,9 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   };
   // Chunk ring, bf16: a product of single n-tiles (w_og, the head's), pass
   // by pass up to kUnits of the warp's tiles through every chunk, then
-  // epi(tile, sums, b0, b1) for each, b0 and b1 the biases of the lane's
-  // columns 8 tile + 2 t4 + {0, 1}, read before the last chunk goes back.
+  // epi(tile, 0, sums, b0, b1) for each (row tile 0), b0 and b1 the biases
+  // of the lane's columns 8 tile + 2 t4 + {0, 1}, read before the last
+  // chunk goes back.
   auto tiles_pass = [&](int d, int KS, int N, const auto* x, int xstride, int tiles,
                         auto&& skip, auto&& epi) {
     for (int pass = 0; pass < p.passes[d]; ++pass) {
@@ -842,7 +920,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         if (!on[i]) continue;
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[i][0][v] += odd[i][0][v];
-        epi(nt[i], acc[i][0], b[i][0], b[i][1]);
+        epi(nt[i], 0, acc[i][0], b[i][0], b[i][1]);
       }
     }
   };
@@ -883,7 +961,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // is 8 channels of one tap of one stream. Where it comes from in a ring row
   // and where it goes in a [taps | cond] buffer does not change: tables.
   const int VR = R / 8, NV = M * (k - 1) * VR;
-  int tap_dst[kTapPre], tap_from[kTapPre], tap_back[kTapPre];   // tap_back: dilations back
+  int tap_dst[kPre], tap_from[kPre], tap_back[kPre];   // tap_back: dilations back
   auto tap_place = [&](int v, int* dst, int* from, int* back) {
     const int bi = v / ((k - 1) * VR), rem = v % ((k - 1) * VR);
     const int tap = rem / VR, c8 = rem % VR;
@@ -892,7 +970,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     *back = k - 1 - tap;
   };
 #pragma unroll
-  for (int u = 0; u < kTapPre; ++u) {
+  for (int u = 0; u < kPre; ++u) {
     tap_dst[u] = tap_from[u] = -1;
     tap_back[u] = 0;
     if (tid + u * nthr < NV) tap_place(tid + u * nthr, &tap_dst[u], &tap_from[u], &tap_back[u]);
@@ -905,7 +983,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   };
   auto taps_load = [&](Vec8<W>* pre, int off, int d, int tm) {
 #pragma unroll
-    for (int u = 0; u < kTapPre; ++u) {
+    for (int u = 0; u < kPre; ++u) {
       if (tap_from[u] >= 0)
         pre[u].load(ring + tap_row(off, d, tm, tap_back[u]) * ring_row + tap_from[u]);
       else
@@ -914,9 +992,9 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   };
   auto taps_store = [&](const Vec8<W>* pre, int off, int d, int tm, W* xb) {
 #pragma unroll
-    for (int u = 0; u < kTapPre; ++u)
+    for (int u = 0; u < kPre; ++u)
       if (tap_dst[u] >= 0) pre[u].store(xb + tap_dst[u]);
-    for (int v = tid + kTapPre * nthr; v < NV; v += nthr) {   // what was not loaded ahead
+    for (int v = tid + kPre * nthr; v < NV; v += nthr) {   // what was not loaded ahead
       int dst, from, back;
       tap_place(v, &dst, &from, &back);
       Vec8<W> x;
@@ -928,22 +1006,34 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   const bool cond_vec = cin > 0 && cin % 8 == 0 && p.cond_sb % 8 == 0 &&
                         reinterpret_cast<uintptr_t>(p.cond) % 16 == 0;
   const int VC = cin / 8;
-  const int cond_bi = cond_vec ? tid / VC : 0, cond_c8 = cond_vec ? tid % VC : 0;
+  // a thread loads vectors tid + u * nthr (u < kTiles) ahead
+  int cond_bi[kTiles], cond_c8[kTiles];
+  cond_bi[0] = cond_vec ? tid / VC : 0, cond_c8[0] = cond_vec ? tid % VC : 0;
+#pragma unroll
+  for (int u = 1; u < kTiles; ++u) {
+    cond_bi[u] = cond_vec ? (tid + u * nthr) / VC : 0;
+    cond_c8[u] = cond_vec ? (tid + u * nthr) % VC : 0;
+  }
   auto cond_load = [&](Vec8<W>* pre, int j) {
-    if (cond_vec && tid < M * VC) {
-      if (cond_bi < nvalid)
-        pre->load(cond + (size_t)(base + cond_bi) * p.cond_sb + (size_t)j * cin + cond_c8 * 8);
-      else
-        pre->zero();
-    }
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u)
+      if (cond_vec && tid + u * nthr < M * VC) {
+        if (cond_bi[u] < nvalid)
+          pre[u].load(cond + (size_t)(base + cond_bi[u]) * p.cond_sb + (size_t)j * cin +
+                      cond_c8[u] * 8);
+        else
+          pre[u].zero();
+      }
   };
   auto cond_store = [&](const Vec8<W>* pre, int j) {
     if (cond_vec) {
-      if (tid < M * VC) {
-        pre->store(xin + cond_bi * xs + k * Rp + cond_c8 * 8);
-        pre->store(xin + (M + cond_bi) * xs + k * Rp + cond_c8 * 8);
-      }
-      for (int v = tid + nthr; v < M * VC; v += nthr) {   // what was not loaded ahead
+#pragma unroll
+      for (int u = 0; u < kTiles; ++u)
+        if (tid + u * nthr < M * VC) {
+          pre[u].store(xin + cond_bi[u] * xs + k * Rp + cond_c8[u] * 8);
+          pre[u].store(xin + (M + cond_bi[u]) * xs + k * Rp + cond_c8[u] * 8);
+        }
+      for (int v = tid + kTiles * nthr; v < M * VC; v += nthr) {   // what was not loaded ahead
         const int bi = v / VC, c8 = v % VC;
         Vec8<W> x;
         if (bi < nvalid)
@@ -973,10 +1063,10 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // what the first step's first two layers need that is known already
   set_mods(0);
   sync();
-  Vec8<W> pre0[kTapPre], pre1[kTapPre], prec;
+  Vec8<W> pre0[kPre], pre1[kPre], prec[kTiles];
   taps_load(pre0, 0, 1, l_mods[0]);
   if (L > 1) taps_load(pre1, l_off[1], l_dil[1], l_mods[1]);
-  cond_load(&prec, 0);
+  cond_load(prec, 0);
 
   for (int j = 0; j < p.n; ++j) {
     const int t = p.t0 + j;
@@ -985,7 +1075,38 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 
     // ---- step start: first 1x1 conv (all columns, every CTA); the first two
     // layers' older taps and this step's conditioning row, loaded ahead
-    {
+    if constexpr (kTiles > 1) {
+      // 8 channels a thread at a time (Rp, R and Rq are multiples of 8)
+      const int VP = Rp / 8;
+      for (int e = tid; e < M * VP; e += nthr) {
+        const int bi = e / VP, ch0 = (e % VP) * 8;
+        Vec8<W> wv, xv;
+        wv.zero();
+        if (ch0 < R && split && code[bi] < C_in) wv.load(w_first + (size_t)code[bi] * R + ch0);
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int ch = ch0 + i;
+          v[i] = 0.0f;
+          if (ch < R) {
+            if (split) {
+              v[i] = wv.get(i);
+            } else {
+              v[i] = rnd<W>(xc[bi]) * first_w[ch];
+            }
+            v[i] += first_b[ch];
+          }
+          xv.set(i, v[i]);
+        }
+        xv.store(xin + bi * xs + (k - 1) * Rp + ch0);
+        const int c = ch0 - rank * Rq;
+        if (c >= 0 && c < Rq) {
+          float4* h = reinterpret_cast<float4*>(hbf + bi * Rq + c);
+          h[0] = make_float4(v[0], v[1], v[2], v[3]);
+          h[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    } else {
       Walk w = walk_p;
       for (int e = tid; e < M * Rp; e += nthr, w.next()) {
         const int bi = w.row, ch = w.col;
@@ -1006,7 +1127,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     for (int e = tid; e < M * Sq; e += nthr) sk[e] = 0.0f;
     taps_store(pre0, 0, 1, l_mod[0], xin);
     if (L > 1) taps_store(pre1, l_off[1], l_dil[1], l_mod[1], xin + M * xs);
-    cond_store(&prec, j);
+    cond_store(prec, j);
     sync();
     WN_STAMP(1);
 
@@ -1047,7 +1168,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         if (tid == 0) mbar_expect_tx(bar_x, x_bytes);
       }
       WN_STAMP(2 + 4 * l);
-      Vec8<W> pre[kTapPre];
+      Vec8<W> pre[kPre];
       int off2 = 0, dil2 = 1, mod2 = 0;
       if (l + 2 < L) {
         off2 = l_off[l + 2], dil2 = l_dil[l + 2], mod2 = l_mod[l + 2];
@@ -1065,11 +1186,18 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       };
       if constexpr (kBf16) {
         // A warp's item: one pair of n-tiles for one of kSplitIn parts of the
-        // k-steps; the partial sums meet in shared memory.
+        // k-steps, every row tile; the partial sums meet in shared memory.
+        // acc[2 mt + h]: row tile mt, GLU half h.
         auto put_part = [&](int sp, int pr, const float (*acc)[4]) {
-          float4* dst = reinterpret_cast<float4*>(part) + ((sp * pairs + pr) * 2) * 32 + lane;
-          dst[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-          dst[32] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+          float4* dst =
+              reinterpret_cast<float4*>(part) + ((sp * pairs + pr) * kTiles) * 64 + lane;
+#pragma unroll
+          for (int mt = 0; mt < kTiles; ++mt) {
+            dst[64 * mt] = make_float4(acc[2 * mt][0], acc[2 * mt][1], acc[2 * mt][2],
+                                       acc[2 * mt][3]);
+            dst[64 * mt + 32] = make_float4(acc[2 * mt + 1][0], acc[2 * mt + 1][1],
+                                            acc[2 * mt + 1][2], acc[2 * mt + 1][3]);
+          }
         };
         if constexpr (kChunk) {
           // pass by pass, up to kUnits of the warp's items through every
@@ -1117,10 +1245,13 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           }
         } else {
           Walk w = walk_w;
-          for (int item = warp; item < pairs * kSplitIn; item += NW, w.next()) {
+          for (int item = warp; item < pairs * kParts; item += NW, w.next()) {
             const int nt[2] = {w.col, pairs + w.col};
-            float acc[2][4];
-            mma_chain<2>(w_in, p.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
+            float acc[2 * kTiles][4];
+            if constexpr (kTiles == 1)
+              mma_chain<2>(w_in, p.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
+            else
+              mma_run<2, kTiles>(w_in, p.Kin, NA, w.row, kParts, nt, xb, xs, acc);
             put_part(w.row, w.col, acc);
           }
         }
@@ -1175,14 +1306,23 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         Walk w = walk_g;
         for (int e = tid; e < M * Gq; e += nthr, w.next()) {
           const int row = w.row, qc = w.col, ch = rank * Gq + qc;
-          // where mma_chain's lane (row % 8, qc % 8 / 2) keeps (row, qc)
-          const float* src = part + (qc >> 3) * 256 + ((row & 7) * 4 + ((qc & 7) >> 1)) * 4 +
-                             (row >> 3) * 2 + (qc & 1);
-          float za = src[0], zg = src[128];
+          // where mma_chain's lane (r % 8, qc % 8 / 2) of row tile mt keeps
+          // (row, qc), row = 16 mt + r
+          const int mt = kTiles == 1 ? 0 : row >> 4, r = kTiles == 1 ? row : row & 15;
+          const float* src = part + ((qc >> 3) * kTiles + mt) * 256 +
+                             ((r & 7) * 4 + ((qc & 7) >> 1)) * 4 + (r >> 3) * 2 + (qc & 1);
+          // the sum of part sp in mma_chain's order (two row tiles: its acc
+          // and odd sums are parts sp and kSplitIn + sp), parts in order
+          auto part_sum = [&](int sp, int h) {
+            float v = src[sp * pairs * kTiles * 256 + h];
+            if constexpr (kTiles > 1) v += src[(kSplitIn + sp) * pairs * kTiles * 256 + h];
+            return v;
+          };
+          float za = part_sum(0, 0), zg = part_sum(0, 128);
 #pragma unroll
           for (int sp = 1; sp < kSplitIn; ++sp) {
-            za += src[sp * pairs * 256];
-            zg += src[sp * pairs * 256 + 128];
+            za += part_sum(sp, 0);
+            zg += part_sum(sp, 128);
           }
           za += b_in[qc];
           zg += b_in[Gq + qc];
@@ -1209,16 +1349,16 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       // the last layer's residual is not used
       auto skip_res = [&](int c) { return c < Rq && last && l != 0; };
       if constexpr (kBf16) {
-        // a warp per n-tile; bias, residual or skip sum and the send run in
-        // the registers that hold the sums
-        auto og_tile = [&](int tile, const float* acc, float b0, float b1) {
-          const int col0 = tile * 8;
+        // a warp per n-tile and row tile mt; bias, residual or skip sum and
+        // the send run in the registers that hold the sums
+        auto og_tile = [&](int tile, int mt, const float* acc, float b0, float b1) {
+          const int col0 = tile * 8, r0 = 16 * mt;
           float v[4];
           if (col0 < Rq) {
             float h0[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int row = g + 8 * (i >> 1), c = col0 + 2 * t4 + (i & 1);
+              const int row = r0 + g + 8 * (i >> 1), c = col0 + 2 * t4 + (i & 1);
               h0[i] = hbf[row * Rq + c];
               v[i] = (acc[i] + ((i & 1) ? b1 : b0) + h0[i]) * sqrt_half;
               hbf[row * Rq + c] = v[i];
@@ -1226,7 +1366,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
             const int ch = rank * Rq + col0 + 2 * t4;   // even: a pair of channels per store
 #pragma unroll
             for (int i = 0; i < 4; i += 2) {
-              const int row = g + 4 * i;
+              const int row = r0 + g + 4 * i;
               if (row < nvalid && ch < R) {
                 if (l == 0)
                   *reinterpret_cast<__nv_bfloat162*>(row0 + (size_t)row * R + ch) =
@@ -1236,27 +1376,28 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
                       __floats2bfloat162_rn(v[i], v[i + 1]);
               }
             }
-            if (!last) send_tile(CS, xn + (k - 1) * Rp, xs, rank * Rq + col0, v, bar_x);
+            if (!last) send_tile(CS, xn + r0 * xs + (k - 1) * Rp, xs, rank * Rq + col0, v, bar_x);
           } else {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int row = g + 8 * (i >> 1), c = col0 - Rq + 2 * t4 + (i & 1);
+              const int row = r0 + g + 8 * (i >> 1), c = col0 - Rq + 2 * t4 + (i & 1);
               const float s = sk[row * Sq + c] + acc[i] + ((i & 1) ? b1 : b0);
               sk[row * Sq + c] = s;
               v[i] = fmaxf(s * sqrt_inv_L, 0.0f);   // head input: ReLU of the scaled skip sum
             }
-            if (last) send_tile(CS, hx, ss, rank * Sq + col0 - Rq, v, bar_hx);
+            if (last) send_tile(CS, hx + r0 * ss, ss, rank * Sq + col0 - Rq, v, bar_hx);
           }
         };
         if constexpr (kChunk) {
           tiles_pass(1, KSog, NB, gt, gs, NB >> 3, [&](int tile) { return skip_res(tile * 8); },
                      og_tile);
         } else {
-          for (int tile = warp; tile < (NB >> 3); tile += NW) {
+          for (int item = warp; item < (NB >> 3) * kTiles; item += NW) {
+            const int tile = item / kTiles, mt = item % kTiles;
             if (skip_res(tile * 8)) continue;
             float acc[1][4];
-            mma_chain<1>(w_og, p.Kog, NB, 0, 1, &tile, gt, gs, acc);
-            og_tile(tile, acc[0], b_og[tile * 8 + 2 * t4], b_og[tile * 8 + 2 * t4 + 1]);
+            mma_chain<1>(w_og, p.Kog, NB, 0, 1, &tile, gt + 16 * mt * gs, gs, acc);
+            og_tile(tile, mt, acc[0], b_og[tile * 8 + 2 * t4], b_og[tile * 8 + 2 * t4 + 1]);
           }
         }
       } else {
@@ -1315,19 +1456,20 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     mbar_wait(bar_hx, h_round & 1);
     if (tid == 0) mbar_expect_tx(bar_hx, s_bytes);
     if constexpr (kBf16) {
-      auto h1_tile = [&](int tile, const float* acc, float b0, float b1) {
+      auto h1_tile = [&](int tile, int mt, const float* acc, float b0, float b1) {
         float v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) v[i] = fmaxf(acc[i] + ((i & 1) ? b1 : b0), 0.0f);
-        send_tile(CS, o1, ss, rank * Sq + tile * 8, v, bar_o1);
+        send_tile(CS, o1 + 16 * mt * ss, ss, rank * Sq + tile * 8, v, bar_o1);
       };
       if constexpr (kChunk) {
         tiles_pass(2, KSsk, Sq, hx, ss, Sq >> 3, no_skip, h1_tile);
       } else {
-        for (int tile = warp; tile < (Sq >> 3); tile += NW) {
+        for (int item = warp; item < (Sq >> 3) * kTiles; item += NW) {
+          const int tile = item / kTiles, mt = item % kTiles;
           float acc[1][4];
-          mma_chain<1>(w_h1, p.Ksk, Sq, 0, 1, &tile, hx, ss, acc);
-          h1_tile(tile, acc[0], b_h1[tile * 8 + 2 * t4], b_h1[tile * 8 + 2 * t4 + 1]);
+          mma_chain<1>(w_h1, p.Ksk, Sq, 0, 1, &tile, hx + 16 * mt * ss, ss, acc);
+          h1_tile(tile, mt, acc[0], b_h1[tile * 8 + 2 * t4], b_h1[tile * 8 + 2 * t4 + 1]);
         }
       }
     } else {
@@ -1357,26 +1499,27 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       const int* next_mod = l_mods + ((j + 1) & 1) * L;
       taps_load(pre0, 0, 1, next_mod[0]);
       if (L > 1) taps_load(pre1, l_off[1], l_dil[1], next_mod[1]);
-      cond_load(&prec, j + 1);
+      cond_load(prec, j + 1);
     }
     mbar_wait(bar_o1, h_round & 1);
     ++h_round;
     if (tid == 0) mbar_expect_tx(bar_o1, s_bytes);
     if constexpr (kBf16) {
-      auto h2_tile = [&](int tile, const float* acc, float b0, float b1) {
+      auto h2_tile = [&](int tile, int mt, const float* acc, float b0, float b1) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int row = g + 8 * (i >> 1), c = tile * 8 + 2 * t4 + (i & 1);
+          const int row = 16 * mt + g + 8 * (i >> 1), c = tile * 8 + 2 * t4 + (i & 1);
           lo[row * Cq + c] = acc[i] + ((i & 1) ? b1 : b0);
         }
       };
       if constexpr (kChunk) {
         tiles_pass(3, KSsk, Cq, o1, ss, Cq >> 3, no_skip, h2_tile);
       } else {
-        for (int tile = warp; tile < (Cq >> 3); tile += NW) {
+        for (int item = warp; item < (Cq >> 3) * kTiles; item += NW) {
+          const int tile = item / kTiles, mt = item % kTiles;
           float acc[1][4];
-          mma_chain<1>(w_h2, p.Ksk, Cq, 0, 1, &tile, o1, ss, acc);
-          h2_tile(tile, acc[0], b_h2[tile * 8 + 2 * t4], b_h2[tile * 8 + 2 * t4 + 1]);
+          mma_chain<1>(w_h2, p.Ksk, Cq, 0, 1, &tile, o1 + 16 * mt * ss, ss, acc);
+          h2_tile(tile, mt, acc[0], b_h2[tile * 8 + 2 * t4], b_h2[tile * 8 + 2 * t4 + 1]);
         }
       }
     } else {
@@ -1396,10 +1539,15 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     }
     sync();
     WN_STAMP(3 + 4 * L);
-    // ---- sampling, a warp per stream. Categorical: each CTA's best of its
-    // classes to every CTA, then the reduction over the cluster. Scalar
-    // heads: the same in every CTA. Rank 0 writes.
-    for (int bi = warp; bi < nvalid; bi += NW) {
+    // ---- sampling, SL lanes a stream: a warp for one row tile, for two a
+    // group of 8 lanes (four streams a warp at once). Categorical: each
+    // CTA's best of its classes to every CTA, then the reduction over the
+    // cluster. Scalar heads: the same in every CTA. Rank 0 writes.
+    constexpr int SL = kTiles == 1 ? 32 : 8;
+    const int sl = lane & (SL - 1);
+    for (int b0 = warp * (32 / SL); b0 < nvalid; b0 += NW * (32 / SL)) {
+      const int bi = b0 + lane / SL;   // below M: lo has the row
+      const bool live = bi < nvalid;
       const int b = base + bi;
       const float* o = lo + bi * Cq;
       const uint32_t key = mix32(mix32(mix32(p.seed) ^ (uint32_t)b) ^ (uint32_t)t);
@@ -1408,22 +1556,22 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         // ties go to the lowest class
         float best = -INFINITY;
         int arg = C_out;
-        for (int c = lane, cls = rank * Cq + lane; c < Cq && cls < C_out; c += 32, cls += 32) {
+        for (int c = sl, cls = rank * Cq + sl; c < Cq && cls < C_out; c += SL, cls += SL) {
           float v = o[c];
           if (!p.deterministic) v -= logf(-logf(uniform(key, (uint32_t)cls)));
           if (v > best || arg == C_out) { best = v; arg = cls; }
         }
-        for (int m = 16; m > 0; m >>= 1) {
+        for (int m = SL / 2; m > 0; m >>= 1) {
           float ob = __shfl_xor_sync(0xffffffffu, best, m);
           int oa = __shfl_xor_sync(0xffffffffu, arg, m);
           if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
         }
-        // lane 0's candidate, lane r to CTA r
-        best = __shfl_sync(0xffffffffu, best, 0);
-        arg = __shfl_sync(0xffffffffu, arg, 0);
-        if (lane < CS)
-          st_async(map_rank(smem_u32(cand + bi * CS + rank), lane), __float_as_uint(best),
-                   (uint32_t)arg, map_rank(smem_u32(bar_cd), lane));
+        // the group's first lane's candidate, its lane r to CTA r
+        best = __shfl_sync(0xffffffffu, best, lane & ~(SL - 1));
+        arg = __shfl_sync(0xffffffffu, arg, lane & ~(SL - 1));
+        if (live && sl < CS)
+          st_async(map_rank(smem_u32(cand + bi * CS + rank), sl), __float_as_uint(best),
+                   (uint32_t)arg, map_rank(smem_u32(bar_cd), sl));
       } else {
         float mean, ls;
         int nr = 1;
@@ -1436,12 +1584,12 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           nr = C_out / 3;
           float best = -INFINITY;
           int sel = nr;
-          for (int c = lane; c < nr; c += 32) {
+          for (int c = sl; c < nr; c += SL) {
             float v = o[c];
             if (!p.deterministic) v -= logf(-logf(uniform(key, (uint32_t)c)));
             if (sel == nr || v > best) { best = v; sel = c; }
           }
-          for (int m = 16; m > 0; m >>= 1) {
+          for (int m = SL / 2; m > 0; m >>= 1) {
             float ob = __shfl_xor_sync(0xffffffffu, best, m);
             int os = __shfl_xor_sync(0xffffffffu, sel, m);
             if (os < nr && (sel == nr || ob > best || (ob == best && os < sel))) {
@@ -1464,7 +1612,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           }
         }
         x = fminf(fmaxf(x, -1.0f), 1.0f);
-        if (lane == 0) {
+        if (live && sl == 0) {
           if (rank == 0) static_cast<float*>(p.out)[b * p.out_sb + j] = x;
           xc[bi * C_in] = x;
         }
@@ -1512,12 +1660,12 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 // info (host, may be null): [stages or chunk slots in shared memory, head
 // weights resident, dynamic shared-memory bytes, clusters the card can hold
 // at once, chunk ring]
-template <typename W, bool kChunk>
+template <typename W, bool kChunk, int kTiles>
 cudaError_t launch_ring(Params p, int threads, int* info, cudaStream_t stream) {
   p.head_res = kChunk ? 0 : 1;
-  const size_t bytes = make_layout<W>(p).total;
+  const size_t bytes = make_layout<W>(p, kTiles).total;
   if (bytes > kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = generate_kernel<W, kChunk>;
+  auto kernel = generate_kernel<W, kChunk, kTiles>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -1550,12 +1698,18 @@ cudaError_t launch_ring(Params p, int threads, int* info, cudaStream_t stream) {
 }
 
 // The ring as planned: whole-layer stages with the head's block resident, or
-// chunk slots whose chunks and passes cover every product.
+// chunk slots whose chunks and passes cover every product. A cluster of
+// more than 16 streams runs two row tiles, on whole-layer stages only.
 template <typename W>
 cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
   if (threads < 32 || threads > kThreads || threads % 32 || p.nstage < 1) return cudaErrorInvalidValue;
+  if (p.spc > kTileRows)
+    return p.slot_bytes == 0 && p.nstage <= p.L
+               ? launch_ring<W, false, kMaxTiles>(p, threads, info, stream)
+               : cudaErrorInvalidValue;
   if (p.slot_bytes == 0)
-    return p.nstage <= p.L ? launch_ring<W, false>(p, threads, info, stream) : cudaErrorInvalidValue;
+    return p.nstage <= p.L ? launch_ring<W, false, 1>(p, threads, info, stream)
+                           : cudaErrorInvalidValue;
   if (threads % 128) return cudaErrorInvalidValue;   // whole warpgroups
   const int rows = sizeof(W) == 2 ? 16 : 1;   // rows a step of the chunk ring
   const int KS[4] = {p.Kin / rows, p.Kog / rows, p.Ksk / rows, p.Ksk / rows};
@@ -1564,14 +1718,14 @@ cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
     // units: bf16 n-tiles (w_in: pairs of them, in kSplitIn parts), a warp
     // a unit; f32 outputs (w_in: gate channels of a stream), a thread each
     const long long units = sizeof(W) == 2 ? (d == 0 ? N[0] / 16 * kSplitIn : N[d] / 8)
-                                           : (long long)kRows * (d == 0 ? p.Gq : N[d]);
+                                           : (long long)kTileRows * (d == 0 ? p.Gq : N[d]);
     const long long workers = sizeof(W) == 2 ? threads / 32 : threads;
     const long long chunk =
         (long long)(p.ck[d] < KS[d] ? p.ck[d] : KS[d]) * rows * N[d] * sizeof(W) + 4 * N[d];
     if (p.ck[d] < 1 || chunk > p.slot_bytes || (long long)p.passes[d] * kUnits * workers < units)
       return cudaErrorInvalidValue;
   }
-  return launch_ring<W, true>(p, threads, info, stream);
+  return launch_ring<W, true, 1>(p, threads, info, stream);
 }
 
 }  // namespace
@@ -1613,8 +1767,8 @@ extern "C" int wn_generate(
     p.passes[d] = plan[21 + d];
   }
   p.head_res = 0;
-  if (p.CS < 1 || p.CS > 8 || (p.CS & (p.CS - 1)) || p.spc < 1 || p.spc > kRows || B < 1 ||
-      k < 2)
+  if (p.CS < 1 || p.CS > 8 || (p.CS & (p.CS - 1)) || p.spc < 1 ||
+      p.spc > kTileRows * kMaxTiles || B < 1 || k < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? (int)launch<__nv_bfloat16>(p, threads, info, s)

@@ -36,6 +36,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -265,7 +266,8 @@ def generate_steps_plain(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
 # the kernel-side pack: each CTA's column slices, padded, in mma order
 # ----------------------------------------------------------------------
 CLUSTER_SIZES = (1, 2, 4, 8)   # CTAs per cluster the picker chooses from
-CLUSTER_STREAMS = 16           # streams a cluster owns at most (one mma row tile)
+TILE_ROWS = 16                 # streams of one mma row tile
+CLUSTER_STREAMS = 32           # streams a cluster owns at most (two row tiles)
 KERNEL_THREADS = 256           # threads per CTA
 SPLIT_IN = 2                   # parts the kernel cuts the w_in product's depth into
 RESIDENT_CTAS = 120            # CTAs an H100 holds at once in clusters of 4 or 8
@@ -311,19 +313,27 @@ def _barriers(spec: WaveNetSpec) -> int:
     return 5 + split_head(spec)
 
 
-def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype
-                      ) -> Tuple[int, int]:
-    """(bytes of shared memory a CTA's activation buffers take, bytes of one
-    layer's block of weights and biases): what ``csrc/generate.cu`` lays out
-    (``make_layout``) before it gives the rest to the weights."""
+def _tile_rows(streams: int) -> int:
+    """The rows a cluster of ``streams`` streams runs: whole mma row tiles."""
+    return _up(streams, TILE_ROWS)
+
+
+def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype,
+                      rows: int = TILE_ROWS) -> Tuple[int, int]:
+    """(bytes of shared memory a CTA's activation buffers take for ``rows``
+    streams, bytes of one layer's block of weights and biases): what
+    ``csrc/generate.cu`` lays out (``make_layout``) before it gives the rest
+    to the weights."""
     d = _kernel_dims(spec, cluster_size)
     elt = 2 if dtype == torch.bfloat16 else 4
-    M, split = CLUSTER_STREAMS, split_head(spec)
+    M, split = rows, split_head(spec)
     NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
     # a split head keeps its input as codes (no one-hot rows) and takes
-    # every CTA's (score, class) candidate a stream
+    # every CTA's (score, class) candidate a stream; two row tiles cut the
+    # w_in product's depth into twice the parts
+    parts = SPLIT_IN * (rows // TILE_ROWS)
     sizes = [2 * M * d["xs"] * elt, M * d["gs"] * elt, M * d["ss"] * elt,
-             M * d["ss"] * elt, SPLIT_IN * NA * M * 4 if elt == 2 else 0,
+             M * d["ss"] * elt, parts * NA * M * 4 if elt == 2 else 0,
              M * d["Rq"] * 4, M * d["Sq"] * 4,
              M * d["Cq"] * 4, 0 if split else M * spec.in_channels * 4,
              M * cluster_size * 8 if split else 0,
@@ -368,7 +378,7 @@ def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
     one of SPLIT_IN parts of the k-steps (bf16 w_in), an n-tile (bf16), or
     one stream's output (f32: a gate channel's pair of columns for w_in)."""
     d = _kernel_dims(spec, cluster_size)
-    M, NW = CLUSTER_STREAMS, threads // 32
+    M, NW = TILE_ROWS, threads // 32
     cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"])
     depth = (d["Kin"], d["Kog"], d["Ksk"], d["Ksk"])
     if dtype == torch.bfloat16:
@@ -383,10 +393,12 @@ def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
 
 
 def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
-              threads: int = KERNEL_THREADS, max_stages: int = -1
-              ) -> Optional[RingPlan]:
-    """The ring ``csrc/generate.cu`` runs for one cluster size, or None
-    where not even a one-slot chunk ring fits beside the activation buffers.
+              threads: int = KERNEL_THREADS, max_stages: int = -1,
+              rows: int = TILE_ROWS) -> Optional[RingPlan]:
+    """The ring ``csrc/generate.cu`` runs for one cluster size and ``rows``
+    streams a cluster (whole row tiles), or None where not even a one-slot
+    chunk ring fits beside the activation buffers. The chunk ring runs one
+    row tile: at two, only whole layer blocks are planned (else None).
 
     Whole layer blocks where two fit (or one, for a one-layer model) with
     the head's block, as many as fit up to every layer (``max_stages`` >= 0
@@ -397,7 +409,7 @@ def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
     run faster than many small ones: every chunk costs each warp a wait and
     a release, and the filler a round trip."""
     elt = 2 if dtype == torch.bfloat16 else 4
-    fixed, block = kernel_smem_bytes(spec, cluster_size, dtype)
+    fixed, block = kernel_smem_bytes(spec, cluster_size, dtype, rows)
     d = _kernel_dims(spec, cluster_size)
     head = (d["Ksk"] * (d["Sq"] + d["Cq"]) * elt + (d["Sq"] + d["Cq"]) * 4)
     nbar = _barriers(spec)
@@ -413,6 +425,8 @@ def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
     for s in range(cap, min(L, 2) - 1, -1):
         if s > 0 and total(s, block, head) <= SMEM_BYTES:
             return RingPlan(s, 0, (0,) * 4, (0,) * 4, total(s, block, head))
+    if rows > TILE_ROWS:
+        return None
     prods = ring_products(spec, cluster_size, dtype, threads)
     for slots in range(RING_SLOTS, 0, -1):
         slot = (SMEM_BYTES - total(slots, 0)) // slots // 128 * 128
@@ -428,20 +442,52 @@ def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
                     total(slots, slot_bytes))
 
 
-def pick_cluster(spec: WaveNetSpec, B: int) -> Tuple[int, int]:
-    """(CTAs per cluster, streams per cluster) for B streams. 16 streams (one
-    mma row tile) per cluster, fewer when B is. The cluster is the largest
-    in which every CTA still owns 8 gate, residual and skip channels, halved
-    (down to 4) while the clusters do not all fit the card at once: a
-    smaller cluster pulls more weights per CTA but more of them are
-    resident, and a second wave doubles the time."""
+def _waves(B: int, cluster_size: int, streams: int) -> int:
+    """How many times over the card runs the clusters of B streams."""
+    return -(-(-(-B // streams)) // (RESIDENT_CTAS // cluster_size))
+
+
+@functools.lru_cache(maxsize=64)
+def _whole_stages(spec: WaveNetSpec, cluster_size: int, dtype,
+                  rows: int) -> bool:
+    """Whether the plan at this cluster size and rows is whole layer blocks."""
+    plan = ring_plan(spec, cluster_size, dtype, rows=rows)
+    return plan is not None and not plan.chunked
+
+
+def pick_cluster(spec: WaveNetSpec, B: int, dtype=torch.bfloat16
+                 ) -> Tuple[int, int]:
+    """(CTAs per cluster, streams per cluster) for B streams of a pack of
+    ``dtype``. The cluster is the largest in which every CTA still owns 8
+    gate, residual and skip channels; it owns 16 streams (one mma row tile),
+    fewer when B is, while its clusters all fit the card at once (B <= 240
+    at clusters of 8). Past that, either the cluster is halved (down to 4;
+    16 streams, each CTA pulling twice the weights), or it keeps its size
+    and owns 32 streams (two row tiles), where whole layer blocks fit beside
+    the 32-row buffers (``ring_plan``). The second wave of a grid that does
+    not fit doubles the time, so the shape with fewer waves wins. At equal
+    waves the halved cluster wins unless its plan is the chunk ring: on an
+    H100 (256-step bf16 launches at B=256) 32-stream clusters of 8 took
+    89.4-89.5 us a step against 87.4-87.6 for clusters of 4 at the mol
+    recipe's model (24 layers, 128/256/128) and 111.0-111.2 against
+    108.1-109.3 at its 30-layer one, where both keep whole layer blocks; at
+    the mu-law 256 recipe's model, whose clusters of 4 stream the chunk
+    ring, 111.9-112.8 against 122.5-122.8."""
     width = min(spec.gate_channels // 2, spec.residual_channels,
                 spec.skip_out_channels)
     cs = max([c for c in CLUSTER_SIZES if 8 * c <= width], default=1)
-    clusters = -(-B // CLUSTER_STREAMS)
-    while cs > 4 and clusters * cs > RESIDENT_CTAS:
-        cs //= 2
-    return cs, min(CLUSTER_STREAMS, B)
+    clusters = -(-B // TILE_ROWS)
+    if clusters * cs <= RESIDENT_CTAS:
+        return cs, min(TILE_ROWS, B)
+    half = cs
+    while half > 4 and clusters * half > RESIDENT_CTAS:
+        half //= 2
+    if _whole_stages(spec, cs, dtype, CLUSTER_STREAMS):
+        wide, narrow = _waves(B, cs, CLUSTER_STREAMS), _waves(B, half, TILE_ROWS)
+        if wide < narrow or (wide == narrow and not _whole_stages(
+                spec, half, dtype, TILE_ROWS)):
+            return cs, CLUSTER_STREAMS
+    return half, TILE_ROWS
 
 
 def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
@@ -611,21 +657,27 @@ class KernelPack:
         return out
 
     def ring_plan(self, threads: int = KERNEL_THREADS,
-                  max_stages: int = -1) -> RingPlan:
-        """``ring_plan`` for this pack, made once per (threads, max_stages)."""
-        key = (threads, max_stages)
+                  max_stages: int = -1, rows: int = TILE_ROWS) -> RingPlan:
+        """``ring_plan`` for this pack, made once per (rows, threads,
+        max_stages)."""
+        key = (rows, threads, max_stages)
         if key not in self._rings:
             plan = ring_plan(self.spec, self.cluster_size, self.dtype, threads,
-                             max_stages)
+                             max_stages, rows)
             if plan is None:
-                raise ValueError(kernel_supports(self.spec, self.dtype,
-                                                 self.cluster_size)[1])
+                why = kernel_supports(self.spec, self.dtype, self.cluster_size)[1]
+                raise ValueError(why or (
+                    f"clusters of {self.cluster_size} CTAs own at most "
+                    f"{TILE_ROWS} streams of this model: {rows} streams' "
+                    f"buffers leave no room for whole layer blocks, and the "
+                    f"chunk ring runs one row tile"))
             self._rings[key] = plan
         return self._rings[key]
 
     def plan(self, streams: int, threads: int, max_stages: int):
         """The host int array ``wn_generate`` takes as ``plan``."""
-        d, ring = self.dims, self.ring_plan(threads, max_stages)
+        d = self.dims
+        ring = self.ring_plan(threads, max_stages, _tile_rows(streams))
         vals = [self.cluster_size, streams, threads, ring.stages,
                 d["Gq"], d["Rq"], d["Sq"], d["Kin"], d["Kog"], d["Ksk"],
                 d["Cq"], d["xs"], d["gs"], d["ss"],
@@ -709,7 +761,9 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     ``ring_plan`` gives; the counter ``generate.chunked_launches`` counts
     those that took the chunk ring, ``generate.split_head_launches`` those
     whose head was split over the cluster (``split_head``: categorical, its
-    x_cur rows one-hot or zero, unchecked here). For sweeps and tests: ``_cluster`` =
+    x_cur rows one-hot or zero, unchecked here),
+    ``generate.wide_cluster_launches`` those whose clusters own more than
+    16 streams (two row tiles). For sweeps and tests: ``_cluster`` =
     (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
     ``_max_stages`` caps the whole layer blocks held in shared memory (0:
     the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
@@ -758,7 +812,7 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         return
     if dev.type != "cuda":
         raise ValueError(f"no generation kernel for device {dev}")
-    cs, streams = _cluster or pick_cluster(spec, B)
+    cs, streams = _cluster or pick_cluster(spec, B, dtype)
     if cs not in CLUSTER_SIZES or not 1 <= streams <= CLUSTER_STREAMS:
         raise ValueError(f"_cluster must be (one of {CLUSTER_SIZES}, "
                          f"1..{CLUSTER_STREAMS}); got {(cs, streams)}")
@@ -799,10 +853,13 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     if _info is not None:
         _info[:] = list(info)
     profiling.count("generate.launches")
-    if kpack.ring_plan(KERNEL_THREADS, int(_max_stages)).chunked:
+    if kpack.ring_plan(KERNEL_THREADS, int(_max_stages),
+                       _tile_rows(streams)).chunked:
         profiling.count("generate.chunked_launches")
     if split_head(spec):
         profiling.count("generate.split_head_launches")
+    if streams > TILE_ROWS:
+        profiling.count("generate.wide_cluster_launches")
 
 
 # ----------------------------------------------------------------------
@@ -850,7 +907,7 @@ class FusedGenerator:
         if device.type == "cuda":
             with torch.cuda.device(device):
                 for B in (1, 1 << 20):
-                    cs = pick_cluster(self.spec, B)[0]
+                    cs = pick_cluster(self.spec, B, self.weight_dtype)[0]
                     kpacks[cs] = kernel_pack(packed, self.spec, cs)
         return kpacks
 
@@ -969,7 +1026,7 @@ class FusedGenerator:
                     rows, Bs, spec.residual_channels, dtype=dtype, device=d)),
                 out=torch.empty(Bs, T_pad, device=d, dtype=(
                     torch.float32 if spec.scalar_input else torch.int32)),
-                kpack=kpacks.get(pick_cluster(spec, Bs)[0])))
+                kpack=kpacks.get(pick_cluster(spec, Bs, dtype)[0])))
         # chunk by chunk, every shard's launch before the next chunk: the
         # devices run side by side, and nothing here waits on them
         with profiling.span("generate.launch"):

@@ -11,7 +11,10 @@ profiler stamps its events with, so the port's intervals line up with the
 trace's device ops. ``count(name, n)`` adds to a named counter
 (``counters``); the kernel wrappers count their launches there
 (``generate.launches``, ``generate.chunked_launches`` for those that
-stream their weights through the chunk ring, ``train_fwd.launches``,
+stream their weights through the chunk ring,
+``generate.split_head_launches`` for those that split a categorical head
+over the cluster, ``generate.wide_cluster_launches`` for those whose
+clusters own more than 16 streams, ``train_fwd.launches``,
 ``train_fwd.tc_launches``,
 ``train_fwd.fma_launches``, the same three of ``train_bwd``,
 ``mel.launches``). ``reset()`` empties the store. The store is shared by
