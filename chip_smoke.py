@@ -321,8 +321,8 @@ def phase_build(report):
 # ----------------------------------------------------------------------
 KERNEL_B, KERNEL_T = 4, 512
 SERVE_BATCHES = (32, 32, 32, 256)
-# The serving batches, each run by the cluster shape the serving path picks
-# for it (``pick_cluster``: 16 streams a cluster, of 8 CTAs at B=32 and of 4
+# The serving batches, each run by the cluster shape the serving path plans
+# for it (``plan_launch``: 16 streams a cluster, of 8 CTAs at B=32 and of 4
 # at B=256; the mu-law 256 model's bf16 packs 32 streams a cluster of 8 at
 # B=256), for one launch of DEFAULT_CHUNK steps; bf16 packs are held over
 # CHECK_STEPS single steps and then over one CHECK_STEPS-step launch from
@@ -440,13 +440,18 @@ def _before_parting(diff, tol):
     return err, parted, (int(first.min()) if parted else None)
 
 
+def _shape(plan):
+    """(CTAs, streams) a cluster of a ``cuda_generate.Plan``."""
+    return plan.CS, plan.spc
+
+
 def _check(packed, spec, cond, x0, dtype, dname, T, det, serving):
     """One row of phase 2 and the reasons it fails (empty when it holds)."""
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     tol = TOL[dname] if spec.scalar_input else 0.0
     B = x0.shape[0]
     row = dict(B=B, dtype=dname, deterministic=det, tol=tol,
-               cluster=cg.pick_cluster(spec, B, dtype))
+               cluster=_shape(cg.plan_launch(spec, dtype, B)))
     bad = []
     if dname == "float32" or not serving:
         a = _trajectory(cg.generate_steps, packed, spec, cond, x0, dtype, T,
@@ -717,7 +722,7 @@ def _time_launch(tag, packed, spec, inputs, iters, cluster=None):
                             iters=1, warmup=1)
     _set_launches(saved)
     b_ms, b_by, flops, nbytes = bound_ms(spec, packed, B, n, 2, peak("bf16"))
-    cs = cluster or cg.pick_cluster(spec, B)
+    cs = cluster or _shape(cg.plan_launch(spec, packed["w_first"].dtype, B))
     print(f"{tag} B={B} n={n} bf16 cluster {cs[0]}x{cs[1]}: {ms:.3f} "
           f"ms/launch ({ms * 1e3 / n:.1f} us/step); plain {plain_ms:.1f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, "
@@ -788,16 +793,19 @@ def phase_timing(report, model):
     for Bs in (1, 32, 256):
         for cs in (2, 4, 8):
             for streams in (8, 16, 32):
-                if streams > max(Bs, 8) or (Bs == 256 and streams == 8) or (
-                        streams == 32 and cg.ring_plan(
-                            spec, cs, torch.bfloat16, rows=32) is None):
+                if streams > max(Bs, 8) or (Bs == 256 and streams == 8):
                     continue
-                t, info = timed(Bs, _cluster=(cs, streams))
+                try:
+                    plan = cg.plan_launch(spec, torch.bfloat16, Bs,
+                                          cluster=(cs, streams))
+                except ValueError:    # no 32-row plan
+                    continue
+                t, info = timed(Bs, plan=plan)
                 sweep.append(dict(B=Bs, cluster_size=cs, streams=streams,
                                   ms=t, us_per_step=t * 1e3 / n,
-                                  stages=info[0], resident_clusters=info[3]))
+                                  stages=plan.nstage, resident_clusters=info[3]))
                 print(f"[time] sweep B={Bs} cluster {cs}x{streams}: {t:.3f} "
-                      f"ms/launch ({t * 1e3 / n:.1f} us/step); {info[0]} "
+                      f"ms/launch ({t * 1e3 / n:.1f} us/step); {plan.nstage} "
                       f"layers' weights in shared memory, the card holds "
                       f"{info[3]} such clusters at once")
     # what a step's time is made of: the served shapes with the products
@@ -2762,7 +2770,8 @@ def _mulaw256_launches(rows, failures):
     ``failures``), then one bf16 256-step launch at B=256 (two row tiles,
     two whole layer blocks) and B=16 (four whole layer blocks) timed as the
     30L3S line is, with the plan each took (``_info``) and the launch
-    counters, and B=256 again on 16-stream clusters of 4 (the chunk ring).
+    counters, the bytes the launch took held to the plan's, and B=256 again
+    on 16-stream clusters of 4 (the chunk ring).
     Returns {mulaw256.bB: timing}."""
     import torch
 
@@ -2788,21 +2797,26 @@ def _mulaw256_launches(rows, failures):
         cond, x0, ring, out = inputs
         names = _GENERATE_COUNTERS
         before = [_launches(f"generate.{n}") for n in names]
-        info = []
+        plan, info = cg.plan_launch(spec, torch.bfloat16, B), []
         cg.generate_steps(packed, spec, ring.clone(), x0.clone(), out, cond,
-                          t0=0, seed=1, _info=info)
+                          t0=0, seed=1, plan=plan, _info=info)
         torch.cuda.synchronize()
         counts = dict(zip(names, (_launches(f"generate.{n}") - b
                                   for n, b in zip(names, before))))
-        print(f"{tag} plan: {info[0]} {'chunk slots' if info[4] else 'stages'}, "
-              f"head resident {info[1]}, {info[2]} B of shared memory, "
-              f"{info[3]} clusters at once; counters {counts}", flush=True)
+        print(f"{tag} plan: {plan.nstage} "
+              f"{'chunk slots' if plan.chunked else 'stages'}, head resident "
+              f"{plan.head_res}, {plan.total} B of shared memory (the launch "
+              f"took {info[2]}), {info[3]} clusters at once; counters {counts}",
+              flush=True)
         if (counts["split_head_launches"] != 1 or counts["chunked_launches"] != 0
-                or counts["wide_cluster_launches"] != (B > 240)):
-            fail(f"mulaw256 B={B}: counters {counts}")
+                or counts["wide_cluster_launches"] != (B > 240)
+                or info[2] != plan.total):
+            fail(f"mulaw256 B={B}: counters {counts}, {info[2]} B of shared "
+                 f"memory against the plan's {plan.total}")
         timing[f"mulaw256.b{B}"] = dict(
             _time_launch(tag, packed, spec, inputs, iters=3),
-            plan=info, counters=counts)
+            plan=[plan.nstage, plan.head_res, plan.total, info[3],
+                  int(plan.chunked)], counters=counts)
         if B > 240:
             # the cluster shape the picker took before 32-stream clusters
             timing[f"mulaw256.b{B}.4x16"] = _time_launch(

@@ -442,7 +442,8 @@ def test_picker_covers_every_stream(width, dtype, B):
         assert 0 < hi - lo <= streams
         seen[lo:hi] += 1
     assert (seen == 1).all() and len(groups) == -(-B // streams)
-    fixed, block = cg.kernel_smem_bytes(spec, cs, dt, 32 if streams > 16 else 16)
+    at = cg.smem_layout(spec, dt, cs, 2 if streams > 16 else 1)
+    fixed, block = at["total"] - at["xin"], at["stage_bytes"]
     assert fixed <= cg.SMEM_BYTES and block > 0
     if width == "flagship":
         # 15 clusters of 8 CTAs fit an H100 at once; past that, clusters of
@@ -461,12 +462,14 @@ def test_kernel_pack_is_made_once_per_pack():
     kp2 = cg.kernel_pack(packed, spec, 2)
     assert kp2 is not kp
     assert torch.equal(_public_from_slices(kp2, spec)["b_in"], packed["b_in"])
-    plan = list(kp2.plan(16, 256, -1))
-    ring = kp2.ring_plan(256, -1)
-    assert kp2.ring_plan(256, -1) is ring          # planned once
-    assert plan[:4] == [2, 16, 256, ring.stages] and len(plan) == 25
-    assert plan[14:17] == [kp2.wl.shape[2], kp2.wh.shape[1], 0]
-    assert plan[17:] == [0] * 8 and ring.stages == spec.layers
+    plan = cg.plan_launch(spec, torch.float32, 16, cluster=(2, 16))
+    assert cg.plan_launch(spec, torch.float32, 16, cluster=(2, 16)) is plan
+    st = plan.struct
+    assert plan.struct is st                       # planned once
+    assert (st.CS, st.spc, st.tiles, st.nstage) == (2, 16, 1, spec.layers)
+    assert (st.stage_bytes, st.head_bytes, st.slot_bytes) == (
+        kp2.wl.shape[2], kp2.wh.shape[1], 0)
+    assert list(st.ck) + list(st.passes) == [0] * 8 and st.head_res == 1
 
 
 def _small_cfg(**kw):

@@ -1,9 +1,12 @@
-"""How the generation kernel's weights reach shared memory
-(``ops/cuda_generate.ring_plan``), checked on the CPU: whole layer blocks
-where two fit beside the activation buffers and the head's block, else the
-chunk ring, whose chunks tile every layer block and the head's block in
-whole steps and fit a block's shared memory with the buffers. The kernel
+"""The generation kernel's launch plan (``ops/cuda_generate.plan_launch``),
+checked on the CPU: whole layer blocks where two fit beside the activation
+buffers and the head's block, else the chunk ring, whose chunks tile every
+layer block and the head's block in whole steps and fit a block's shared
+memory with the buffers; the cluster shapes the picker takes; and the plan's
+fields and constants as ``csrc/generate.cu`` declares them. The kernel
 itself runs these plans on a GPU (``tests/test_torch_kernels.py``)."""
+import ctypes
+import re
 from pathlib import Path
 
 import pytest
@@ -14,7 +17,9 @@ from wavenet_vocoder_tpu_torch.models.wavenet import WaveNet, WaveNetSpec, spec_
 from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
 
 
-EGS = Path(__file__).resolve().parent.parent / "egs"
+ROOT = Path(__file__).resolve().parent.parent
+EGS = ROOT / "egs"
+KERNEL_SRC = ROOT / "wavenet_vocoder_tpu_torch" / "csrc" / "generate.cu"
 
 
 def _spec(R, G, S, layers=24, stacks=4, cin=80):
@@ -62,6 +67,26 @@ _ids = lambda cases: [f"{n}-{str(d)[6:]}-{cs}" for n, d, cs in cases]
 CHUNKED_IDS = _ids(CHUNKED)
 
 
+def _plan(spec, cs, dtype, rows=16, max_stages=-1):
+    """The plan of clusters of ``cs`` CTAs and ``rows`` streams."""
+    return cg.plan_launch(spec, dtype, rows, cluster=(cs, rows),
+                          max_stages=max_stages)
+
+
+def _no_plan(spec, cs, dtype, rows=16, max_stages=-1):
+    """No ring fits beside the buffers: the planner says so."""
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(spec, cs, dtype, rows, max_stages)
+    return True
+
+
+def _buffers(spec, cs, dtype, tiles=1):
+    """(bytes of a CTA's activation buffers and mbarriers beside no ring,
+    bytes of one layer block)."""
+    at = cg.smem_layout(spec, dtype, cs, tiles)
+    return at["total"] - at["xin"], at["stage_bytes"]
+
+
 def _copies(spec, cs, dtype, plan):
     """(source offset, bytes, offset in the slot) of every copy the chunk
     ring's filler issues for one layer block and for the head's block, in
@@ -78,8 +103,8 @@ def _copies(spec, cs, dtype, plan):
     for i, ((KS, step, N, _), at, bias) in enumerate(zip(prods, starts, biases)):
         out = layer if i < 2 else head
         for _ in range(plan.passes[i]):
-            for k0 in range(0, KS, plan.chunk[i]):
-                k1 = min(KS, k0 + plan.chunk[i])
+            for k0 in range(0, KS, plan.ck[i]):
+                k1 = min(KS, k0 + plan.ck[i])
                 out.append((at + k0 * step, (k1 - k0) * step, 0))
                 if k1 == KS:
                     out.append((bias, 4 * N, (k1 - k0) * step))
@@ -93,13 +118,14 @@ def test_chunks_tile_every_block(name, dtype, cs):
     pass's copies cover the layer block and the head's block exactly, in
     16-byte multiples, and every chunk with its biases fits its slot."""
     spec = SPECS[name]()
-    plan = cg.ring_plan(spec, cs, dtype)
-    assert plan is not None and plan.chunked
+    plan = _plan(spec, cs, dtype)
+    assert plan.chunked
     d = cg._kernel_dims(spec, cs)
     elt = 2 if dtype == torch.bfloat16 else 4
     NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
     block = (d["Kin"] * NA + d["Kog"] * NB) * elt + (NA + NB) * 4
     head = d["Ksk"] * (d["Sq"] + d["Cq"]) * elt + (d["Sq"] + d["Cq"]) * 4
+    assert (plan.stage_bytes, plan.head_bytes) == (block, head)
     for copies, size in zip(_copies(spec, cs, dtype, plan), (block, head)):
         # a product's later passes copy the same bytes again
         spans = sorted({(at, at + n) for at, n, _ in copies})
@@ -109,26 +135,29 @@ def test_chunks_tile_every_block(name, dtype, cs):
             assert at % 16 == 0 and n % 16 == 0 and dst % 16 == 0 and n > 0
             assert dst + n <= plan.slot_bytes
     for (KS, step, N, units), c, passes in zip(
-            cg.ring_products(spec, cs, dtype), plan.chunk, plan.passes):
+            cg.ring_products(spec, cs, dtype), plan.ck, plan.passes):
         assert 1 <= c <= KS and step % 16 == 0
         assert passes * cg.RING_UNITS >= units
 
 
 @pytest.mark.parametrize("name,dtype,cs", CHUNKED, ids=CHUNKED_IDS)
 def test_chunk_ring_fits_shared_memory(name, dtype, cs):
-    """The ring and the activation buffers fit a block's shared memory; the
-    512ch model, whose layer blocks do not fit twice, streams through
-    RING_SLOTS slots of 30-40 KB, in one pass of each product at clusters
-    of 8 (two of w_og at clusters of 4: three tiles a warp)."""
+    """The ring and the activation buffers fit a block's shared memory, the
+    plan's offsets those of ``smem_layout`` for its ring; the 512ch model,
+    whose layer blocks do not fit twice, streams through RING_SLOTS slots of
+    30-40 KB, in one pass of each product at clusters of 8 (two of w_og at
+    clusters of 4: three tiles a warp)."""
     spec = SPECS[name]()
     assert cg.kernel_supports(spec, dtype, cs) == (True, "")
-    fixed, block = cg.kernel_smem_bytes(spec, cs, dtype)
-    plan = cg.ring_plan(spec, cs, dtype)
-    assert plan.smem_bytes <= cg.SMEM_BYTES
-    assert plan.smem_bytes >= fixed + plan.stages * plan.slot_bytes
+    fixed, block = _buffers(spec, cs, dtype)
+    plan = _plan(spec, cs, dtype)
+    assert plan.total <= cg.SMEM_BYTES
+    assert plan.total >= fixed + plan.nstage * plan.slot_bytes
     assert fixed + 2 * block > cg.SMEM_BYTES or dtype == torch.float32
+    at = cg.smem_layout(spec, dtype, cs, 1, plan.nstage, plan.slot_bytes)
+    assert at == {n: getattr(plan, n) for n in at}
     if name == "512ch":
-        assert plan.stages == cg.RING_SLOTS == 2
+        assert plan.nstage == cg.RING_SLOTS == 2
         assert 30 * 1024 <= plan.slot_bytes <= 40 * 1024
         assert plan.passes == ((1, 1, 1, 1) if cs == 8 else (1, 2, 1, 1))
     if name == "ragged":
@@ -146,47 +175,57 @@ def test_flagship_keeps_whole_layer_stages(B):
     runs one row tile)."""
     spec = spec_from_config(Config())
     cs, streams = cg.pick_cluster(spec, B)
-    plan = cg.ring_plan(spec, cs, torch.bfloat16)
-    assert not plan.chunked and plan.stages == {8: 4, 4: 2}[cs]
+    plan = cg.plan_launch(spec, torch.bfloat16, B)
+    assert (plan.CS, plan.spc, plan.tiles) == (cs, streams, 1)
+    assert not plan.chunked and plan.nstage == {8: 4, 4: 2}[cs]
+    assert plan.head_res == 1
     assert (cs, streams) == ((8, min(B, 16)) if B <= 240 else (4, 16))
-    assert cg.ring_plan(spec, 8, torch.bfloat16, rows=32).stages == 2
+    assert _plan(spec, 8, torch.bfloat16, rows=32).nstage == 2
     for c in (cs, 4):
-        assert not cg.ring_plan(spec, c, torch.bfloat16).chunked
-        assert cg.ring_plan(spec, c, torch.bfloat16, max_stages=0).chunked
-        assert cg.ring_plan(spec, c, torch.float32).chunked
-        capped = cg.ring_plan(spec, c, torch.bfloat16, max_stages=2)
-        assert not capped.chunked and capped.stages == 2
-    assert cg.ring_plan(spec, 8, torch.bfloat16, max_stages=0, rows=32) is None
-    assert cg.ring_plan(spec, 8, torch.float32, rows=32) is None
+        assert not _plan(spec, c, torch.bfloat16).chunked
+        assert _plan(spec, c, torch.bfloat16, max_stages=0).chunked
+        assert _plan(spec, c, torch.float32).chunked
+        capped = _plan(spec, c, torch.bfloat16, max_stages=2)
+        assert not capped.chunked and capped.nstage == 2
+    assert _no_plan(spec, 8, torch.bfloat16, 32, max_stages=0)
+    assert _no_plan(spec, 8, torch.float32, 32)
 
 
 def test_kernel_pack_plan_carries_the_ring():
-    """The plan ints ``wn_generate`` reads end with the ring's slot bytes,
-    chunks and passes; the counter names the launches that take it."""
+    """The struct ``wn_generate`` reads carries the ring's slots, slot bytes,
+    chunks and passes, and the pack's block sizes."""
     spec = _spec(64, 128, 64, layers=4, stacks=2, cin=4)
     model = WaveNet(spec, generator=torch.Generator().manual_seed(0))
     packed = cg.pack_weights(model, dtype=torch.bfloat16)
     kp = cg.kernel_pack(packed, spec, 8)
-    ring = kp.ring_plan(256, 0)
-    assert ring.chunked
-    plan = list(kp.plan(16, 256, 0))
-    assert plan[3] == ring.stages and plan[16] == ring.slot_bytes
-    assert plan[17:21] == list(ring.chunk) and plan[21:] == list(ring.passes)
-    whole = kp.ring_plan(256, -1)
-    assert not whole.chunked and whole.stages == spec.layers
+    plan = _plan(spec, 8, torch.bfloat16, max_stages=0)
+    assert plan.chunked and not plan.head_res
+    st = plan.struct
+    assert (st.nstage, st.slot_bytes) == (plan.nstage, plan.slot_bytes)
+    assert list(st.ck) == list(plan.ck) and list(st.passes) == list(plan.passes)
+    assert (st.stage_bytes, st.head_bytes) == (kp.wl.shape[2], kp.wh.shape[1])
+    whole = _plan(spec, 8, torch.bfloat16)
+    assert not whole.chunked and whole.nstage == spec.layers
 
 
 def test_supports_exactly_where_a_ring_fits():
     """kernel_supports takes a model where a ring fits beside the buffers
-    at every cluster size the picker may choose, and says why otherwise."""
+    at every cluster size the picker may choose (``cluster_sizes``: here
+    its largest and 4), and says why otherwise."""
+    def fits(spec, cs, dtype):
+        try:
+            return _plan(spec, cs, dtype) is not None
+        except ValueError:
+            return False
     for R, G, S in ((512, 512, 256), (2048, 4096, 2048), (64, 4096, 1024)):
         spec = _spec(R, G, S)
         for dtype in (torch.bfloat16, torch.float32):
             takes, why = cg.kernel_supports(spec, dtype)
             first = cg.pick_cluster(spec, 1)[0]
-            fits = all(cg.ring_plan(spec, c, dtype) is not None
-                       for c in cg.CLUSTER_SIZES if min(first, 4) <= c <= first)
-            assert takes == fits
+            sizes = cg.cluster_sizes(spec, dtype)
+            assert sizes == tuple(c for c in cg.CLUSTER_SIZES
+                                  if min(first, 4) <= c <= first)
+            assert takes == all(fits(spec, c, dtype) for c in sizes)
             assert takes or "shared memory" in why
 
 
@@ -204,24 +243,25 @@ def test_mulaw256_splits_its_head_to_keep_whole_layer_stages(B):
     cs, streams = cg.pick_cluster(spec, B)
     rows = 32 if streams > 16 else 16
     assert (cs, rows) == ((8, 16) if B <= 240 else (8, 32))
-    plan = cg.ring_plan(spec, cs, torch.bfloat16, rows=rows)
-    assert cg._kernel_dims(spec, cs)["Cq"] == 256 // cs
-    assert not plan.chunked and plan.stages == (4 if rows == 16 else 2)
-    assert plan.stages == cg.ring_plan(SPECS["30L3S"](), cs, torch.bfloat16,
-                                       rows=rows).stages
-    assert plan.smem_bytes <= cg.SMEM_BYTES
-    four = cg.ring_plan(spec, 4, torch.bfloat16)
+    plan = cg.plan_launch(spec, torch.bfloat16, B)
+    assert (plan.CS, plan.spc, plan.tiles) == (cs, streams, rows // 16)
+    assert cg._kernel_dims(spec, cs)["Cq"] == plan.Cq == 256 // cs
+    assert not plan.chunked and plan.nstage == (4 if rows == 16 else 2)
+    assert plan.nstage == _plan(SPECS["30L3S"](), cs, torch.bfloat16,
+                                rows=rows).nstage
+    assert plan.total <= cg.SMEM_BYTES and plan.head == 0
+    four = _plan(spec, 4, torch.bfloat16)
     d = cg._kernel_dims(spec, 4)
-    assert four.chunked and four.stages == cg.RING_SLOTS
-    assert cg.ring_plan(spec, 4, torch.bfloat16, max_stages=2) == four
+    assert four.chunked and four.nstage == cg.RING_SLOTS
+    assert _plan(spec, 4, torch.bfloat16, max_stages=2) == four
     KS, step, N, units = cg.ring_products(spec, 4, torch.bfloat16)[3]
     assert N == d["Cq"] == 64 and step == 16 * 64 * 2
-    assert four.chunk[3] == KS and four.passes[3] == 1
-    assert four.smem_bytes <= cg.SMEM_BYTES
+    assert four.ck[3] == KS and four.passes[3] == 1
+    assert four.total <= cg.SMEM_BYTES
 
 
 # every plan of the heads that are not split, as before the categorical
-# head was split: (stages, slot bytes, chunk, passes, shared bytes) at
+# head was split: (stages, slot bytes, chunks, passes, shared bytes) at
 # clusters of 8 and 4, bf16 then f32 (None: no ring fits)
 UNSPLIT_PLANS = {
     "flagship": {(8, "bf16"): (4, 0, (0,) * 4, (0,) * 4, 221440),
@@ -247,13 +287,17 @@ UNSPLIT_PLANS = {
 def test_unsplit_heads_keep_their_plans(name):
     """The MoL and Gaussian heads stay whole in every CTA: the flagship's,
     the 30-layer MoL model's, the Gaussian recipe's and the 512ch model's
-    plans are the same RingPlans as before the split."""
+    plans are the same as before the split."""
     spec = SPECS[name]()
     assert not cg.split_head(spec)
     for (cs, dt), want in UNSPLIT_PLANS[name].items():
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        plan = cg.ring_plan(spec, cs, dtype)
-        assert plan == (None if want is None else cg.RingPlan(*want)), (cs, dt)
+        if want is None:
+            assert _no_plan(spec, cs, dtype), (cs, dt)
+            continue
+        plan = _plan(spec, cs, dtype)
+        assert (plan.nstage, plan.slot_bytes, plan.ck, plan.passes,
+                plan.total) == want, (cs, dt)
 
 
 # bf16 at clusters of 8 and 32 rows: (activation buffers, one layer block,
@@ -289,16 +333,17 @@ def test_plans_at_32_rows(name):
     gets a 32-row chunk ring or an f32 32-row plan here."""
     spec = SPECS[name]()
     fixed, block, want = WIDE_PLANS[name]
-    assert cg.kernel_smem_bytes(spec, 8, torch.bfloat16, 32) == (fixed, block)
-    assert cg.kernel_smem_bytes(spec, 8, torch.bfloat16)[1] == block
-    plan = cg.ring_plan(spec, 8, torch.bfloat16, rows=32)
+    assert _buffers(spec, 8, torch.bfloat16, tiles=2) == (fixed, block)
+    assert _buffers(spec, 8, torch.bfloat16)[1] == block
     if want is None:
-        assert plan is None and fixed > cg.SMEM_BYTES
+        assert _no_plan(spec, 8, torch.bfloat16, 32) and fixed > cg.SMEM_BYTES
     else:
-        assert plan == cg.RingPlan(want[0], 0, (0,) * 4, (0,) * 4, want[1])
-        assert plan.smem_bytes <= cg.SMEM_BYTES
-    assert cg.ring_plan(spec, 8, torch.bfloat16, max_stages=0, rows=32) is None
-    assert cg.ring_plan(spec, 8, torch.float32, rows=32) is None
+        plan = _plan(spec, 8, torch.bfloat16, 32)
+        assert (plan.nstage, plan.slot_bytes, plan.ck, plan.passes,
+                plan.total) == (want[0], 0, (0,) * 4, (0,) * 4, want[1])
+        assert plan.tiles == 2 and plan.total <= cg.SMEM_BYTES
+    assert _no_plan(spec, 8, torch.bfloat16, 32, max_stages=0)
+    assert _no_plan(spec, 8, torch.float32, 32)
 
 
 # (model, B) -> (CTAs, streams) a cluster: 16-stream clusters of 8 while
@@ -321,8 +366,46 @@ def test_picker_at_the_benchmark_models(B, name):
     spec = SPECS[name]()
     cs, streams = cg.pick_cluster(spec, B)
     assert (cs, streams) == PICKS[B][name]
-    rows = 32 if streams > 16 else 16
-    assert cg.ring_plan(spec, cs, torch.bfloat16, rows=rows) is not None
+    plan = cg.plan_launch(spec, torch.bfloat16, B)
+    assert (plan.CS, plan.spc, plan.tiles) == (cs, streams, -(-streams // 16))
+    assert cs in cg.cluster_sizes(spec)
     waves = lambda c, s: -(-(-(-B // s)) // (cg.RESIDENT_CTAS // c))
     assert waves(cs, streams) == (1 if B <= 480 else 2)
     assert cg.pick_cluster(spec, B, torch.float32)[1] <= 16
+
+
+def _struct_fields(src):
+    """(name, ints) of every field of ``struct Plan`` in a C source."""
+    body = re.search(r"^struct Plan \{(.*?)^\};", src, re.S | re.M).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if decl.strip():
+            assert decl.split()[0] == "int", decl
+            for name in decl.strip()[3:].split(","):
+                m = re.fullmatch(r"\s*(\w+)(?:\[(\d+)\])?\s*", name)
+                fields.append((m.group(1), int(m.group(2) or 1)))
+    return fields
+
+
+def test_plan_struct_and_constants_match_the_kernel():
+    """``csrc/generate.cu``'s ``struct Plan`` has the fields of ``Plan`` and
+    ``_CPlan``, in order and of the same sizes, and the kernel reads every
+    one of them; its constants are the planner's."""
+    src = KERNEL_SRC.read_text()
+    fields = _struct_fields(src)
+    assert fields == [(n, getattr(t, "_length_", 1)) for n, t in cg._CPlan._fields_]
+    assert tuple(n for n, _ in fields) == cg.Plan._fields
+    assert ctypes.sizeof(cg._CPlan) == 4 * sum(n for _, n in fields)
+    rest = src.replace(re.search(r"^struct Plan \{.*?^\};", src,
+                                 re.S | re.M).group(0), "")
+    for name, _ in fields:
+        assert re.search(rf"\b(p\.plan|q)\.{name}\b", rest), name
+    const = dict(re.findall(r"constexpr (?:int|size_t) (k\w+) = (\d+);", src))
+    const = {n: int(v) for n, v in const.items()}
+    assert const["kTileRows"] == cg.TILE_ROWS
+    assert const["kTileRows"] * const["kMaxTiles"] == cg.CLUSTER_STREAMS
+    assert const["kThreads"] == cg.KERNEL_THREADS
+    assert const["kSplitIn"] == cg.SPLIT_IN
+    assert const["kBars"] == cg.BARRIERS
+    assert const["kUnits"] == cg.RING_UNITS
+    assert const["kSmemLimit"] == cg.SMEM_BYTES

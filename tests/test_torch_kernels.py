@@ -433,6 +433,68 @@ def test_wide_clusters_equal_two_row_tiles(cuda, name, B, det):
     assert cg.pick_cluster(spec, B) == ((8, 32) if name == "mulaw256" else (4, 16))
 
 
+# (model, dtype, B, cluster): one launch of each kernel instance the planner
+# lays out: bf16 whole-layer stages at 16 and 32 rows, the bf16 chunk ring
+# (512ch), f32 packs on whole stages and on the chunk ring, the split head
+PLANNED = {
+    "bf16.whole16": ("flagship", "bfloat16", 16, (8, 16)),
+    "bf16.whole32": ("flagship", "bfloat16", 32, (8, 32)),
+    "bf16.chunk": ("512ch", "bfloat16", 16, None),
+    "f32.whole": ("small", "float32", 5, (2, 16)),
+    "f32.chunk": ("flagship", "float32", 16, None),
+    "split": ("mulaw256", "bfloat16", 16, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PLANNED))
+def test_kernel_takes_the_planned_shared_memory(cuda, case):
+    """The launch takes the shared memory its plan lays out (``_info``:
+    the bytes the kernel was given, its stages or slots, whether the head's
+    block is resident and whether it streams the chunk ring), and its
+    counters follow the plan."""
+    name, dtype, B, cluster = PLANNED[case]
+    spec = {"flagship": lambda: spec_from_config(Config()),
+            "512ch": lambda: WaveNetSpec(
+                layers=4, stacks=2, residual_channels=512, gate_channels=512,
+                skip_out_channels=256, cin_channels=80, out_channels=30,
+                scalar_input=True),
+            "small": lambda: _model(0, **HEADS["mol"]).spec,
+            "mulaw256": _mulaw256_spec}[name]()
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(6)).to(cuda)
+    dt = getattr(torch, dtype)
+    packed = cg.pack_weights(model, dtype=dt)
+    plan = cg.plan_launch(spec, dt, B, cluster=cluster)
+    n = 8
+    rs = np.random.RandomState(3)
+    cin = spec.cin_channels if spec.has_local_conditioning else 0
+    cond = torch.from_numpy(rs.randn(B, n, cin).astype(np.float32)).to(cuda, dt)
+    _, rows = cg.buffer_layout(spec)
+    ring = torch.zeros(rows, B, spec.residual_channels, device=cuda, dtype=dt)
+    x_cur = cg.default_initial_input(spec, B, device=cuda)
+    out = torch.empty(B, n, device=cuda, dtype=(
+        torch.float32 if spec.scalar_input else torch.int32))
+    g_gate = (torch.zeros(spec.layers, B, spec.gate_channels, device=cuda)
+              if spec.gin_channels > 0 else None)
+    names = ("generate.chunked_launches", "generate.split_head_launches",
+             "generate.wide_cluster_launches")
+    before, info = [_count(c) for c in names], []
+    cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate, t0=0,
+                      seed=2, plan=plan, _info=info)
+    torch.cuda.synchronize()
+    assert info[2] == plan.total <= cg.SMEM_BYTES
+    assert info[:2] == [plan.nstage, plan.head_res]
+    assert info[4] == int(plan.chunked) and info[3] >= 1
+    assert [_count(c) - b for c, b in zip(names, before)] == [
+        int(plan.chunked), int(plan.head == 0), int(plan.tiles > 1)]
+    assert (plan.tiles > 1) == (case == "bf16.whole32")
+    assert plan.chunked == case.endswith("chunk")
+    if spec.scalar_input:
+        assert bool(torch.isfinite(out).all())
+    else:
+        assert 0 <= int(out.min()) and int(out.max()) < spec.out_channels
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("det", [True, False], ids=["greedy", "sample"])
 def test_categorical_generator_runs_under_inference_mode(cuda, det):

@@ -91,7 +91,7 @@
 //     load's L2 or HBM round trip stood on that chain, which 8 warps cannot
 //     hide. Such a shape streams instead (the chunk ring, generate_kernel<W,
 //     true>): each product's slice is cut into chunks of whole steps (bf16
-//     k-steps, f32 rows; ops/cuda_generate.py::ring_plan), and a producer
+//     k-steps, f32 rows; ops/cuda_generate.py::plan_launch), and a producer
 //     warpgroup (one lane working; its registers go to the computing warps)
 //     puts them with cp.async.bulk, in the order the warps take them, into
 //     slots with a full and an empty mbarrier each, a slot as soon as every
@@ -522,6 +522,35 @@ template <> struct Vec8<float> {
   }
 };
 
+// The launch plan, made on the host (ops/cuda_generate.py::plan_launch; its
+// Plan and _CPlan follow this struct field for field): the model as the
+// kernel runs it, the cluster shape, the kernel-side pack's widths, the ring
+// of weights in shared memory and the byte offsets of every buffer there.
+struct Plan {
+  int L, lps, k;
+  int R;              // the ring's width, a multiple of 8
+  int G, C_in, C_out, cin;
+  int head;           // 0 categorical (split over the cluster), 1 logistic mixture, 2 normal
+  int bf16;           // the pack dtype: bf16, else f32
+  int CS, spc;        // CTAs per cluster, streams per cluster
+  int tiles;          // mma row tiles of kTileRows streams a cluster (kTiles)
+  int Gq, Rq, Sq;     // gate, residual, skip channels a CTA owns (multiples of 8)
+  int Kin, Kog, Ksk;  // padded depths of w_in, w_og and the head products (% 16)
+  int Cq;             // the head's output columns a CTA holds (padded to 8): all C_out
+                      // for the scalar heads, its share of the classes for the categorical
+  int xs, gs, ss;     // row strides of the [taps | cond], gated and head buffers
+  int stage_bytes, head_bytes;  // a CTA's layer block and head block in the pack
+  int nstage;         // whole-layer stages, or chunk slots
+  int slot_bytes;     // 0: whole-layer stages, the head's block resident; else a chunk slot
+  int ck[4];          // steps (bf16 k-steps, f32 rows) a chunk of w_in, w_og, w_h1, w_h2 carries
+  int passes[4];      // passes over each product's chunks, kUnits units a warp (f32: thread) each
+  int head_res;       // the head's block held in shared memory (whole-layer stages)
+  // byte offsets into dynamic shared memory: stages or slots from 0, stage_stride apart
+  int stage_stride, headw, xin, gt, hx, o1, part, bst, hbf, sk, lo, xc, cand, first, code,
+      ltab, bars, total;
+};
+constexpr int kBars = 5;   // mbarriers besides the ring's: the head's weights, four exchanges
+
 struct Params {
   const void* w_first; const float* b_first;  // (C_in, R), (R); R the ring's width
   // (CS, L, stage_bytes): per CTA and layer [w_in slice | w_og slice | b_in | b_og]
@@ -536,66 +565,9 @@ struct Params {
   long long* trace;                           // clock stamps of the last step (WN_TRACE), or null
   int B, n, t0;
   uint32_t seed;
-  int L, lps, k, R, G, S, C_in, C_out, cin;
-  int head;           // 0 categorical, 1 logistic mixture, 2 normal
   int deterministic;
-  // the kernel-side pack's plan (ops/cuda_generate.py::KernelPack)
-  int CS, spc;        // CTAs per cluster, streams per cluster
-  int Gq, Rq, Sq;     // gate, residual, skip channels a CTA owns (multiples of 8)
-  int Kin, Kog, Ksk;  // padded depths of w_in, w_og and the head products (% 16)
-  int Cq;             // the head's output columns a CTA holds (padded to 8): all C_out
-                      // for the scalar heads, its share of the classes for the categorical
-  int xs, gs, ss;     // row strides of the [taps | cond], gated and head buffers
-  int stage_bytes, head_bytes;
-  // the ring of weights in shared memory (KernelPack.ring_plan)
-  int nstage;         // whole-layer stages, or chunk slots
-  int slot_bytes;     // 0: whole-layer stages, the head's block resident; else a chunk slot
-  int ck[4];          // steps (bf16 k-steps, f32 rows) a chunk of w_in, w_og, w_h1, w_h2 carries
-  int passes[4];      // passes over each product's chunks, kUnits units a warp (f32: thread) each
-  int head_res;       // the head's block held in shared memory (whole-layer stages)
+  Plan plan;
 };
-
-__host__ __device__ inline size_t up128(size_t b) { return (b + 127) / 128 * 128; }
-
-// byte offsets into dynamic shared memory
-struct Layout {
-  size_t stage_stride, headw, xin, gt, hx, o1, part, bst, hbf, sk, lo, xc, cand, first, code,
-      ltab, bars, total;
-};
-constexpr int kBars = 5;   // mbarriers besides the ring's: the head's weights, four exchanges
-// the categorical head is split over the cluster (and its candidates take an mbarrier more)
-__host__ __device__ inline bool split_head(const Params& p) { return p.head == 0; }
-// tiles: the cluster's mma row tiles, 16 streams each
-template <typename W> __host__ __device__ inline Layout make_layout(const Params& p, int tiles) {
-  const size_t M = (size_t)kTileRows * tiles;
-  Layout y;
-  size_t o = 0;
-  y.stage_stride = up128((size_t)(p.slot_bytes > 0 ? p.slot_bytes : p.stage_bytes));
-  o += (size_t)p.nstage * y.stage_stride;
-  y.headw = o; o += p.head_res ? up128((size_t)p.head_bytes) : 0;
-  y.xin = o;  o += up128(2 * M * p.xs * sizeof(W));
-  y.gt = o;   o += up128(M * p.gs * sizeof(W));
-  y.hx = o;   o += up128(M * p.ss * sizeof(W));
-  y.o1 = o;   o += up128(M * p.ss * sizeof(W));
-  // bf16: the partial sums of the w_in product, kSplitIn x tiles parts,
-  // [part][pair of n-tiles][row tile][GLU half][lane][4]
-  y.part = o; o += sizeof(W) == 2 ? up128(kSplitIn * tiles * M * 2 * p.Gq * 4) : 0;
-  // the chunk ring: b_in, copied out of its chunk
-  y.bst = o;  o += p.slot_bytes > 0 ? up128(2 * (size_t)p.Gq * 4) : 0;
-  y.hbf = o;  o += up128(M * p.Rq * 4);
-  y.sk = o;   o += up128(M * p.Sq * 4);
-  y.lo = o;   o += up128(M * p.Cq * 4);
-  // the scalar heads' current input; the split head keeps codes instead and
-  // takes every CTA's candidate (score, class) a stream
-  y.xc = o;   o += split_head(p) ? 0 : up128(M * p.C_in * 4);
-  y.cand = o; o += split_head(p) ? up128(M * (size_t)p.CS * 8) : 0;
-  y.first = o; o += up128(2 * (size_t)p.CS * p.Rq * 4);
-  y.code = o; o += up128(M * 4);
-  y.ltab = o; o += up128((size_t)p.L * 16);
-  y.bars = o; o += up128((size_t)(2 * p.nstage + kBars + split_head(p)) * 8);
-  y.total = o;
-  return y;
-}
 
 #ifdef WN_TRACE
 #define WN_STAMP(i) \
@@ -619,30 +591,29 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   constexpr int kParts = kSplitIn * kTiles;
   constexpr bool kBf16 = !std::is_same<W, float>::value;
   cgr::cluster_group cluster = cgr::this_cluster();
-  const Layout lay = make_layout<W>(p, kTiles);
   unsigned char* stages = smem;
-  W* xin = reinterpret_cast<W*>(smem + lay.xin);    // 2 x M x xs: [taps | cond], by layer parity
-  W* gt = reinterpret_cast<W*>(smem + lay.gt);      // M x gs: gated, all CTAs' slices
-  W* hx = reinterpret_cast<W*>(smem + lay.hx);      // M x ss: head input
-  W* o1 = reinterpret_cast<W*>(smem + lay.o1);      // M x ss: head hidden
-  float* part = reinterpret_cast<float*>(smem + lay.part);
-  float* bst = reinterpret_cast<float*>(smem + lay.bst);
-  float* hbf = reinterpret_cast<float*>(smem + lay.hbf);  // M x Rq: own residual columns, f32
-  float* sk = reinterpret_cast<float*>(smem + lay.sk);    // M x Sq: own skip sums
-  float* lo = reinterpret_cast<float*>(smem + lay.lo);    // M x Cq: head output
-  float* xc = reinterpret_cast<float*>(smem + lay.xc);    // M x C_in: current input (scalar heads)
-  uint2* cand = reinterpret_cast<uint2*>(smem + lay.cand);  // M x CS: each CTA's (score, class)
+  W* xin = reinterpret_cast<W*>(smem + p.plan.xin);   // 2 x M x xs: [taps | cond], by layer parity
+  W* gt = reinterpret_cast<W*>(smem + p.plan.gt);     // M x gs: gated, all CTAs' slices
+  W* hx = reinterpret_cast<W*>(smem + p.plan.hx);     // M x ss: head input
+  W* o1 = reinterpret_cast<W*>(smem + p.plan.o1);     // M x ss: head hidden
+  float* part = reinterpret_cast<float*>(smem + p.plan.part);
+  float* bst = reinterpret_cast<float*>(smem + p.plan.bst);
+  float* hbf = reinterpret_cast<float*>(smem + p.plan.hbf);  // M x Rq: own residual columns, f32
+  float* sk = reinterpret_cast<float*>(smem + p.plan.sk);    // M x Sq: own skip sums
+  float* lo = reinterpret_cast<float*>(smem + p.plan.lo);    // M x Cq: head output
+  float* xc = reinterpret_cast<float*>(smem + p.plan.xc);    // M x C_in: input (scalar heads)
+  uint2* cand = reinterpret_cast<uint2*>(smem + p.plan.cand);  // M x CS: each CTA's (score, class)
   // the first conv's bias and, for a scalar input, its one row of weights
-  float* first_b = reinterpret_cast<float*>(smem + lay.first);
-  float* first_w = first_b + p.CS * p.Rq;
-  int* code = reinterpret_cast<int*>(smem + lay.code);    // last emitted class per stream
-  int* l_off = reinterpret_cast<int*>(smem + lay.ltab);   // per layer: first ring row,
-  int* l_dil = l_off + p.L;                               //   dilation,
-  int* l_mods = l_dil + p.L;   //   t mod ((k - 1) * dilation), for even and odd steps j
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  float* first_b = reinterpret_cast<float*>(smem + p.plan.first);
+  float* first_w = first_b + p.plan.CS * p.plan.Rq;
+  int* code = reinterpret_cast<int*>(smem + p.plan.code);    // last emitted class per stream
+  int* l_off = reinterpret_cast<int*>(smem + p.plan.ltab);   // per layer: first ring row,
+  int* l_dil = l_off + p.plan.L;                             //   dilation,
+  int* l_mods = l_dil + p.plan.L;   //   t mod ((k - 1) * dilation), for even and odd steps j
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.plan.bars);
   // bars[2 s], bars[2 s + 1]: whole-layer stage s holds its w_in slice; the
   // rest of its block. Chunk ring: slot s is full; slot s is free again.
-  uint64_t* bar_head = bars + 2 * p.nstage;   // the head's weights have landed
+  uint64_t* bar_head = bars + 2 * p.plan.nstage;   // the head's weights have landed
   uint64_t* bar_x = bar_head + 1;    // all slices of a layer's newest tap have landed
   uint64_t* bar_g = bar_head + 2;    // ... of gated
   uint64_t* bar_hx = bar_head + 3;   // ... of the head's input
@@ -658,28 +629,28 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // the threads that compute; the chunk ring's filler is a warpgroup more
   const int nthr = kChunk ? (int)blockDim.x - kFillThreads : (int)blockDim.x;
   const int NW = nthr >> 5, g = lane >> 2, t4 = lane & 3;
-  const int CS = p.CS, rank = (int)cluster.block_rank();
-  const int base = (blockIdx.x / CS) * p.spc;
-  const int nvalid = min(p.spc, p.B - base);
-  const int L = p.L, R = p.R, G = p.G, G2 = p.G / 2;
-  const int k = p.k, cin = p.cin, C_in = p.C_in, C_out = p.C_out;
-  const int Gq = p.Gq, Rq = p.Rq, Sq = p.Sq, Rp = CS * Rq, Cq = p.Cq;
-  const bool split = split_head(p);
-  const int xs = p.xs, gs = p.gs, ss = p.ss;
+  const int CS = p.plan.CS, rank = (int)cluster.block_rank();
+  const int base = (blockIdx.x / CS) * p.plan.spc;
+  const int nvalid = min(p.plan.spc, p.B - base);
+  const int L = p.plan.L, R = p.plan.R, G = p.plan.G, G2 = p.plan.G / 2;
+  const int k = p.plan.k, cin = p.plan.cin, C_in = p.plan.C_in, C_out = p.plan.C_out;
+  const int Gq = p.plan.Gq, Rq = p.plan.Rq, Sq = p.plan.Sq, Rp = CS * Rq, Cq = p.plan.Cq;
+  const bool split = p.plan.head == 0;
+  const int xs = p.plan.xs, gs = p.plan.gs, ss = p.plan.ss;
   const int NA = 2 * Gq, NB = Rq + Sq;
   const W* w_first = static_cast<const W*>(p.w_first);
-  const unsigned char* wl = p.wl + (size_t)rank * L * p.stage_bytes;
-  const unsigned char* wh = p.wh + (size_t)rank * p.head_bytes;
-  const size_t win_bytes = (size_t)p.Kin * NA * sizeof(W);
-  const size_t wog_bytes = (size_t)p.Kog * NB * sizeof(W);
-  const size_t wh1_bytes = (size_t)p.Ksk * Sq * sizeof(W);
-  const size_t wh2_bytes = (size_t)p.Ksk * Cq * sizeof(W);
+  const unsigned char* wl = p.wl + (size_t)rank * L * p.plan.stage_bytes;
+  const unsigned char* wh = p.wh + (size_t)rank * p.plan.head_bytes;
+  const size_t win_bytes = (size_t)p.plan.Kin * NA * sizeof(W);
+  const size_t wog_bytes = (size_t)p.plan.Kog * NB * sizeof(W);
+  const size_t wh1_bytes = (size_t)p.plan.Ksk * Sq * sizeof(W);
+  const size_t wh2_bytes = (size_t)p.plan.Ksk * Cq * sizeof(W);
   const W* cond = static_cast<const W*>(p.cond);
   W* ring = static_cast<W*>(p.ring);
   const size_t ring_row = (size_t)p.B * R;
   const float sqrt_half = 0.70710678118654752440f;
   const float sqrt_inv_L = (float)sqrt(1.0 / (double)L);
-  const bool resident = p.nstage >= L;
+  const bool resident = p.plan.nstage >= L;
   const long long total_layers = (long long)p.n * L;
   // bytes a CTA receives per round of each exchange (every CTA's slice, its own too)
   const uint32_t x_bytes = (uint32_t)(M * Rp * sizeof(W));
@@ -698,18 +669,19 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // the depths of w_in, w_og and the head's products in the chunk ring's
   // steps: bf16 mma k-steps of 16 rows, f32 single rows
   constexpr int kRowsStep = kBf16 ? 16 : 1;
-  const int KSin = p.Kin / kRowsStep, KSog = p.Kog / kRowsStep, KSsk = p.Ksk / kRowsStep;
+  const int KSin = p.plan.Kin / kRowsStep, KSog = p.plan.Kog / kRowsStep;
+  const int KSsk = p.plan.Ksk / kRowsStep;
 
   // zero every activation buffer (padding columns and unused rows stay zero)
   {
-    uint32_t* z = reinterpret_cast<uint32_t*>(smem + lay.xin);
-    const int words = (int)((lay.bars - lay.xin) / 4);
+    uint32_t* z = reinterpret_cast<uint32_t*>(smem + p.plan.xin);
+    const int words = (int)((p.plan.bars - p.plan.xin) / 4);
     for (int e = tid; e < words; e += blockDim.x) z[e] = 0u;
   }
   if (tid == 0) {
     // a chunk slot is free again once every warp has left it
-    for (int s = 0; s < 2 * p.nstage + kBars + split; ++s)
-      mbar_init(&bars[s], kChunk && s < 2 * p.nstage && (s & 1) ? NW : 1);
+    for (int s = 0; s < 2 * p.plan.nstage + kBars + split; ++s)
+      mbar_init(&bars[s], kChunk && s < 2 * p.plan.nstage && (s & 1) ? NW : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
@@ -732,17 +704,17 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
                      uint32_t bias_bytes) {
         const size_t kstep =
             (size_t)kRowsStep * (d == 0 ? NA : d == 1 ? NB : d == 2 ? Sq : Cq) * sizeof(W);
-        for (int pass = 0; pass < p.passes[d]; ++pass)
-          for (int k0 = 0; k0 < KS; k0 += p.ck[d]) {
-            const int k1 = min(KS, k0 + p.ck[d]);
+        for (int pass = 0; pass < p.plan.passes[d]; ++pass)
+          for (int k0 = 0; k0 < KS; k0 += p.plan.ck[d]) {
+            const int k1 = min(KS, k0 + p.plan.ck[d]);
             const uint32_t bytes = (uint32_t)((k1 - k0) * kstep);
             const uint32_t extra = k1 == KS ? bias_bytes : 0u;
             if (wraps > 0) mbar_wait(&bars[2 * slot + 1], (wraps - 1) & 1);
-            unsigned char* dst = stages + slot * lay.stage_stride;
+            unsigned char* dst = stages + slot * p.plan.stage_stride;
             mbar_expect_tx(&bars[2 * slot], bytes + extra);
             bulk_copy(dst, w + k0 * kstep, bytes, &bars[2 * slot]);
             if (extra) bulk_copy(dst + bytes, bias, extra, &bars[2 * slot]);
-            if (++slot == p.nstage) {
+            if (++slot == p.plan.nstage) {
               slot = 0;
               ++wraps;
             }
@@ -757,7 +729,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       for (int j = 0; j < p.n; ++j) {
         if (lane == 0)
           for (int l = 0; l < L; ++l) {
-            const unsigned char* blk = wl + (size_t)l * p.stage_bytes;
+            const unsigned char* blk = wl + (size_t)l * p.plan.stage_bytes;
             const unsigned char* bias = blk + win_bytes + wog_bytes;
             put(blk, KSin, 0, bias, NA * 4);
             put(blk + win_bytes, KSog, 1, bias + NA * 4, NB * 4);
@@ -817,7 +789,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     int off = 0;
     for (int l = 0; l < L; ++l) {
       l_off[l] = off;
-      l_dil[l] = 1 << (l % p.lps);
+      l_dil[l] = 1 << (l % p.plan.lps);
       off += (k - 1) * l_dil[l];
     }
   }
@@ -829,18 +801,19 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // The last warp has the fewest products to run: its first lane fills.
   const bool filler = !kChunk && tid == nthr - 32;
   auto fill = [&](int h) {   // the filler only
-    const size_t at = h ? win_bytes : 0, bytes = h ? p.stage_bytes - win_bytes : win_bytes;
-    bulk_load(stages + fill_slot[h] * lay.stage_stride + at,
-              wl + (size_t)fill_layer[h] * p.stage_bytes + at, bytes, &bars[2 * fill_slot[h] + h]);
+    const size_t at = h ? win_bytes : 0, bytes = h ? p.plan.stage_bytes - win_bytes : win_bytes;
+    bulk_load(stages + fill_slot[h] * p.plan.stage_stride + at,
+              wl + (size_t)fill_layer[h] * p.plan.stage_bytes + at, bytes,
+              &bars[2 * fill_slot[h] + h]);
     ++issued[h];
-    if (++fill_slot[h] == p.nstage) fill_slot[h] = 0;
+    if (++fill_slot[h] == p.plan.nstage) fill_slot[h] = 0;
     if (++fill_layer[h] == L) fill_layer[h] = 0;
   };
   const bool refill = !resident;
   if (filler) {
-    bulk_load(smem + lay.headw, wh, (size_t)p.head_bytes, bar_head);
+    bulk_load(smem + p.plan.headw, wh, (size_t)p.plan.head_bytes, bar_head);
     for (int h = 0; h < 2; ++h)
-      while (issued[h] < p.nstage && issued[h] < total_layers) fill(h);
+      while (issued[h] < p.plan.nstage && issued[h] < total_layers) fill(h);
   }
   if (tid == 0) {
     // the first round of every exchange
@@ -861,12 +834,12 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // chunk, in the order the filler brings them, and leaves it as a warp.
   auto acquire = [&]() {
     mbar_wait(&bars[2 * use_slot], use_parity);
-    return static_cast<const unsigned char*>(stages + use_slot * lay.stage_stride);
+    return static_cast<const unsigned char*>(stages + use_slot * p.plan.stage_stride);
   };
   auto release = [&]() {
     __syncwarp();
     if (lane == 0) mbar_arrive(&bars[2 * use_slot + 1]);
-    if (++use_slot == p.nstage) {
+    if (++use_slot == p.plan.nstage) {
       use_slot = 0;
       use_parity ^= 1u;
     }
@@ -891,7 +864,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // chunk goes back.
   auto tiles_pass = [&](int d, int KS, int N, const auto* x, int xstride, int tiles,
                         auto&& skip, auto&& epi) {
-    for (int pass = 0; pass < p.passes[d]; ++pass) {
+    for (int pass = 0; pass < p.plan.passes[d]; ++pass) {
       float acc[kUnits][1][4], odd[kUnits][1][4];
       int nt[kUnits];
       bool on[kUnits];
@@ -902,7 +875,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[i][0][v] = odd[i][0][v] = 0.0f;
       }
-      const float* bias = walk(KS, p.ck[d], (size_t)16 * N * sizeof(W),
+      const float* bias = walk(KS, p.plan.ck[d], (size_t)16 * N * sizeof(W),
                                [&](const unsigned char* c, int k0, int k1) {
 #pragma unroll
         for (int i = 0; i < kUnits; ++i)
@@ -929,7 +902,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   // through every chunk, then epi(row, col, sum, biases) for each.
   auto cols_pass = [&](int d, int KS, int N, const auto* x, int xstride, auto&& skip,
                        auto&& epi) {
-    for (int pass = 0; pass < p.passes[d]; ++pass) {
+    for (int pass = 0; pass < p.plan.passes[d]; ++pass) {
       float acc[kUnits][1];
       int row[kUnits], col[kUnits];
       bool on[kUnits];
@@ -941,7 +914,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         on[i] = e < M * N && !skip(col[i]);
         acc[i][0] = 0.0f;
       }
-      const float* bias = walk(KS, p.ck[d], (size_t)N * sizeof(W),
+      const float* bias = walk(KS, p.plan.ck[d], (size_t)N * sizeof(W),
                                [&](const unsigned char* c, int k0, int k1) {
 #pragma unroll
         for (int i = 0; i < kUnits; ++i)
@@ -1146,8 +1119,8 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         const uint32_t parity = resident ? 0u : use_parity;
         mbar_wait(&bars[2 * use_slot], parity);
         mbar_wait(&bars[2 * use_slot + 1], parity);
-        const unsigned char* wst = stages + use_slot * lay.stage_stride;
-        if (++use_slot == p.nstage) {
+        const unsigned char* wst = stages + use_slot * p.plan.stage_stride;
+        if (++use_slot == p.plan.nstage) {
           use_slot = 0;
           use_parity ^= 1u;
         }
@@ -1202,7 +1175,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         if constexpr (kChunk) {
           // pass by pass, up to kUnits of the warp's items through every
           // chunk
-          for (int pass = 0; pass < p.passes[0]; ++pass) {
+          for (int pass = 0; pass < p.plan.passes[0]; ++pass) {
             float acc[kUnits][2][4], odd[kUnits][2][4];
             int nt[kUnits][2], sp[kUnits];
             bool on[kUnits];
@@ -1218,7 +1191,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 #pragma unroll
                 for (int v = 0; v < 4; ++v) acc[i][a][v] = odd[i][a][v] = 0.0f;
             }
-            const float* bias = walk(KSin, p.ck[0], (size_t)16 * NA * sizeof(W),
+            const float* bias = walk(KSin, p.plan.ck[0], (size_t)16 * NA * sizeof(W),
                                      [&](const unsigned char* c, int k0, int k1) {
 #pragma unroll
               for (int i = 0; i < kUnits; ++i) {
@@ -1249,15 +1222,15 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
             const int nt[2] = {w.col, pairs + w.col};
             float acc[2 * kTiles][4];
             if constexpr (kTiles == 1)
-              mma_chain<2>(w_in, p.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
+              mma_chain<2>(w_in, p.plan.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
             else
-              mma_run<2, kTiles>(w_in, p.Kin, NA, w.row, kParts, nt, xb, xs, acc);
+              mma_run<2, kTiles>(w_in, p.plan.Kin, NA, w.row, kParts, nt, xb, xs, acc);
             put_part(w.row, w.col, acc);
           }
         }
       } else {
         if constexpr (kChunk) {
-          for (int pass = 0; pass < p.passes[0]; ++pass) {
+          for (int pass = 0; pass < p.plan.passes[0]; ++pass) {
             float acc[kUnits][2];
             int row[kUnits], col[kUnits][2];
             bool on[kUnits];
@@ -1270,7 +1243,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
               col[i][1] = Gq + col[i][0];
               acc[i][0] = acc[i][1] = 0.0f;
             }
-            const float* bias = walk(KSin, p.ck[0], (size_t)NA * sizeof(W),
+            const float* bias = walk(KSin, p.plan.ck[0], (size_t)NA * sizeof(W),
                                      [&](const unsigned char* c, int k0, int k1) {
 #pragma unroll
               for (int i = 0; i < kUnits; ++i)
@@ -1288,7 +1261,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           for (int e = tid; e < M * Gq; e += nthr, w.next()) {
             const int col[2] = {w.col, Gq + w.col};
             float acc[2];
-            fma_chain<2>(w_in, p.Kin, NA, col, xb + w.row * xs, acc);
+            fma_chain<2>(w_in, p.plan.Kin, NA, col, xb + w.row * xs, acc);
             glu_send(w.row, w.col, acc[0], acc[1], b_in);
           }
         }
@@ -1396,7 +1369,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
             const int tile = item / kTiles, mt = item % kTiles;
             if (skip_res(tile * 8)) continue;
             float acc[1][4];
-            mma_chain<1>(w_og, p.Kog, NB, 0, 1, &tile, gt + 16 * mt * gs, gs, acc);
+            mma_chain<1>(w_og, p.plan.Kog, NB, 0, 1, &tile, gt + 16 * mt * gs, gs, acc);
             og_tile(tile, mt, acc[0], b_og[tile * 8 + 2 * t4], b_og[tile * 8 + 2 * t4 + 1]);
           }
         }
@@ -1427,7 +1400,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
             const int row = w.row, c = w.col;
             if (skip_res(c)) continue;
             float acc[1];
-            fma_chain<1>(w_og, p.Kog, NB, &c, gt + row * gs, acc);
+            fma_chain<1>(w_og, p.plan.Kog, NB, &c, gt + row * gs, acc);
             og_out(row, c, acc[0], b_og);
           }
         }
@@ -1447,7 +1420,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     const float* b_h2 = nullptr;
     if constexpr (!kChunk) {
       mbar_wait(bar_head, 0u);
-      const unsigned char* whb = smem + lay.headw;
+      const unsigned char* whb = smem + p.plan.headw;
       w_h1 = reinterpret_cast<const W*>(whb);
       w_h2 = reinterpret_cast<const W*>(whb + wh1_bytes);
       b_h1 = reinterpret_cast<const float*>(whb + wh1_bytes + wh2_bytes);
@@ -1468,7 +1441,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         for (int item = warp; item < (Sq >> 3) * kTiles; item += NW) {
           const int tile = item / kTiles, mt = item % kTiles;
           float acc[1][4];
-          mma_chain<1>(w_h1, p.Ksk, Sq, 0, 1, &tile, hx + 16 * mt * ss, ss, acc);
+          mma_chain<1>(w_h1, p.plan.Ksk, Sq, 0, 1, &tile, hx + 16 * mt * ss, ss, acc);
           h1_tile(tile, mt, acc[0], b_h1[tile * 8 + 2 * t4], b_h1[tile * 8 + 2 * t4 + 1]);
         }
       }
@@ -1482,7 +1455,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         Walk w = walk_s;
         for (int e = tid; e < M * Sq; e += nthr, w.next()) {
           float acc[1];
-          fma_chain<1>(w_h1, p.Ksk, Sq, &w.col, hx + w.row * ss, acc);
+          fma_chain<1>(w_h1, p.plan.Ksk, Sq, &w.col, hx + w.row * ss, acc);
           h1_out(w.row, w.col, acc[0], b_h1);
         }
       }
@@ -1518,7 +1491,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         for (int item = warp; item < (Cq >> 3) * kTiles; item += NW) {
           const int tile = item / kTiles, mt = item % kTiles;
           float acc[1][4];
-          mma_chain<1>(w_h2, p.Ksk, Cq, 0, 1, &tile, o1 + 16 * mt * ss, ss, acc);
+          mma_chain<1>(w_h2, p.plan.Ksk, Cq, 0, 1, &tile, o1 + 16 * mt * ss, ss, acc);
           h2_tile(tile, mt, acc[0], b_h2[tile * 8 + 2 * t4], b_h2[tile * 8 + 2 * t4 + 1]);
         }
       }
@@ -1532,7 +1505,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         Walk w = walk_c;
         for (int e = tid; e < M * Cq; e += nthr, w.next()) {
           float acc[1];
-          fma_chain<1>(w_h2, p.Ksk, Cq, &w.col, o1 + w.row * ss, acc);
+          fma_chain<1>(w_h2, p.plan.Ksk, Cq, &w.col, o1 + w.row * ss, acc);
           h2_out(w.row, w.col, acc[0], b_h2);
         }
       }
@@ -1602,7 +1575,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         }
         float x = mean;
         if (!p.deterministic) {
-          if (p.head == 2) {
+          if (p.plan.head == 2) {
             const uint32_t d0 = C_out == 2 ? 0u : (uint32_t)nr;
             float u0 = uniform(key, d0), u1 = uniform(key, d0 + 1);
             x = mean + expf(ls) * (sqrtf(-2.0f * logf(u0)) * cosf(6.28318530717958647692f * u1));
@@ -1661,30 +1634,29 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 // weights resident, dynamic shared-memory bytes, clusters the card can hold
 // at once, chunk ring]
 template <typename W, bool kChunk, int kTiles>
-cudaError_t launch_ring(Params p, int threads, int* info, cudaStream_t stream) {
-  p.head_res = kChunk ? 0 : 1;
-  const size_t bytes = make_layout<W>(p, kTiles).total;
-  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+cudaError_t launch_ring(const Params& p, int* info, cudaStream_t stream) {
+  const Plan& q = p.plan;
+  if (q.total > (int)kSmemLimit) return cudaErrorInvalidValue;
   auto kernel = generate_kernel<W, kChunk, kTiles>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q.total);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((p.B + p.spc - 1) / p.spc) * p.CS));
-  cfg.blockDim = dim3((unsigned)(threads + (kChunk ? kFillThreads : 0)));
-  cfg.dynamicSmemBytes = bytes;
+  cfg.gridDim = dim3((unsigned)(((p.B + q.spc - 1) / q.spc) * q.CS));
+  cfg.blockDim = dim3((unsigned)(kThreads + (kChunk ? kFillThreads : 0)));
+  cfg.dynamicSmemBytes = (size_t)q.total;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.CS;
+  attr[0].val.clusterDim.x = (unsigned)q.CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (info != nullptr) {
-    info[0] = p.nstage;
-    info[1] = p.head_res;
-    info[2] = (int)bytes;
+    info[0] = q.nstage;
+    info[1] = q.head_res;
+    info[2] = q.total;
     info[3] = -1;
     info[4] = kChunk;
     int clusters = 0;
@@ -1697,50 +1669,48 @@ cudaError_t launch_ring(Params p, int threads, int* info, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The ring as planned: whole-layer stages with the head's block resident, or
-// chunk slots whose chunks and passes cover every product. A cluster of
-// more than 16 streams runs two row tiles, on whole-layer stages only.
+// The plan as received, checked where a wrong one would overrun or hang:
+// whole-layer stages with the head's block resident, on one or two row tiles;
+// or the chunk ring, on one, whose every chunk with its biases fits its slot
+// and whose passes cover every unit of each product.
 template <typename W>
-cudaError_t launch(Params p, int threads, int* info, cudaStream_t stream) {
-  if (threads < 32 || threads > kThreads || threads % 32 || p.nstage < 1) return cudaErrorInvalidValue;
-  if (p.spc > kTileRows)
-    return p.slot_bytes == 0 && p.nstage <= p.L
-               ? launch_ring<W, false, kMaxTiles>(p, threads, info, stream)
-               : cudaErrorInvalidValue;
-  if (p.slot_bytes == 0)
-    return p.nstage <= p.L ? launch_ring<W, false, 1>(p, threads, info, stream)
-                           : cudaErrorInvalidValue;
-  if (threads % 128) return cudaErrorInvalidValue;   // whole warpgroups
+cudaError_t launch(const Params& p, int* info, cudaStream_t stream) {
+  const Plan& q = p.plan;
+  if (q.nstage < 1 || q.tiles < 1 || q.tiles > kMaxTiles || q.spc > kTileRows * q.tiles)
+    return cudaErrorInvalidValue;
+  if (q.head_res) {
+    if (q.slot_bytes != 0 || q.nstage > q.L) return cudaErrorInvalidValue;
+    return q.tiles == 1 ? launch_ring<W, false, 1>(p, info, stream)
+                        : launch_ring<W, false, kMaxTiles>(p, info, stream);
+  }
+  if (q.tiles != 1) return cudaErrorInvalidValue;
   const int rows = sizeof(W) == 2 ? 16 : 1;   // rows a step of the chunk ring
-  const int KS[4] = {p.Kin / rows, p.Kog / rows, p.Ksk / rows, p.Ksk / rows};
-  const int N[4] = {2 * p.Gq, p.Rq + p.Sq, p.Sq, p.Cq};
+  const int KS[4] = {q.Kin / rows, q.Kog / rows, q.Ksk / rows, q.Ksk / rows};
+  const int N[4] = {2 * q.Gq, q.Rq + q.Sq, q.Sq, q.Cq};
   for (int d = 0; d < 4; ++d) {
     // units: bf16 n-tiles (w_in: pairs of them, in kSplitIn parts), a warp
     // a unit; f32 outputs (w_in: gate channels of a stream), a thread each
     const long long units = sizeof(W) == 2 ? (d == 0 ? N[0] / 16 * kSplitIn : N[d] / 8)
-                                           : (long long)kTileRows * (d == 0 ? p.Gq : N[d]);
-    const long long workers = sizeof(W) == 2 ? threads / 32 : threads;
+                                           : (long long)kTileRows * (d == 0 ? q.Gq : N[d]);
+    const long long workers = sizeof(W) == 2 ? kThreads / 32 : kThreads;
     const long long chunk =
-        (long long)(p.ck[d] < KS[d] ? p.ck[d] : KS[d]) * rows * N[d] * sizeof(W) + 4 * N[d];
-    if (p.ck[d] < 1 || chunk > p.slot_bytes || (long long)p.passes[d] * kUnits * workers < units)
+        (long long)(q.ck[d] < KS[d] ? q.ck[d] : KS[d]) * rows * N[d] * sizeof(W) + 4 * N[d];
+    if (q.ck[d] < 1 || chunk > q.slot_bytes || (long long)q.passes[d] * kUnits * workers < units)
       return cudaErrorInvalidValue;
   }
-  return launch_ring<W, true, 1>(p, threads, info, stream);
+  return launch_ring<W, true, 1>(p, info, stream);
 }
 
 }  // namespace
 
-// plan: [CS, streams per cluster, threads, stages or chunk slots, Gq, Rq, Sq,
-//        Kin, Kog, Ksk, Cq, xs, gs, ss, stage_bytes, head_bytes, slot_bytes
-//        (0: whole-layer stages), chunk k-steps x 4, passes x 4] (host ints,
-//        ops/cuda_generate.py KernelPack.plan). trace: device buffer of
-//        4 L + 5 clock stamps, or null. info: 5 host ints or null.
-extern "C" int wn_generate(
-    const void* w_first, const void* b_first, const void* wl, const void* wh,
-    const void* cond, long long cond_sb, const void* g_gate, void* ring, void* x_cur,
-    void* out, long long out_sb, int B, int n, int t0, unsigned int seed, int L, int lps,
-    int k, int R, int G, int S, int C_in, int C_out, int cin, int head, int deterministic,
-    int bf16, const int* plan, int* info, void* trace, void* stream) {
+// plan: a struct Plan (host memory, ops/cuda_generate.py Plan.struct). trace:
+// device buffer of 4 L + 5 clock stamps, or null. info: 5 host ints or null.
+extern "C" int wn_generate(const void* w_first, const void* b_first, const void* wl,
+                           const void* wh, const void* cond, long long cond_sb,
+                           const void* g_gate, void* ring, void* x_cur, void* out,
+                           long long out_sb, int B, int n, int t0, unsigned int seed,
+                           int deterministic, const void* plan, int* info, void* trace,
+                           void* stream) {
   Params p;
   p.w_first = w_first; p.b_first = static_cast<const float*>(b_first);
   p.wl = static_cast<const unsigned char*>(wl);
@@ -1751,26 +1721,11 @@ extern "C" int wn_generate(
   p.out = out; p.out_sb = out_sb;
   p.trace = static_cast<long long*>(trace);
   p.B = B; p.n = n; p.t0 = t0; p.seed = seed;
-  p.L = L; p.lps = lps; p.k = k; p.R = R; p.G = G; p.S = S;
-  p.C_in = C_in; p.C_out = C_out; p.cin = cin;
-  p.head = head; p.deterministic = deterministic;
-  p.CS = plan[0]; p.spc = plan[1];
-  const int threads = plan[2];
-  p.nstage = plan[3];
-  p.Gq = plan[4]; p.Rq = plan[5]; p.Sq = plan[6];
-  p.Kin = plan[7]; p.Kog = plan[8]; p.Ksk = plan[9]; p.Cq = plan[10];
-  p.xs = plan[11]; p.gs = plan[12]; p.ss = plan[13];
-  p.stage_bytes = plan[14]; p.head_bytes = plan[15];
-  p.slot_bytes = plan[16];
-  for (int d = 0; d < 4; ++d) {
-    p.ck[d] = plan[17 + d];
-    p.passes[d] = plan[21 + d];
-  }
-  p.head_res = 0;
-  if (p.CS < 1 || p.CS > 8 || (p.CS & (p.CS - 1)) || p.spc < 1 ||
-      p.spc > kTileRows * kMaxTiles || B < 1 || k < 2)
+  p.deterministic = deterministic;
+  p.plan = *static_cast<const Plan*>(plan);
+  const Plan& q = p.plan;
+  if (q.CS < 1 || q.CS > 8 || (q.CS & (q.CS - 1)) || q.spc < 1 || B < 1 || q.k < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? (int)launch<__nv_bfloat16>(p, threads, info, s)
-              : (int)launch<float>(p, threads, info, s);
+  return q.bf16 ? (int)launch<__nv_bfloat16>(p, info, s) : (int)launch<float>(p, info, s);
 }

@@ -35,10 +35,11 @@ plain version.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -263,15 +264,20 @@ def generate_steps_plain(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
 
 
 # ----------------------------------------------------------------------
-# the kernel-side pack: each CTA's column slices, padded, in mma order
+# the launch plan: cluster shape, weight ring, shared-memory layout
 # ----------------------------------------------------------------------
+# The constants csrc/generate.cu names in brackets (tests/test_torch_generate_ring.py
+# holds them equal)
 CLUSTER_SIZES = (1, 2, 4, 8)   # CTAs per cluster the picker chooses from
-TILE_ROWS = 16                 # streams of one mma row tile
-CLUSTER_STREAMS = 32           # streams a cluster owns at most (two row tiles)
-KERNEL_THREADS = 256           # threads per CTA
-SPLIT_IN = 2                   # parts the kernel cuts the w_in product's depth into
+TILE_ROWS = 16                 # streams of one mma row tile [kTileRows]
+CLUSTER_STREAMS = 32           # streams a cluster owns at most [kTileRows * kMaxTiles]
+KERNEL_THREADS = 256           # computing threads per CTA [kThreads]
+SPLIT_IN = 2                   # parts the kernel cuts the w_in product's depth into [kSplitIn]
+BARRIERS = 5                   # mbarriers besides the ring's: the head's weights, four exchanges [kBars]
+RING_UNITS = 2                 # units a warp (f32: a thread) runs through a chunk ring pass [kUnits]
+SMEM_BYTES = 232448            # shared memory a CTA can have on an H100 [kSmemLimit]
 RESIDENT_CTAS = 120            # CTAs an H100 holds at once in clusters of 4 or 8
-SMEM_BYTES = 232448            # shared memory a CTA can have on an H100
+RING_SLOTS = 2                 # chunks the ring holds where that many fit
 
 
 def _up(a: int, m: int) -> int:
@@ -307,78 +313,94 @@ def _kernel_dims(spec: WaveNetSpec, cluster_size: int) -> Dict[str, int]:
                 xs=_row_stride(Kin), gs=_row_stride(Kog), ss=_row_stride(Ksk))
 
 
-def _barriers(spec: WaveNetSpec) -> int:
-    """The kernel's mbarriers besides the ring's: the head's weights, the
-    four exchanges, and the split head's candidates."""
-    return 5 + split_head(spec)
-
-
-def _tile_rows(streams: int) -> int:
-    """The rows a cluster of ``streams`` streams runs: whole mma row tiles."""
-    return _up(streams, TILE_ROWS)
-
-
-def kernel_smem_bytes(spec: WaveNetSpec, cluster_size: int, dtype,
-                      rows: int = TILE_ROWS) -> Tuple[int, int]:
-    """(bytes of shared memory a CTA's activation buffers take for ``rows``
-    streams, bytes of one layer's block of weights and biases): what
-    ``csrc/generate.cu`` lays out (``make_layout``) before it gives the rest
-    to the weights."""
+def smem_layout(spec: WaveNetSpec, dtype, cluster_size: int, tiles: int = 1,
+                nstage: int = 0, slot_bytes: Optional[int] = None
+                ) -> Dict[str, int]:
+    """A CTA's dynamic shared memory for ``tiles`` mma row tiles a cluster:
+    the byte offset of every buffer, each a multiple of 128 B, in this
+    order, and their ``total``; beside them the bytes of a CTA's layer block
+    and head block in the kernel-side pack (``stage_bytes``, ``head_bytes``).
+    ``nstage`` whole layer blocks (``slot_bytes`` None) with the head's block
+    resident, or chunk slots of ``slot_bytes``, ``stage_stride`` apart at 0."""
     d = _kernel_dims(spec, cluster_size)
     elt = 2 if dtype == torch.bfloat16 else 4
-    M, split = rows, split_head(spec)
-    NA, NB = 2 * d["Gq"], d["Rq"] + d["Sq"]
-    # a split head keeps its input as codes (no one-hot rows) and takes
-    # every CTA's (score, class) candidate a stream; two row tiles cut the
-    # w_in product's depth into twice the parts
-    parts = SPLIT_IN * (rows // TILE_ROWS)
-    sizes = [2 * M * d["xs"] * elt, M * d["gs"] * elt, M * d["ss"] * elt,
-             M * d["ss"] * elt, parts * NA * M * 4 if elt == 2 else 0,
-             M * d["Rq"] * 4, M * d["Sq"] * 4,
-             M * d["Cq"] * 4, 0 if split else M * spec.in_channels * 4,
-             M * cluster_size * 8 if split else 0,
-             2 * cluster_size * d["Rq"] * 4, M * 4,
-             spec.layers * 16, _barriers(spec) * 8]
-    block = (d["Kin"] * NA + d["Kog"] * NB) * elt + (NA + NB) * 4
-    return sum(_up(b, 128) for b in sizes), block
+    M, split, chunked = TILE_ROWS * tiles, split_head(spec), slot_bytes is not None
+    NA, NB, Sq, Cq = 2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"]
+    at = dict(stage_bytes=(d["Kin"] * NA + d["Kog"] * NB) * elt + (NA + NB) * 4,
+              head_bytes=d["Ksk"] * (Sq + Cq) * elt + (Sq + Cq) * 4)
+    at["stage_stride"] = _up(slot_bytes if chunked else at["stage_bytes"], 128)
+    buffers = (
+        ("headw", 0 if chunked else at["head_bytes"]),
+        ("xin", 2 * M * d["xs"] * elt),     # [taps | cond], by layer parity
+        ("gt", M * d["gs"] * elt),          # gated, every CTA's slice
+        ("hx", M * d["ss"] * elt),          # the head's input
+        ("o1", M * d["ss"] * elt),          # the head's hidden layer
+        # bf16: the w_in product's partial sums, SPLIT_IN x tiles parts
+        ("part", SPLIT_IN * tiles * M * NA * 4 if elt == 2 else 0),
+        ("bst", 4 * NA if chunked else 0),  # b_in, copied out of its chunk
+        ("hbf", M * d["Rq"] * 4),           # own residual columns, f32
+        ("sk", M * Sq * 4),                 # own skip sums
+        ("lo", M * Cq * 4),                 # the head's output
+        # the scalar heads' current input; the split head keeps codes
+        # instead and takes every CTA's candidate (score, class) a stream
+        ("xc", 0 if split else M * spec.in_channels * 4),
+        ("cand", M * cluster_size * 8 if split else 0),
+        ("first", 2 * cluster_size * d["Rq"] * 4),   # the first conv's bias, row
+        ("code", M * 4),                    # each stream's last class
+        ("ltab", spec.layers * 16),         # per layer: ring row, dilation, t mods
+        ("bars", (2 * nstage + BARRIERS + split) * 8))
+    o = nstage * at["stage_stride"]
+    for name, size in buffers:
+        at[name] = o
+        o += _up(size, 128)
+    at["total"] = o
+    return at
 
 
-class RingPlan(NamedTuple):
-    """How a CTA's weights reach its shared memory (``ring_plan``).
+class Plan(collections.namedtuple("Plan", (
+        "L lps k R G C_in C_out cin head bf16 CS spc tiles Gq Rq Sq Kin Kog Ksk "
+        "Cq xs gs ss stage_bytes head_bytes nstage slot_bytes ck passes head_res "
+        "stage_stride headw xin gt hx o1 part bst hbf sk lo xc cand first code "
+        "ltab bars total"))):
+    """One launch of ``csrc/generate.cu`` as ``plan_launch`` lays it out: the
+    model as the kernel runs it, the cluster shape, the kernel-side pack's
+    widths (``_kernel_dims``), the ring of weights, and the shared-memory
+    layout (``smem_layout``). Its fields are ``struct Plan``'s, in order and
+    described there; the kernel reads them (``struct``) and derives none.
 
-    ``slot_bytes`` 0: ``stages`` whole layer blocks (all layers when they
-    fit, else a ring refilled as layers are read out) beside the head's
-    block. Else the chunk ring: ``stages`` slots of ``slot_bytes``, through
-    which the kernel's filler streams, step after step, each layer's w_in
-    then w_og slice and the head's w_h1 then w_h2 in chunks of whole steps
-    (bf16 k-steps of 16 rows, f32 rows; ``chunk`` of them, a product's last
-    chunk shorter), each product ``passes`` times, ``RING_UNITS`` units of
-    its work a pass; a pass's last chunk carries the product's biases
-    behind its weights."""
-    stages: int
-    slot_bytes: int
-    chunk: Tuple[int, int, int, int]     # w_in, w_og, w_h1, w_h2
-    passes: Tuple[int, int, int, int]
-    smem_bytes: int                      # all the kernel's shared memory
+    The ring: ``slot_bytes`` 0: ``nstage`` whole layer blocks (all layers
+    when they fit, else a ring refilled as layers are read out) beside the
+    head's block (``head_res``). Else the chunk ring: ``nstage`` slots of
+    ``slot_bytes``, through which the kernel's filler streams, step after
+    step, each layer's w_in then w_og slice and the head's w_h1 then w_h2 in
+    chunks of whole steps (bf16 k-steps of 16 rows, f32 rows; ``ck`` of
+    them, a product's last chunk shorter), each product ``passes`` times,
+    ``RING_UNITS`` units of its work a pass; a pass's last chunk carries the
+    product's biases behind its weights."""
 
     @property
     def chunked(self) -> bool:
         return self.slot_bytes > 0
 
+    @functools.cached_property
+    def struct(self) -> "_CPlan":
+        """The plan as ``wn_generate`` reads it."""
+        return _CPlan(*self)
 
-RING_SLOTS = 2      # chunks the ring holds where that many fit
-RING_UNITS = 2      # units a warp (f32: a thread) runs through a pass (kUnits)
+
+class _CPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int * 4 if name in ("ck", "passes") else ctypes.c_int)
+                for name in Plan._fields]
 
 
-def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
-                  threads: int = KERNEL_THREADS):
+def ring_products(spec: WaveNetSpec, cluster_size: int, dtype):
     """(steps, bytes a step, columns, units a warp or thread runs) of w_in,
     w_og, w_h1 and w_h2 in one CTA's slice. A step is a k-step of 16 rows
     (bf16, an mma's depth) or one row (f32). A unit is a pair of n-tiles over
     one of SPLIT_IN parts of the k-steps (bf16 w_in), an n-tile (bf16), or
     one stream's output (f32: a gate channel's pair of columns for w_in)."""
     d = _kernel_dims(spec, cluster_size)
-    M, NW = TILE_ROWS, threads // 32
+    M, NW = TILE_ROWS, KERNEL_THREADS // 32
     cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"])
     depth = (d["Kin"], d["Kog"], d["Ksk"], d["Ksk"])
     if dtype == torch.bfloat16:
@@ -387,72 +409,70 @@ def ring_products(spec: WaveNetSpec, cluster_size: int, dtype,
             c // 8 for c in cols[1:]))]
     else:
         rows, elt = 1, 4
-        units = [-(-M * n // threads) for n in (d["Gq"], *cols[1:])]
+        units = [-(-M * n // KERNEL_THREADS) for n in (d["Gq"], *cols[1:])]
     return tuple((K // rows, rows * N * elt, N, u)
                  for K, N, u in zip(depth, cols, units))
 
 
-def ring_plan(spec: WaveNetSpec, cluster_size: int, dtype,
-              threads: int = KERNEL_THREADS, max_stages: int = -1,
-              rows: int = TILE_ROWS) -> Optional[RingPlan]:
-    """The ring ``csrc/generate.cu`` runs for one cluster size and ``rows``
-    streams a cluster (whole row tiles), or None where not even a one-slot
-    chunk ring fits beside the activation buffers. The chunk ring runs one
-    row tile: at two, only whole layer blocks are planned (else None).
+@functools.lru_cache(maxsize=256)
+def _plan(spec: WaveNetSpec, dtype, cluster_size: int, streams: int,
+          max_stages: int = -1) -> Optional[Plan]:
+    """The plan of clusters of ``cluster_size`` CTAs and ``streams`` streams,
+    or None where no ring fits beside the activation buffers.
 
     Whole layer blocks where two fit (or one, for a one-layer model) with
     the head's block, as many as fit up to every layer (``max_stages`` >= 0
-    caps them; 0 forces the chunk ring). Else the chunk ring: RING_SLOTS
-    slots where each holds a step of every product and its biases, fewer
-    where not, the slots sharing out what the activation buffers leave;
-    each product's chunk as many steps as a slot holds. Few large chunks
-    run faster than many small ones: every chunk costs each warp a wait and
-    a release, and the filler a round trip."""
-    elt = 2 if dtype == torch.bfloat16 else 4
-    fixed, block = kernel_smem_bytes(spec, cluster_size, dtype, rows)
-    d = _kernel_dims(spec, cluster_size)
-    head = (d["Ksk"] * (d["Sq"] + d["Cq"]) * elt + (d["Sq"] + d["Cq"]) * 4)
-    nbar = _barriers(spec)
-
-    def total(stages, stride, head_bytes=0):   # make_layout's total
-        # the chunk ring (no head block) copies b_in out of its chunk
-        return (stages * _up(stride, 128) + _up(head_bytes, 128) + fixed
-                - _up(nbar * 8, 128) + _up((2 * stages + nbar) * 8, 128)
-                + (0 if head_bytes else _up(8 * d["Gq"], 128)))
-
-    L = spec.layers
+    caps them; 0 forces the chunk ring). Else the chunk ring, which runs one
+    row tile: RING_SLOTS slots where each holds a step of every product and
+    its biases, fewer where not, the slots sharing out what the activation
+    buffers leave; each product's chunk as many steps as a slot holds. Few
+    large chunks run faster than many small ones: every chunk costs each
+    warp a wait and a release, and the filler a round trip."""
+    tiles, L = -(-streams // TILE_ROWS), spec.layers
+    layout = functools.partial(smem_layout, spec, dtype, cluster_size, tiles)
     cap = L if max_stages < 0 or max_stages >= L else max_stages
-    for s in range(cap, min(L, 2) - 1, -1):
-        if s > 0 and total(s, block, head) <= SMEM_BYTES:
-            return RingPlan(s, 0, (0,) * 4, (0,) * 4, total(s, block, head))
-    if rows > TILE_ROWS:
+    stages = next((s for s in range(cap, min(L, 2) - 1, -1)
+                   if s > 0 and layout(s)["total"] <= SMEM_BYTES), 0)
+    if stages:
+        ring = dict(nstage=stages, slot_bytes=0, ck=(0,) * 4, passes=(0,) * 4)
+        at = layout(stages)
+    elif tiles > 1:
         return None
-    prods = ring_products(spec, cluster_size, dtype, threads)
-    for slots in range(RING_SLOTS, 0, -1):
-        slot = (SMEM_BYTES - total(slots, 0)) // slots // 128 * 128
-        chunk = [min(KS, (slot - 4 * N) // step) for KS, step, N, _ in prods]
-        if min(chunk) >= 1:
-            break
     else:
-        return None
-    slot_bytes = max(c * step + 4 * N
-                     for c, (_, step, N, _) in zip(chunk, prods))
-    passes = tuple(max(1, -(-units // RING_UNITS)) for *_, units in prods)
-    return RingPlan(slots, slot_bytes, tuple(chunk), passes,
-                    total(slots, slot_bytes))
+        prods = ring_products(spec, cluster_size, dtype)
+        for slots in range(RING_SLOTS, 0, -1):
+            slot = (SMEM_BYTES - layout(slots, 0)["total"]) // slots // 128 * 128
+            chunk = tuple(min(KS, (slot - 4 * N) // step)
+                          for KS, step, N, _ in prods)
+            if min(chunk) >= 1:
+                break
+        else:
+            return None
+        slot_bytes = max(c * step + 4 * N
+                         for c, (_, step, N, _) in zip(chunk, prods))
+        ring = dict(nstage=slots, slot_bytes=slot_bytes, ck=chunk, passes=tuple(
+            max(1, -(-units // RING_UNITS)) for *_, units in prods))
+        at = layout(slots, slot_bytes)
+    return Plan(L=L, lps=spec.layers_per_stack, k=spec.kernel_size,
+                R=_up(spec.residual_channels, 8), G=spec.gate_channels,
+                C_in=spec.in_channels, C_out=spec.out_channels,
+                cin=spec.cin_channels if spec.has_local_conditioning else 0,
+                head=head_code(spec), bf16=int(dtype == torch.bfloat16),
+                CS=cluster_size, spc=streams, tiles=tiles,
+                **_kernel_dims(spec, cluster_size), **ring,
+                head_res=int(not ring["slot_bytes"]), **at)
+
+
+def _whole_stages(spec: WaveNetSpec, cluster_size: int, dtype,
+                  streams: int) -> bool:
+    """Whether the plan at this cluster shape is whole layer blocks."""
+    plan = _plan(spec, dtype, cluster_size, streams)
+    return plan is not None and not plan.chunked
 
 
 def _waves(B: int, cluster_size: int, streams: int) -> int:
     """How many times over the card runs the clusters of B streams."""
     return -(-(-(-B // streams)) // (RESIDENT_CTAS // cluster_size))
-
-
-@functools.lru_cache(maxsize=64)
-def _whole_stages(spec: WaveNetSpec, cluster_size: int, dtype,
-                  rows: int) -> bool:
-    """Whether the plan at this cluster size and rows is whole layer blocks."""
-    plan = ring_plan(spec, cluster_size, dtype, rows=rows)
-    return plan is not None and not plan.chunked
 
 
 def pick_cluster(spec: WaveNetSpec, B: int, dtype=torch.bfloat16
@@ -461,10 +481,10 @@ def pick_cluster(spec: WaveNetSpec, B: int, dtype=torch.bfloat16
     ``dtype``. The cluster is the largest in which every CTA still owns 8
     gate, residual and skip channels; it owns 16 streams (one mma row tile),
     fewer when B is, while its clusters all fit the card at once (B <= 240
-    at clusters of 8). Past that, either the cluster is halved (down to 4;
-    16 streams, each CTA pulling twice the weights), or it keeps its size
-    and owns 32 streams (two row tiles), where whole layer blocks fit beside
-    the 32-row buffers (``ring_plan``). The second wave of a grid that does
+    at clusters of 8). Past that, either the cluster is halved (to 4; 16
+    streams, each CTA pulling twice the weights), or it keeps its size and
+    owns 32 streams (two row tiles), where whole layer blocks fit beside the
+    32-row buffers (``plan_launch``). The second wave of a grid that does
     not fit doubles the time, so the shape with fewer waves wins. At equal
     waves the halved cluster wins unless its plan is the chunk ring: on an
     H100 (256-step bf16 launches at B=256) 32-stream clusters of 8 took
@@ -476,18 +496,59 @@ def pick_cluster(spec: WaveNetSpec, B: int, dtype=torch.bfloat16
     width = min(spec.gate_channels // 2, spec.residual_channels,
                 spec.skip_out_channels)
     cs = max([c for c in CLUSTER_SIZES if 8 * c <= width], default=1)
-    clusters = -(-B // TILE_ROWS)
-    if clusters * cs <= RESIDENT_CTAS:
+    if -(-B // TILE_ROWS) * cs <= RESIDENT_CTAS:
         return cs, min(TILE_ROWS, B)
-    half = cs
-    while half > 4 and clusters * half > RESIDENT_CTAS:
-        half //= 2
+    half = min(cs, 4)
     if _whole_stages(spec, cs, dtype, CLUSTER_STREAMS):
         wide, narrow = _waves(B, cs, CLUSTER_STREAMS), _waves(B, half, TILE_ROWS)
         if wide < narrow or (wide == narrow and not _whole_stages(
                 spec, half, dtype, TILE_ROWS)):
             return cs, CLUSTER_STREAMS
     return half, TILE_ROWS
+
+
+def cluster_sizes(spec: WaveNetSpec, dtype=torch.bfloat16) -> Tuple[int, ...]:
+    """The cluster sizes ``pick_cluster`` returns for this spec and dtype:
+    its largest while one wave of clusters holds B streams, and what it
+    takes past that, which no larger B changes (the halved size is 4, and
+    16-stream clusters of 4 take as many waves as 32-stream ones of 8)."""
+    past = TILE_ROWS * RESIDENT_CTAS + 1     # past one wave at every size
+    return tuple(sorted({pick_cluster(spec, B, dtype)[0] for B in (1, past)}))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(spec: WaveNetSpec, dtype, B: int, *,
+                cluster: Optional[Tuple[int, int]] = None,
+                max_stages: int = -1) -> Plan:
+    """The plan of a launch for B streams of a pack of ``dtype``, made once
+    per key: ``pick_cluster``'s shape (``cluster`` = (CTAs, streams a
+    cluster) overrides it) and the ring of ``_plan`` (``max_stages`` caps
+    its whole layer blocks; 0 forces the chunk ring). Raises ValueError,
+    with the reason, where the kernel does not take the model so."""
+    G, R, S = spec.gate_channels, spec.residual_channels, spec.skip_out_channels
+    if max(G, R + S) > 4096 or spec.out_channels > 512 \
+            or spec.kernel_size < 2:
+        raise ValueError(
+            "the generation kernel needs gate and residual+skip widths up to "
+            "4096, at most 512 output channels and at least 2 taps; got "
+            f"{G}, {R + S}, {spec.out_channels}, {spec.kernel_size}")
+    cs, streams = cluster or pick_cluster(spec, B, dtype)
+    if cs not in CLUSTER_SIZES or not 1 <= streams <= CLUSTER_STREAMS:
+        raise ValueError(f"_cluster must be (one of {CLUSTER_SIZES}, "
+                         f"1..{CLUSTER_STREAMS}); got {(cs, streams)}")
+    plan = _plan(spec, dtype, cs, streams, max_stages)
+    if plan is None:
+        tiles = -(-streams // TILE_ROWS)
+        at = smem_layout(spec, dtype, cs, tiles)
+        raise ValueError(
+            f"the generation kernel's buffers for {TILE_ROWS * tiles} streams "
+            f"of this model take {at['total'] - at['xin']} bytes of shared "
+            f"memory at cluster size {cs}, and "
+            + ("no whole layer blocks fit beside them (the chunk ring runs "
+               "one row tile)" if tiles > 1 else
+               "a ring of one step of its weights does not fit beside them")
+            + f"; a block has {SMEM_BYTES}")
+    return plan
 
 
 def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
@@ -498,30 +559,15 @@ def kernel_supports(spec: WaveNetSpec, dtype=torch.bfloat16,
     ``generate_steps`` pads the ring of a residual width that is not a
     multiple of 8. The kernel keeps at most 4096 channels a width and 512
     output channels a stream, needs two taps or more, and holds its
-    activation buffers for 16 streams and a ring of weights
-    (``ring_plan``) in one block's shared memory at the cluster size (every
-    size ``pick_cluster`` may choose for this spec when none is given);
-    ``generate_steps`` raises with the reason otherwise."""
-    G, R, S = spec.gate_channels, spec.residual_channels, spec.skip_out_channels
-    if max(G, R + S) > 4096 or spec.out_channels > 512 \
-            or spec.kernel_size < 2:
-        return False, (
-            "the generation kernel needs gate and residual+skip widths up to "
-            "4096, at most 512 output channels and at least 2 taps; got "
-            f"{G}, {R + S}, {spec.out_channels}, {spec.kernel_size}")
-    if cluster_size is None:
-        first = pick_cluster(spec, 1)[0]
-        sizes = [c for c in CLUSTER_SIZES if min(first, 4) <= c <= first]
-    else:
-        sizes = [cluster_size]
+    activation buffers for 16 streams and a ring of weights in one block's
+    shared memory at the cluster size (every size ``cluster_sizes`` gives
+    when none is given): ``plan_launch`` raises with the reason otherwise."""
+    sizes = cluster_sizes(spec, dtype) if cluster_size is None else (cluster_size,)
     for cs in sizes:
-        if ring_plan(spec, cs, dtype) is None:
-            fixed, _ = kernel_smem_bytes(spec, cs, dtype)
-            return False, (
-                f"the generation kernel's buffers for 16 streams of this "
-                f"model take {fixed} bytes of shared memory at cluster size "
-                f"{cs}, and a ring of one step of its weights does not fit "
-                f"beside them; a block has {SMEM_BYTES}")
+        try:
+            plan_launch(spec, dtype, TILE_ROWS, cluster=(cs, TILE_ROWS))
+        except ValueError as e:
+            return False, str(e)
     return True, ""
 
 
@@ -569,7 +615,7 @@ class KernelPack:
                  cluster_size: int):
         dtype, dev = packed["w_first"].dtype, packed["w_first"].device
         CS = self.cluster_size = int(cluster_size)
-        self.spec, self._rings = spec, {}
+        self.spec = spec
         L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
         G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
         cin = spec.cin_channels if spec.has_local_conditioning else 0
@@ -656,35 +702,6 @@ class KernelPack:
                              else flat.reshape(*flat.shape[:-1], K, N))
         return out
 
-    def ring_plan(self, threads: int = KERNEL_THREADS,
-                  max_stages: int = -1, rows: int = TILE_ROWS) -> RingPlan:
-        """``ring_plan`` for this pack, made once per (rows, threads,
-        max_stages)."""
-        key = (rows, threads, max_stages)
-        if key not in self._rings:
-            plan = ring_plan(self.spec, self.cluster_size, self.dtype, threads,
-                             max_stages, rows)
-            if plan is None:
-                why = kernel_supports(self.spec, self.dtype, self.cluster_size)[1]
-                raise ValueError(why or (
-                    f"clusters of {self.cluster_size} CTAs own at most "
-                    f"{TILE_ROWS} streams of this model: {rows} streams' "
-                    f"buffers leave no room for whole layer blocks, and the "
-                    f"chunk ring runs one row tile"))
-            self._rings[key] = plan
-        return self._rings[key]
-
-    def plan(self, streams: int, threads: int, max_stages: int):
-        """The host int array ``wn_generate`` takes as ``plan``."""
-        d = self.dims
-        ring = self.ring_plan(threads, max_stages, _tile_rows(streams))
-        vals = [self.cluster_size, streams, threads, ring.stages,
-                d["Gq"], d["Rq"], d["Sq"], d["Kin"], d["Kog"], d["Ksk"],
-                d["Cq"], d["xs"], d["gs"], d["ss"],
-                self.wl.shape[2], self.wh.shape[1], ring.slot_bytes,
-                *ring.chunk, *ring.passes]
-        return (ctypes.c_int * len(vals))(*vals)
-
 
 _KERNEL_PACKS: Dict[Tuple[int, int], Tuple[tuple, KernelPack]] = {}
 
@@ -714,7 +731,7 @@ def kernel_pack(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
 _PTR = ctypes.c_void_p
 _ARGTYPES = ([_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 4
              + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_uint]
-             + [ctypes.c_int] * 12 + [_PTR] * 4)
+             + [ctypes.c_int, ctypes.POINTER(_CPlan)] + [_PTR] * 3)
 NO_PRODUCTS, TRACE = ("WN_NO_PRODUCTS",), ("WN_TRACE",)   # variant builds
 
 
@@ -742,6 +759,7 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
                    g_gate: Optional[torch.Tensor] = None, *, t0: int,
                    seed: int, deterministic: bool = False,
                    kpack: Optional[KernelPack] = None,
+                   plan: Optional[Plan] = None,
                    _cluster: Optional[Tuple[int, int]] = None,
                    _max_stages: int = -1,
                    _defines: Tuple[str, ...] = (),
@@ -756,17 +774,17 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     counts the launches); CPU tensors run the plain version. There is no
     fallback between the two.
 
-    ``kpack`` is the kernel-side pack of ``packed`` (``kernel_pack``); it is
-    made and cached here when not given. The launch takes the ring its
-    ``ring_plan`` gives; the counter ``generate.chunked_launches`` counts
-    those that took the chunk ring, ``generate.split_head_launches`` those
-    whose head was split over the cluster (``split_head``: categorical, its
-    x_cur rows one-hot or zero, unchecked here),
-    ``generate.wide_cluster_launches`` those whose clusters own more than
-    16 streams (two row tiles). For sweeps and tests: ``_cluster`` =
-    (CTAs per cluster, streams per cluster) overrides ``pick_cluster``;
-    ``_max_stages`` caps the whole layer blocks held in shared memory (0:
-    the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
+    ``plan`` is the launch's ``plan_launch`` for B streams, ``kpack`` the
+    kernel-side pack of ``packed`` (``kernel_pack``) at its cluster size;
+    each is made (and cached) here when not given. The counter
+    ``generate.chunked_launches`` counts the launches whose plan is the
+    chunk ring, ``generate.split_head_launches`` those whose head is split
+    over the cluster (``split_head``: categorical, its x_cur rows one-hot or
+    zero, unchecked here), ``generate.wide_cluster_launches`` those whose
+    clusters own two row tiles. For sweeps and tests, where no ``plan`` is
+    given: ``_cluster`` = (CTAs per cluster, streams per cluster) overrides
+    ``pick_cluster``; ``_max_stages`` caps the whole layer blocks held in
+    shared memory (0: the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
     a timing aid, outputs mean nothing; ``TRACE``: clock stamps of the last
     step of cluster 0 go to ``_trace``, an int64 tensor of 4 L + 5 values);
     ``_info`` receives [stages or chunk slots, head weights resident,
@@ -812,53 +830,44 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         return
     if dev.type != "cuda":
         raise ValueError(f"no generation kernel for device {dev}")
-    cs, streams = _cluster or pick_cluster(spec, B, dtype)
-    if cs not in CLUSTER_SIZES or not 1 <= streams <= CLUSTER_STREAMS:
-        raise ValueError(f"_cluster must be (one of {CLUSTER_SIZES}, "
-                         f"1..{CLUSTER_STREAMS}); got {(cs, streams)}")
-    takes, why = kernel_supports(spec, dtype, cs)
-    if not takes:
-        raise ValueError(why)
+    if plan is None:
+        plan = plan_launch(spec, dtype, B, cluster=_cluster,
+                           max_stages=int(_max_stages))
     if kpack is None:
-        kpack = kernel_pack(packed, spec, cs)
-    if (kpack.cluster_size != cs or kpack.dtype != dtype
-            or kpack.w_first is not packed["w_first"]):
+        kpack = kernel_pack(packed, spec, plan.CS)
+    if (kpack.cluster_size != plan.CS or kpack.dtype != dtype
+            or kpack.w_first is not packed["w_first"]
+            or kpack.wl.shape[2] != plan.stage_bytes):
         raise ValueError("kpack was not made from this packed dict for "
-                         f"cluster size {cs}")
+                         f"the plan's cluster size {plan.CS}")
     info = (ctypes.c_int * 5)() if _info is not None else None
-    plan = kpack.plan(streams, KERNEL_THREADS, int(_max_stages))
     ptr = lambda a: None if a is None else a.data_ptr()
     # the kernel reads and writes ring rows 8 channels a vector: a residual
     # width that is not a multiple of 8 runs on a copy padded with zero
     # channels, which stay zero (their weights are zero), copied back after
-    Rk = _up(R, 8)
-    kring = ring if Rk == R else F.pad(ring, (0, Rk - R)).contiguous()
+    kring = ring if plan.R == R else F.pad(ring, (0, plan.R - R)).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(tuple(_defines))(
             ptr(kpack.first[0]), ptr(kpack.first[1]),
             ptr(kpack.wl), ptr(kpack.wh), ptr(cond), 0 if cond is None else cond.stride(0),
             ptr(g_gate), ptr(kring), ptr(x_cur), ptr(out), out.stride(0),
-            B, n, int(t0), int(seed) & _M32, L, spec.layers_per_stack,
-            spec.kernel_size, Rk, G, spec.skip_out_channels,
-            spec.in_channels, spec.out_channels, cin, head_code(spec),
-            int(bool(deterministic)), int(dtype == torch.bfloat16),
-            plan, info, ptr(_trace), stream)
+            B, n, int(t0), int(seed) & _M32, int(bool(deterministic)),
+            plan.struct, info, ptr(_trace), stream)
     if err != 0:
         raise RuntimeError(
             f"generation kernel launch failed: CUDA error {err} (cluster "
-            f"{cs} x {streams} streams)")
+            f"{plan.CS} x {plan.spc} streams)")
     if kring is not ring:
         ring.copy_(kring[..., :R])
     if _info is not None:
         _info[:] = list(info)
     profiling.count("generate.launches")
-    if kpack.ring_plan(KERNEL_THREADS, int(_max_stages),
-                       _tile_rows(streams)).chunked:
+    if plan.chunked:
         profiling.count("generate.chunked_launches")
-    if split_head(spec):
+    if plan.head == 0:
         profiling.count("generate.split_head_launches")
-    if streams > TILE_ROWS:
+    if plan.tiles > 1:
         profiling.count("generate.wide_cluster_launches")
 
 
@@ -901,15 +910,13 @@ class FusedGenerator:
         self.shards = [(d,) + packs[d] for d in devices]
 
     def _kernel_packs(self, packed, device):
-        """The kernel-side packs for each cluster size the picker chooses
-        between; the plain version on the CPU needs none."""
-        kpacks = {}
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                for B in (1, 1 << 20):
-                    cs = pick_cluster(self.spec, B, self.weight_dtype)[0]
-                    kpacks[cs] = kernel_pack(packed, self.spec, cs)
-        return kpacks
+        """The kernel-side packs for each cluster size the picker returns
+        (``cluster_sizes``); the plain version on the CPU needs none."""
+        if device.type != "cuda":
+            return {}
+        with torch.cuda.device(device):
+            return {cs: kernel_pack(packed, self.spec, cs)
+                    for cs in cluster_sizes(self.spec, self.weight_dtype)}
 
     @torch.no_grad()
     def __call__(self, *, T: Optional[int] = None,
@@ -1019,6 +1026,7 @@ class FusedGenerator:
         for i, (d, packed, kpacks) in enumerate(self.shards):
             part = lambda a, ax=0: None if a is None else a.narrow(
                 ax, i * Bs, Bs).to(d).contiguous()
+            plan = plan_launch(spec, dtype, Bs) if d.type == "cuda" else None
             runs.append(dict(
                 packed=packed, cond=part(cond), g_gate=part(g_gate, 1),
                 x_cur=x_cur if n == 1 else part(x_cur),
@@ -1026,7 +1034,7 @@ class FusedGenerator:
                     rows, Bs, spec.residual_channels, dtype=dtype, device=d)),
                 out=torch.empty(Bs, T_pad, device=d, dtype=(
                     torch.float32 if spec.scalar_input else torch.int32)),
-                kpack=kpacks.get(pick_cluster(spec, Bs, dtype)[0])))
+                plan=plan, kpack=plan and kpacks[plan.CS]))
         # chunk by chunk, every shard's launch before the next chunk: the
         # devices run side by side, and nothing here waits on them
         with profiling.span("generate.launch"):
@@ -1038,7 +1046,7 @@ class FusedGenerator:
                                    else r["cond"][:, t0:t0 + chunk],
                                    r["g_gate"], t0=t_off + t0, seed=seed + i,
                                    deterministic=deterministic,
-                                   kpack=r["kpack"])
+                                   kpack=r["kpack"], plan=r["plan"])
         out = (runs[0]["out"] if n == 1 else
                torch.cat([r["out"].to(dev) for r in runs]))
         if return_state:
