@@ -94,8 +94,23 @@ def preemphasis(x: np.ndarray, coef: float = 0.85) -> np.ndarray:
 
 def inv_preemphasis(x: np.ndarray, coef: float = 0.85) -> np.ndarray:
     """Inverse IIR of :func:`preemphasis` (reference: audio.py:57-58)."""
+    return inv_preemphasis_rows(x, coef=coef)[0]
+
+
+def inv_preemphasis_rows(x: np.ndarray, zi: Optional[np.ndarray] = None,
+                         coef: float = 0.85
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`inv_preemphasis` of every row of a block ``x`` (..., n) in one
+    call, the IIR continuing from ``zi`` (..., 1), the state the previous
+    block of the same rows returned (None: from rest). Returns the float32
+    block and the state to pass with the next block: block after block gives
+    the bits of :func:`inv_preemphasis` over the whole rows."""
     from scipy.signal import lfilter
-    return lfilter([1.0], [1.0, -coef], x).astype(np.float32)
+    x = np.asarray(x)
+    if zi is None:
+        zi = np.zeros(x.shape[:-1] + (1,))
+    y, zf = lfilter([1.0], [1.0, -coef], x, axis=-1, zi=zi)
+    return y.astype(np.float32), zf
 
 
 # ----------------------------------------------------------------------

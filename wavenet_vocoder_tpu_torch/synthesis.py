@@ -8,6 +8,11 @@ The port's counterpart of ``wavenet_vocoder_tpu/synthesis.py``
     the model lies on the CPU);
   * ``"scan"`` — the eager step-loop decoder (``ops/generate.py``).
 
+With the fused generator on one device a batch is generated in segments of
+``SEGMENT_STEPS`` steps, each carrying the generator's state to the next,
+and each segment is fetched and decoded while the card generates the next:
+the same launches, and the bits of one call and one decode of the batch.
+
 Entry points run on ``cuda`` unless the caller passes ``device``; without a
 GPU and without ``device`` they raise rather than drop to the CPU.
 
@@ -18,7 +23,7 @@ run's; sampled shard i draws with the base seed + i.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +63,18 @@ def pad_mel_context(c: np.ndarray, cin_pad: int) -> np.ndarray:
                            np.repeat(c[:, -1:], cin_pad, axis=1)], axis=1)
 
 
-def _decode(cfg: Config, samples) -> np.ndarray:
-    """Head samples -> float waveform (B, T) (reference: synthesis.py:66-86).
+# steps of a batch fetched and decoded at a time while the card generates the
+# steps after them (rounded up to the generator's chunk)
+SEGMENT_STEPS = 4096
+
+
+def _decode_segment(cfg: Config, samples, zi: Optional[np.ndarray] = None
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Head samples of columns [a, b) of a batch -> float waveform (B, b - a)
+    and the state to pass with columns [b, ...): ``zi`` is the inverse
+    pre-emphasis's per-row state that columns [..., a) returned (None at
+    a = 0). Segment after segment gives the bits of :func:`_decode` of the
+    whole batch. Other postprocess filters carry no state: whole rows only.
 
     Accepts one-hot (B, T, C) or integer codes (B, T) for the categorical
     head, and (B, T, 1) or (B, T) scalars for the mixture heads, as host
@@ -75,11 +90,19 @@ def _decode(cfg: Config, samples) -> np.ndarray:
         wav = np.asarray(inv_mulaw(x, mu))
     else:
         wav = samples if samples.ndim == 2 else samples[..., 0]
-    if cfg.postprocess not in (None, "", "none"):
+    if cfg.postprocess == "inv_preemphasis":
+        wav, zi = audio.inv_preemphasis_rows(wav, zi)
+    elif cfg.postprocess not in (None, "", "none"):
         wav = np.stack([getattr(audio, cfg.postprocess)(w) for w in wav])
     if cfg.global_gain_scale > 0:
         wav = wav / cfg.global_gain_scale
-    return wav.astype(np.float32)
+    return wav.astype(np.float32), zi
+
+
+def _decode(cfg: Config, samples) -> np.ndarray:
+    """Head samples -> float waveform (B, T) (reference: synthesis.py:66-86),
+    as :func:`_decode_segment` takes them."""
+    return _decode_segment(cfg, samples)[0]
 
 
 class Synthesizer:
@@ -100,6 +123,9 @@ class Synthesizer:
         self.spec = model.spec
         self._gen = None
         self._replicas = None
+        # the segmented path's side stream and two pinned staging buffers
+        self._copier = None
+        self._staging = [None, None]
         if engine == "cuda":
             from wavenet_vocoder_tpu_torch.ops.cuda_generate import FusedGenerator
             self._gen = FusedGenerator(self.model, weight_dtype=weight_dtype,
@@ -137,10 +163,13 @@ class Synthesizer:
         if g is not None:
             g = torch.as_tensor(np.asarray(g), device=self.device)
         if self.engine == "cuda":
+            seed = _seed_from(generator)
+            if self._gen.mesh is None:
+                return self._in_segments(c, g, T, initial_input,
+                                         deterministic, seed)
             samples = self._gen(T=T, c=c, g=g, initial_input=initial_input,
                                 log_scale_min=cfg.log_scale_min,
-                                deterministic=deterministic,
-                                seed=_seed_from(generator))
+                                deterministic=deterministic, seed=seed)
         elif self._replicas is None:
             from wavenet_vocoder_tpu_torch.ops.generate import generate
             samples = generate(self.model, T=T, c=c, g=g,
@@ -152,11 +181,100 @@ class Synthesizer:
             samples = self._scan_sharded(c, g, T, initial_input, generator,
                                          deterministic)
         # the wait for the card and the copy to the host, then the host's
-        # decode
+        # decode (the scan engine, and the fused generator over a mesh)
         with profiling.span("synth.fetch"):
             samples = samples.cpu().numpy()
         with profiling.span("synth.decode"):
             return _decode(cfg, samples)
+
+    def _in_segments(self, c, g, T, initial_input, deterministic, seed):
+        """The fused generator's batch as consecutive segments of
+        ``SEGMENT_STEPS`` steps, each carrying the generator's state to the
+        next (the launches, steps and seed of one call). A segment is
+        fetched and decoded once the next is queued, so the host decodes
+        while the card generates; the result has the bits of one call and
+        one :func:`_decode`. Counters ``synth.segments`` and
+        ``synth.overlapped_segments`` (those decoded while a later segment
+        was queued)."""
+        cfg, gen = self.cfg, self._gen
+        with profiling.span("generate.condition"):
+            c_up = self.model.upsample_conditioning(c)
+        if c_up is not None:
+            T = c_up.shape[1] if T is None else T
+            if c_up.shape[1] != T:
+                raise ValueError(f"conditioning covers {c_up.shape[1]} "
+                                 f"samples, T is {T}")
+        if T is None:
+            raise ValueError("T required without conditioning")
+        chunk = gen.chunk
+        T_pad = -(-T // chunk) * chunk
+        if c_up is not None and T_pad != T:
+            # the last frame repeated to whole chunks, as one call pads it
+            c_up = torch.cat(
+                [c_up, c_up[:, -1:].expand(-1, T_pad - T, -1)], dim=1)
+        # the other postprocess filters carry no state: one segment
+        seg = (-(-SEGMENT_STEPS // chunk) * chunk
+               if cfg.postprocess in (None, "", "none", "inv_preemphasis")
+               else T_pad)
+        state, zi, wav, queued = None, None, None, None
+        for k, a in enumerate(range(0, T_pad, seg)):
+            out, state = gen(T=min(seg, T_pad - a), g=g,
+                             c_up=None if c_up is None else c_up[:, a:a + seg],
+                             initial_input=initial_input, state=state,
+                             return_state=True, deterministic=deterministic,
+                             seed=seed)
+            launched = None
+            if out.device.type == "cuda":
+                launched = torch.cuda.Event()
+                launched.record(torch.cuda.current_stream(out.device))
+            if wav is None:
+                wav = np.empty((out.shape[0], T), np.float32)
+                self._stage(out, seg)
+            if queued is not None:
+                zi = self._fetch_and_decode(wav, zi, *queued)
+                profiling.count("synth.overlapped_segments")
+            queued = (k, a, out, launched)
+        self._fetch_and_decode(wav, zi, *queued)
+        return wav
+
+    def _stage(self, out, seg: int) -> None:
+        """On the card, the side stream and the two pinned staging buffers
+        of one segment of ``seg`` steps like ``out``: made on a first use,
+        grown with B, reused across calls."""
+        if out.device.type != "cuda":
+            return
+        if self._copier is None:
+            self._copier = torch.cuda.Stream(device=out.device)
+        need = out.shape[0] * seg * out.element_size()
+        self._staging = [
+            buf if buf is not None and buf.numel() >= need else
+            torch.empty(need, dtype=torch.uint8, pin_memory=True)
+            for buf in self._staging]
+
+    def _fetch_and_decode(self, wav, zi, k, a, out, launched):
+        """Segment k, ``out`` (columns [a, ...) of ``wav``), to the host and
+        decoded into ``wav``, the inverse pre-emphasis continuing from
+        ``zi``; returns the state after it. On the card the copy runs on the
+        side stream once the event ``launched`` (after the segment's
+        launches) has passed, into staging buffer k % 2."""
+        with profiling.span("synth.fetch"):
+            if launched is None:
+                samples = out.numpy()
+            else:
+                buf = self._staging[k % 2]
+                host = buf[:out.numel() * out.element_size()].view(
+                    out.dtype).view(out.shape)
+                with torch.cuda.stream(self._copier):
+                    self._copier.wait_event(launched)
+                    host.copy_(out, non_blocking=True)
+                self._copier.synchronize()
+                samples = host.numpy()
+        with profiling.span("synth.decode"):
+            part, zi = _decode_segment(self.cfg,
+                                       samples[:, :wav.shape[1] - a], zi)
+        wav[:, a:a + part.shape[1]] = part
+        profiling.count("synth.segments")
+        return zi
 
     def _scan_sharded(self, c, g, T, initial_input, generator,
                       deterministic):

@@ -17,7 +17,9 @@ over the cluster, ``generate.wide_cluster_launches`` for those whose
 clusters own more than 16 streams, ``train_fwd.launches``,
 ``train_fwd.tc_launches``,
 ``train_fwd.fma_launches``, the same three of ``train_bwd``,
-``mel.launches``). ``reset()`` empties the store. The store is shared by
+``mel.launches``), and batched synthesis its segments (``synth.segments``,
+and ``synth.overlapped_segments`` for those decoded while a later segment
+was queued on the card). ``reset()`` empties the store. The store is shared by
 all threads of a process.
 
 ``trace(logdir)`` records a ``torch.profiler`` trace of the CPU and the card
