@@ -67,7 +67,8 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
     summation order differs; 32 steps keep AR feedback from amplifying
     rounding). B=3 is one ragged group of streams, B=17 two groups with the
     second ragged (several ragged ones for the small clusters); t0=5 checks
-    the ring indexing past the start."""
+    the ring indexing past the start. ``generate.gaussian_launches`` counts
+    the Gaussian head's launch and no other head's."""
     model = _model(10, **HEADS[head]).to(cuda)
     spec = model.spec
     dt = getattr(torch, dtype)
@@ -84,12 +85,14 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
         ring, x_cur = ring0.clone(), x0.clone()
         out = torch.empty(B, n, device=cuda, dtype=(
             torch.float32 if spec.scalar_input else torch.int32))
-        before = _count("generate.launches")
+        names = ("generate.launches", "generate.gaussian_launches")
+        before = [_count(c) for c in names]
         if kernel:
             cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate,
                               t0=5, seed=3, deterministic=deterministic,
                               _cluster=CLUSTERS[cluster])
-            assert _count("generate.launches") == before + 1
+            assert [_count(c) - b for c, b in zip(names, before)] == [
+                1, int(head == "gaussian")]
         else:
             cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond,
                                     g_gate, t0=5, seed=3,
@@ -303,9 +306,13 @@ def test_wrapper_raises_on_bad_block_streams(cuda, cluster):
                           _cluster=cluster)
 
 
-def _mulaw256_spec():
+def _recipe_spec(name):
     return spec_from_config(Config().override_from_dict(json.loads(
-        (EGS / "mulaw256/conf/mulaw256_wavenet.json").read_text())))
+        (EGS / f"{name}/conf/{name}_wavenet.json").read_text())))
+
+
+def _mulaw256_spec():
+    return _recipe_spec("mulaw256")
 
 
 def _mulaw256_launch(packed, spec, cond, ring0, x0, det, cluster=None,
@@ -435,7 +442,9 @@ def test_wide_clusters_equal_two_row_tiles(cuda, name, B, det):
 
 # (model, dtype, B, cluster): one launch of each kernel instance the planner
 # lays out: bf16 whole-layer stages at 16 and 32 rows, the bf16 chunk ring
-# (512ch), f32 packs on whole stages and on the chunk ring, the split head
+# (512ch), f32 packs on whole stages and on the chunk ring, the split head,
+# and the Gaussian recipe's 8-column head as the picker clusters it at B=16
+# (8, 16) and B=256 (4, 16)
 PLANNED = {
     "bf16.whole16": ("flagship", "bfloat16", 16, (8, 16)),
     "bf16.whole32": ("flagship", "bfloat16", 32, (8, 32)),
@@ -443,6 +452,8 @@ PLANNED = {
     "f32.whole": ("small", "float32", 5, (2, 16)),
     "f32.chunk": ("flagship", "float32", 16, None),
     "split": ("mulaw256", "bfloat16", 16, None),
+    "gaussian.b16": ("gaussian", "bfloat16", 16, None),
+    "gaussian.b256": ("gaussian", "bfloat16", 256, None),
 }
 
 
@@ -460,7 +471,8 @@ def test_kernel_takes_the_planned_shared_memory(cuda, case):
                 skip_out_channels=256, cin_channels=80, out_channels=30,
                 scalar_input=True),
             "small": lambda: _model(0, **HEADS["mol"]).spec,
-            "mulaw256": _mulaw256_spec}[name]()
+            "mulaw256": _mulaw256_spec,
+            "gaussian": lambda: _recipe_spec("gaussian")}[name]()
     model = WaveNet(spec, generator=torch.Generator().manual_seed(6)).to(cuda)
     dt = getattr(torch, dtype)
     packed = cg.pack_weights(model, dtype=dt)
@@ -477,7 +489,7 @@ def test_kernel_takes_the_planned_shared_memory(cuda, case):
     g_gate = (torch.zeros(spec.layers, B, spec.gate_channels, device=cuda)
               if spec.gin_channels > 0 else None)
     names = ("generate.chunked_launches", "generate.split_head_launches",
-             "generate.wide_cluster_launches")
+             "generate.wide_cluster_launches", "generate.gaussian_launches")
     before, info = [_count(c) for c in names], []
     cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate, t0=0,
                       seed=2, plan=plan, _info=info)
@@ -486,8 +498,12 @@ def test_kernel_takes_the_planned_shared_memory(cuda, case):
     assert info[:2] == [plan.nstage, plan.head_res]
     assert info[4] == int(plan.chunked) and info[3] >= 1
     assert [_count(c) - b for c, b in zip(names, before)] == [
-        int(plan.chunked), int(plan.head == 0), int(plan.tiles > 1)]
+        int(plan.chunked), int(plan.head == 0), int(plan.tiles > 1),
+        int(name == "gaussian")]
     assert (plan.tiles > 1) == (case == "bf16.whole32")
+    if name == "gaussian":
+        assert (plan.head, plan.Cq, plan.nstage) == (2, 8, 4 if B <= 240 else 2)
+        assert (plan.CS, plan.spc) == ((8, 16) if B <= 240 else (4, 16))
     assert plan.chunked == case.endswith("chunk")
     if spec.scalar_input:
         assert bool(torch.isfinite(out).all())

@@ -781,9 +781,10 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     chunk ring, ``generate.split_head_launches`` those whose head is split
     over the cluster (``split_head``: categorical, its x_cur rows one-hot or
     zero, unchecked here), ``generate.wide_cluster_launches`` those whose
-    clusters own two row tiles. For sweeps and tests, where no ``plan`` is
-    given: ``_cluster`` = (CTAs per cluster, streams per cluster) overrides
-    ``pick_cluster``; ``_max_stages`` caps the whole layer blocks held in
+    clusters own two row tiles, ``generate.gaussian_launches`` those whose
+    head is the Gaussian (``head_code`` 2: the Box-Muller sampler). For
+    sweeps and tests, where no ``plan`` is given: ``_cluster`` = (CTAs per
+    cluster, streams per cluster) overrides ``pick_cluster``; ``_max_stages`` caps the whole layer blocks held in
     shared memory (0: the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
     a timing aid, outputs mean nothing; ``TRACE``: clock stamps of the last
     step of cluster 0 go to ``_trace``, an int64 tensor of 4 L + 5 values);
@@ -869,6 +870,8 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         profiling.count("generate.split_head_launches")
     if plan.tiles > 1:
         profiling.count("generate.wide_cluster_launches")
+    if plan.head == 2:
+        profiling.count("generate.gaussian_launches")
 
 
 # ----------------------------------------------------------------------
