@@ -618,7 +618,7 @@ def phase_serving(report, batches):
     frames = cfg.sample_rate // hop
     T = frames * hop
     rs = np.random.RandomState(0)
-    _set_launches({"generate.launches": 0})
+    _set_launches({"generate.launches": 0, "generate.tap_last_launches": 0})
     requests = []
     for i, B in enumerate(batches):
         mel = rs.randn(B, frames, cfg.num_mels).astype(np.float32)
@@ -645,9 +645,14 @@ def phase_serving(report, batches):
         if not ok:
             fail(f"request {i}: bad output shape/values {wav.shape}")
     launches = _launches("generate.launches")
-    print(f"[serve] kernel launches during serving: {launches}")
+    tap_last = _launches("generate.tap_last_launches")
+    print(f"[serve] kernel launches during serving: {launches}, {tap_last} "
+          f"of them walking the newest tap last")
     if launches <= 0:
         fail("serving did not launch the generation kernel")
+    if tap_last != launches:
+        fail(f"{tap_last} of {launches} bf16 serving launches walked the "
+             f"newest tap last")
     report["serving"] = requests
     report["launches"] = launches
     return model
@@ -679,7 +684,7 @@ def bound_ms(spec, packed, B, n, dtype_bytes, peak_flops):
 
 # the generation kernel's launch counters (``generate.<name>``)
 _GENERATE_COUNTERS = ("launches", "chunked_launches", "split_head_launches",
-                      "wide_cluster_launches")
+                      "wide_cluster_launches", "tap_last_launches")
 
 
 def _launch_inputs(spec, B, n):
@@ -732,17 +737,26 @@ def _time_launch(tag, packed, spec, inputs, iters, cluster=None):
                 cluster=cs)
 
 
+# the phases of a layer between WN_TRACE's stamps (csrc/generate.cu)
+LAYER_PHASES = ("stage waits", "on-hand k-steps",
+                "wait for the newest tap (left)",
+                "newest-tap k-steps + GLU + send", "wait for gated",
+                "w_og product + residual, skip + send")
+
+
 def _step_cycles(tag, packed, spec, inputs):
     """The clock stamps of one step (the last of a 64-step launch; CTA 0,
     thread 0; the WN_TRACE build) on ``inputs`` (_launch_inputs), printed
-    after ``tag``: the step's start, each phase of a layer (median over
-    layers 1..L-1), the head and the sampler, in cycles."""
+    after ``tag``: the step's start, each phase of a layer (LAYER_PHASES,
+    median over layers 1..L-1; the on-hand k-steps are warp 0's before it
+    waits for the newest tap, which one row tile does before its walk), the
+    head and the sampler, in cycles."""
     import torch
 
     from wavenet_vocoder_tpu_torch.ops import cuda_generate as cg
     cond, x0, ring, out = inputs
-    L = spec.layers
-    stamps = torch.zeros(4 * L + 5, dtype=torch.int64, device="cuda")
+    L, P = spec.layers, len(LAYER_PHASES)
+    stamps = torch.zeros(P * L + 5, dtype=torch.int64, device="cuda")
     cg.generate_steps(packed, spec, ring.contiguous(), x0.clone(),
                       out[:, :64], cond[:, :64].contiguous(), None, t0=0,
                       seed=1, _defines=cg.TRACE, _trace=stamps)
@@ -750,18 +764,17 @@ def _step_cycles(tag, packed, spec, inputs):
     st = stamps.tolist()
     gaps = [b - a for a, b in zip(st, st[1:])]
     med = lambda xs: sorted(xs)[len(xs) // 2]
-    names = ("wait for the newest tap", "w_in product + GLU + send",
-             "wait for gated", "w_og product + residual, skip + send")
-    per_layer = [med([gaps[1 + 4 * l + i] for l in range(1, L)])
-                 for i in range(4)]
-    trace = dict(step_start=gaps[0], per_layer=dict(zip(names, per_layer)),
-                 layer=sum(per_layer), head=gaps[1 + 4 * L:],
+    per_layer = [med([gaps[1 + P * l + i] for l in range(1, L)])
+                 for i in range(P)]
+    trace = dict(step_start=gaps[0],
+                 per_layer=dict(zip(LAYER_PHASES, per_layer)),
+                 layer=sum(per_layer), head=gaps[1 + P * L:],
                  total=st[-1] - st[0])
     print(f"{tag} in clock cycles (CTA 0, thread 0): start {gaps[0]}; per "
           f"layer (median of {L - 1}): "
-          + ", ".join(f"{n} {c}" for n, c in zip(names, per_layer))
-          + f" (a layer {trace['layer']}); head {gaps[1 + 4 * L]} + "
-          f"{gaps[2 + 4 * L]}, sampler {gaps[3 + 4 * L]}; step "
+          + ", ".join(f"{n} {c}" for n, c in zip(LAYER_PHASES, per_layer))
+          + f" (a layer {trace['layer']}); head {gaps[1 + P * L]} + "
+          f"{gaps[2 + P * L]}, sampler {gaps[3 + P * L]}; step "
           f"{trace['total']}", flush=True)
     return trace
 
@@ -2718,7 +2731,8 @@ def _big_models(report):
                         generator=torch.Generator().manual_seed(1))
         model = model.to("cuda").eval()
         tag = f"[bench-kernel] {name:6s}"
-        names = ("launches", "chunked_launches", "wide_cluster_launches")
+        names = ("launches", "chunked_launches", "wide_cluster_launches",
+                 "tap_last_launches")
         before = [_launches(f"generate.{n}") for n in names]
         mine, bad = _check_model(
             model, [(B, cg.DEFAULT_CHUNK, True) for B in CHECK_BATCHES],
@@ -2729,10 +2743,14 @@ def _big_models(report):
         # first streams every launch through the chunk ring, the second none;
         # neither takes 32-stream clusters (512ch has no room for them,
         # 30L3S's clusters of 4 keep whole layer blocks)
-        launched, chunked, wide = (_launches(f"generate.{n}") - b
-                                   for n, b in zip(names, before))
+        launched, chunked, wide, tap_last = (_launches(f"generate.{n}") - b
+                                             for n, b in zip(names, before))
         print(f"{tag} {launched} launches, {chunked} through the chunk ring, "
-              f"{wide} on 32-stream clusters", flush=True)
+              f"{wide} on 32-stream clusters, {tap_last} walking the newest "
+              f"tap last", flush=True)
+        if tap_last != launched:
+            failures.append(f"{name}: {tap_last} of {launched} bf16 launches "
+                            f"walked the newest tap last")
         if chunked != (launched if name == "512ch" else 0):
             failures.append(f"{name}: {chunked} of {launched} launches took "
                             f"the chunk ring")
@@ -2810,7 +2828,7 @@ def _mulaw256_launches(rows, failures):
               flush=True)
         if (counts["split_head_launches"] != 1 or counts["chunked_launches"] != 0
                 or counts["wide_cluster_launches"] != (B > 240)
-                or info[2] != plan.total):
+                or counts["tap_last_launches"] != 1 or info[2] != plan.total):
             fail(f"mulaw256 B={B}: counters {counts}, {info[2]} B of shared "
                  f"memory against the plan's {plan.total}")
         timing[f"mulaw256.b{B}"] = dict(

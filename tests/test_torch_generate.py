@@ -306,8 +306,11 @@ def _public_from_slices(kp, spec):
     a = cat(sl["w_in"][r][..., :Gq] for r in range(CS))[..., :G2]
     b = cat(sl["w_in"][r][..., Gq:] for r in range(CS))[..., :G2]
     cols = torch.cat([a, b], dim=-1)                       # (L, Kin, G)
-    rows = [cols[:, t * Rp:t * Rp + R] for t in range(k)]
-    rows.append(cols[:, k * Rp:k * Rp + cin])
+    # rows: [older taps | cond | newest tap], the public order the taps
+    # oldest..newest, then cond
+    rows = [cols[:, t * Rp:t * Rp + R] for t in range(k - 1)]
+    rows.append(cols[:, d["new_at"]:d["new_at"] + R])
+    rows.append(cols[:, d["cond_at"]:d["cond_at"] + cin])
     res = cat(sl["w_og"][r][..., :Rq] for r in range(CS))[..., :R]
     skip = cat(sl["w_og"][r][..., Rq:] for r in range(CS))[..., :S]
     b_a = cat(sl["b_in"][r][..., :Gq] for r in range(CS))[..., :G2]

@@ -6,6 +6,7 @@ memory with the buffers; the cluster shapes the picker takes; and the plan's
 fields and constants as ``csrc/generate.cu`` declares them. The kernel
 itself runs these plans on a GPU (``tests/test_torch_kernels.py``)."""
 import ctypes
+import dataclasses
 import re
 from pathlib import Path
 
@@ -303,7 +304,7 @@ def test_unsplit_heads_keep_their_plans(name):
 # bf16 at clusters of 8 and 32 rows: (activation buffers, one layer block,
 # plan or None). Buffers, M = 32 rows, bf16 (2 B), each rounded up to 128 B
 # (the row strides xs, gs, ss are Kin, Kog, Ksk moved to 8 mod 64):
-#   [taps | cond] 2 M xs 2 + gated M gs 2 + head in and hidden 2 M ss 2
+#   [older taps | cond | newest tap] 2 M xs 2 + gated M gs 2 + head in and hidden 2 M ss 2
 #   + w_in partials 4 parts (SPLIT_IN x 2 row tiles) x 2 Gq x M x 4
 #   + residual M Rq 4 + skips
 #   M Sq 4 + head out M Cq 4 + input M C_in 4 (a split head: candidates
@@ -409,3 +410,46 @@ def test_plan_struct_and_constants_match_the_kernel():
     assert const["kBars"] == cg.BARRIERS
     assert const["kUnits"] == cg.RING_UNITS
     assert const["kSmemLimit"] == cg.SMEM_BYTES
+
+
+@pytest.mark.parametrize("cs", cg.CLUSTER_SIZES)
+@pytest.mark.parametrize("name", ["flagship", "512ch", "mulaw256", "gaussian"])
+def test_w_in_walks_the_newest_tap_last(name, cs):
+    """A bf16 CTA's w_in slice orders its depth [older taps | cond | newest
+    tap]: every row before the plan's first newest-tap k-step (``ks_new``)
+    holds an older tap, the conditioning or padding, and the newest tap's
+    rows lie at or after it, from ``new_at`` on, which the kernel's vector
+    stores reach (a multiple of 8). An f32 slice keeps the plain version's
+    order [taps | cond]. One layer a stack: the order does not depend on
+    the depth."""
+    spec = SPECS[name]()
+    spec = dataclasses.replace(spec, layers=spec.stacks)
+    k, R = spec.kernel_size, spec.residual_channels
+    cin = spec.cin_channels if spec.has_local_conditioning else 0
+    assert cin > 0
+    # each public w_in row tagged by where it comes from: 1 an older tap,
+    # 2 the newest tap, 3 the conditioning (exact in bf16)
+    kind = torch.tensor([1.0] * ((k - 1) * R) + [2.0] * R + [3.0] * cin)
+    rows = lambda tags, v: torch.nonzero(tags == v)[:, 0].tolist()
+    for dtype in (torch.bfloat16, torch.float32):
+        d = cg._kernel_dims(spec, cs, dtype)
+        Rp = cs * d["Rq"]
+        packed = {n: torch.zeros(shape, dtype=torch.float32 if n.startswith("b_") else dtype)
+                  for n, shape in cg.packed_shapes(spec).items()}
+        packed["w_in"][:] = kind.to(dtype)[None, :, None]
+        tags = cg.KernelPack(packed, spec, cs).slices()["w_in"][0, 0, :, 0].float()
+        older = [t * Rp + c for t in range(k - 1) for c in range(R)]
+        assert rows(tags, 1.0) == older
+        assert rows(tags, 2.0) == list(range(d["new_at"], d["new_at"] + R))
+        assert rows(tags, 3.0) == list(range(d["cond_at"], d["cond_at"] + cin))
+        assert d["new_at"] % 8 == 0 and d["new_at"] + Rp <= d["Kin"]
+        if dtype == torch.float32:
+            assert (d["new_at"], d["cond_at"]) == ((k - 1) * Rp, k * Rp)
+            continue
+        assert d["cond_at"] == (k - 1) * Rp
+        assert 16 * d["ks_new"] <= d["new_at"] < 16 * d["ks_new"] + 16
+        assert not bool((tags[:16 * d["ks_new"]] == 2.0).any())
+        if cg._plan(spec, dtype, cs, 16) is not None:
+            plan = _plan(spec, cs, dtype)
+            assert (plan.cond_at, plan.new_at, plan.ks_new) == (
+                d["cond_at"], d["new_at"], d["ks_new"])

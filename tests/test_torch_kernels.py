@@ -68,7 +68,8 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
     rounding). B=3 is one ragged group of streams, B=17 two groups with the
     second ragged (several ragged ones for the small clusters); t0=5 checks
     the ring indexing past the start. ``generate.gaussian_launches`` counts
-    the Gaussian head's launch and no other head's."""
+    the Gaussian head's launch and no other head's,
+    ``generate.tap_last_launches`` every bf16 launch and no f32 one."""
     model = _model(10, **HEADS[head]).to(cuda)
     spec = model.spec
     dt = getattr(torch, dtype)
@@ -85,14 +86,15 @@ def test_kernel_matches_plain(cuda, head, deterministic, dtype, cluster, B):
         ring, x_cur = ring0.clone(), x0.clone()
         out = torch.empty(B, n, device=cuda, dtype=(
             torch.float32 if spec.scalar_input else torch.int32))
-        names = ("generate.launches", "generate.gaussian_launches")
+        names = ("generate.launches", "generate.gaussian_launches",
+                 "generate.tap_last_launches")
         before = [_count(c) for c in names]
         if kernel:
             cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate,
                               t0=5, seed=3, deterministic=deterministic,
                               _cluster=CLUSTERS[cluster])
             assert [_count(c) - b for c, b in zip(names, before)] == [
-                1, int(head == "gaussian")]
+                1, int(head == "gaussian"), int(dtype == "bfloat16")]
         else:
             cg.generate_steps_plain(packed, spec, ring, x_cur, out, cond,
                                     g_gate, t0=5, seed=3,
@@ -288,6 +290,53 @@ def test_stream_alone_equals_stream_in_batch(cuda):
     assert float(outs[(1, None)].std()) > 0.01
     assert torch.equal(outs[(1, None)], outs[(32, None)])
     assert torch.equal(outs[(1, None)], outs[(32, (2, 8))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", cg.CLUSTER_SIZES)
+def test_stream_bits_do_not_depend_on_cluster_or_neighbours(cuda, cs):
+    """At widths no cluster size pads (64/128/64; conditioning of 20
+    channels, so that w_in's first newest-tap k-step also holds
+    conditioning rows), bf16 sampling over two carried 64-step launches:
+    stream 0 generated alone equals stream 0 inside B=32 on 16-stream
+    clusters of ``cs`` CTAs, on 32-stream ones where whole layer blocks fit
+    beside their buffers, and on single CTAs, bit for bit; a repeat of the
+    B=32 launches gives the same bits; every launch walks the newest tap
+    last (``generate.tap_last_launches``)."""
+    spec = WaveNetSpec(layers=6, stacks=2, residual_channels=64,
+                       gate_channels=128, skip_out_channels=64,
+                       cin_channels=20, out_channels=30, scalar_input=True)
+    model = WaveNet(spec, generator=torch.Generator().manual_seed(13)).to(cuda)
+    packed = cg.pack_weights(model, dtype=torch.bfloat16)
+    d = cg._kernel_dims(spec, cs)
+    assert d["new_at"] % 16 and d["ks_new"] * 16 < d["new_at"]
+    n = 64
+    rs = np.random.RandomState(7)
+    cond = torch.from_numpy(rs.randn(32, 2 * n, 20).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    _, rows = cg.buffer_layout(spec)
+    shapes = [(1, (cs, 1)), (32, (cs, 16)), (32, (cs, 16)), (32, (1, 16))]
+    if cg._whole_stages(spec, cs, torch.bfloat16, 32):
+        shapes.append((32, (cs, 32)))
+    runs = []
+    for B, cluster in shapes:
+        ring = torch.zeros(rows, B, 64, device=cuda, dtype=torch.bfloat16)
+        x_cur = cg.default_initial_input(spec, B, device=cuda)
+        out = torch.empty(B, 2 * n, device=cuda)
+        before = _count("generate.tap_last_launches")
+        for t0 in (0, n):
+            cg.generate_steps(packed, spec, ring, x_cur, out[:, t0:t0 + n],
+                              cond[:B, t0:t0 + n].contiguous(), t0=t0,
+                              seed=4, _cluster=cluster)
+        torch.cuda.synchronize()
+        assert _count("generate.tap_last_launches") - before == 2
+        runs.append((out.cpu(), ring.float().cpu()))
+    alone = runs[0][0][0]
+    assert float(alone.std()) > 0.01
+    for out, _ in runs[1:]:
+        assert torch.equal(out[0], alone)
+    for out, ring in runs[2:]:
+        assert torch.equal(out, runs[1][0]) and torch.equal(ring, runs[1][1])
 
 
 @pytest.mark.cuda
@@ -489,7 +538,8 @@ def test_kernel_takes_the_planned_shared_memory(cuda, case):
     g_gate = (torch.zeros(spec.layers, B, spec.gate_channels, device=cuda)
               if spec.gin_channels > 0 else None)
     names = ("generate.chunked_launches", "generate.split_head_launches",
-             "generate.wide_cluster_launches", "generate.gaussian_launches")
+             "generate.wide_cluster_launches", "generate.gaussian_launches",
+             "generate.tap_last_launches")
     before, info = [_count(c) for c in names], []
     cg.generate_steps(packed, spec, ring, x_cur, out, cond, g_gate, t0=0,
                       seed=2, plan=plan, _info=info)
@@ -499,7 +549,7 @@ def test_kernel_takes_the_planned_shared_memory(cuda, case):
     assert info[4] == int(plan.chunked) and info[3] >= 1
     assert [_count(c) - b for c, b in zip(names, before)] == [
         int(plan.chunked), int(plan.head == 0), int(plan.tiles > 1),
-        int(name == "gaussian")]
+        int(name == "gaussian"), int(dtype == "bfloat16")]
     assert (plan.tiles > 1) == (case == "bf16.whole32")
     if name == "gaussian":
         assert (plan.head, plan.Cq, plan.nstage) == (2, 8, 4 if B <= 240 else 2)

@@ -4,7 +4,8 @@
 // "fused" (launched by _pallas_generate_jit through pl.pallas_call). One launch
 // runs steps [t0, t0+n) of the whole AR decoder for B streams: first 1x1 conv
 // -> per layer, the k dilated taps gathered from the packed ring buffer,
-// [taps | cond] @ w_in + b_in (+ global gate), GLU, gated @ w_og + b_og ->
+// [older taps | cond | newest tap] @ w_in + b_in (+ global gate), GLU,
+// gated @ w_og + b_og ->
 // residual * sqrt(1/2) and summed skips -> head (ReLU, 1x1, ReLU, 1x1) ->
 // categorical / mixture-of-logistics / Gaussian sample (or argmax / mean when
 // deterministic) fed back as the next input.
@@ -31,18 +32,18 @@
 //     Clusters never talk to each other, so a grid larger than the card runs
 //     in waves.
 //   * 16 streams are the M=16 tile of mma.sync.aligned.m16n8k16 (bf16 in, f32
-//     out); wgmma needs M=64, which 16 streams a cluster do not fill. The
-//     deep product (w_in) is cut into kSplitIn parts of its k-steps, a warp per
-//     part and pair of n-tiles; the parts leave their partial sums in shared
-//     memory and one thread per output adds them in a fixed order, then runs
-//     bias, gate and GLU. The shallow products (w_og, the head) take a warp
-//     per n-tile, and bias, residual or skip sum and the send run in the
-//     registers that hold the sums. The order of every sum depends on the
-//     product's depth alone, so a stream's result does not depend on which
-//     streams share its cluster, on the threads, on the row tiles (below),
-//     or (where no channel needs padding) on the cluster size. f32 packs
-//     take the same structure with FP32 FMAs, a thread per output (TF32
-//     would lose the whole-run agreement with the plain version).
+//     out); wgmma needs M=64, which 16 streams a cluster do not fill. The deep
+//     product (w_in) is cut into kSplitIn parts of its k-steps, a warp per part
+//     and pair of n-tiles; the parts leave their partial sums in shared memory
+//     and one thread per output adds them in a fixed order, then runs bias,
+//     gate and GLU. The shallow products (w_og, the head) take a warp per
+//     n-tile, and bias, residual or skip sum and the send run in the registers
+//     that hold the sums. The order of every sum depends on the product's depth
+//     alone, so a stream's result does not depend on which streams share its
+//     cluster, on the threads, on the row tiles (below), or (where no channel
+//     needs padding) on the cluster size. f32 packs take the same structure
+//     with FP32 FMAs, a thread per output (TF32 would lose the whole-run
+//     agreement with the plain version).
 //   * A cluster of 17-32 streams (generate_kernel<W, false, 2>) runs two row
 //     tiles, so that B=256 fills 8 clusters of 8 CTAs in one wave where
 //     16-stream clusters would have to shrink to 4 CTAs. The buffers, the
@@ -63,16 +64,29 @@
 //     with st.async, which counts the bytes on an mbarrier of the receiving
 //     CTA; the receiver waits on its own mbarrier. There is no cluster-wide
 //     barrier inside a layer: a buffer is free for the next round because a
-//     sender only gets there after it has received what the reader sent
-//     after reading. Skip sums stay local to the CTA that owns the columns
-//     and are gathered once for the head. The scalar heads' second 1x1 (a
-//     few columns) and sampler run redundantly in every CTA with the same
-//     hash, so the sample needs no broadcast. The categorical head is split
-//     like every other product: CTA r holds classes [r*Cq, (r+1)*Cq) of
-//     w_h2, adds their Gumbel noise (keyed by the absolute class) and sends
-//     its best (score, class) a stream to every CTA, each of which reduces
-//     the CS candidates in rank order to the same code. Its one-hot input
-//     is kept as that code: the first 1x1 conv is a row of w_first.
+//     sender only gets there after it has received what the reader sent after
+//     reading. Of a layer's w_in operand only the newest tap comes from the
+//     peers; the older taps and the conditioning row are in shared memory
+//     before the layer starts (fetched ahead, below). So the operand and w_in's
+//     rows are in the order [older taps | cond | newest tap]
+//     (ops/cuda_generate.py::KernelPack; the plan's cond_at, new_at and
+//     ks_new), an order that depends on the model's widths alone (f32 packs
+//     keep the plain version's [taps | cond]). Two row tiles
+//     run the k-steps they hold before they wait for the newest tap; one row
+//     tile waits before its walk: there the tap has landed by the time a layer
+//     starts, and a walk cut in two cost more than the wait (H100: 3-4.5% a
+//     step). This still needs no barrier: thread 0 re-arms the newest tap's
+//     mbarrier as soon as it has waited, which is before this CTA's gated send,
+//     and a peer sends the next layer's newest tap only after it has received
+//     that send. Skip sums stay local to the CTA that owns the columns and are
+//     gathered once for the head. The scalar heads' second 1x1 (a few columns)
+//     and sampler run redundantly in every CTA with the same hash, so the
+//     sample needs no broadcast. The categorical head is split like every other
+//     product: CTA r holds classes [r*Cq, (r+1)*Cq) of w_h2, adds their Gumbel
+//     noise (keyed by the absolute class) and sends its best (score, class) a
+//     stream to every CTA, each of which reduces the CS candidates in rank
+//     order to the same code. Its one-hot input is kept as that code: the first
+//     1x1 conv is a row of w_first.
 //   * What does not depend on the current step is fetched ahead. The weights
 //     are repacked once per pack (ops/cuda_generate.py::kernel_pack) so that
 //     a CTA's slice of a layer is one contiguous block in mma fragment order;
@@ -130,7 +144,11 @@
 //
 // -DWN_NO_PRODUCTS compiles the products out (barriers, gathers, prefetches
 // and the sampler stay): a timing aid, its results mean nothing. -DWN_TRACE
-// makes thread 0 of CTA 0 stamp the clock through the last step of a launch.
+// makes thread 0 of CTA 0 stamp the clock through the last step of a launch:
+// the step's start, the end of the first conv and prefetch stores, per layer
+// l from 2 + 6 l on the end of the stage waits, the start and the end of the
+// newest tap's wait, the GLU's send, the wait for gated and the layer's end,
+// then the head's two products and the sampler (6 L + 5 stamps).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -362,26 +380,30 @@ __device__ __forceinline__ void mma_chain(const __nv_bfloat16* w, int K, int N, 
 #endif
 }
 
+// The first k-step at or after a of the walk sp, sp + stride, ... (stride a
+// power of two, sp < stride)
+__device__ __forceinline__ int first_step(int sp, int a, int stride) {
+  return a + ((sp - a) & (stride - 1));
+}
+
 // Two row tiles of the w_in product, bf16 (generate_kernel<W, false, 2>):
-// one accumulator per row tile mt and n-tile nt[i], acc[mt * NTL + i], over
-// k-steps ks0, ks0 + stride, ... of K / 16 in that order, each weight
-// fragment read once for both tiles. With stride twice mma_chain's, the
-// parts ks0 and ks0 + stride / 2 are that chain's acc and odd sums.
+// one accumulator per row tile mt and n-tile nt[i], acc[mt * NTL + i], adds
+// the k-steps in [from, to) of sp, sp + stride, ... in that order, each
+// weight fragment read once for both tiles. With stride twice mma_chain's,
+// the parts sp and sp + stride / 2 are that chain's acc and odd sums; a walk
+// split into such runs sums what it sums whole.
 template <int NTL, int TILES>
-__device__ __forceinline__ void mma_run(const __nv_bfloat16* w, int K, int N, int ks0,
-                                        int stride, const int* nt, const __nv_bfloat16* x,
+__device__ __forceinline__ void mma_run(const __nv_bfloat16* w, int sp, int from, int to,
+                                        int stride, int N, const int* nt, const __nv_bfloat16* x,
                                         int xs, float (*acc)[4]) {
-#pragma unroll
-  for (int i = 0; i < TILES * NTL; ++i)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[i][v] = 0.0f;
 #ifndef WN_NO_PRODUCTS
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int per = (N >> 3) * 32;   // uint2s per k-step
+  const int ks0 = first_step(sp, from, stride);
   const __nv_bfloat16* xp = x + g * xs + 2 * t + ks0 * 16;
   const uint2* wp = reinterpret_cast<const uint2*>(w) + lane + (size_t)ks0 * per;
 #pragma unroll 2
-  for (int ks = ks0; ks < (K >> 4); ks += stride, xp += 16 * stride, wp += stride * per) {
+  for (int ks = ks0; ks < to; ks += stride, xp += 16 * stride, wp += stride * per) {
     uint32_t a[TILES][4];
 #pragma unroll
     for (int mt = 0; mt < TILES; ++mt) {
@@ -538,7 +560,9 @@ struct Plan {
   int Kin, Kog, Ksk;  // padded depths of w_in, w_og and the head products (% 16)
   int Cq;             // the head's output columns a CTA holds (padded to 8): all C_out
                       // for the scalar heads, its share of the classes for the categorical
-  int xs, gs, ss;     // row strides of the [taps | cond], gated and head buffers
+  int xs, gs, ss;     // row strides of the xin, gated and head buffers
+  int cond_at, new_at;  // where the conditioning and the newest tap start in an xin row
+  int ks_new;         // w_in's first k-step (16 rows) that holds a newest-tap row
   int stage_bytes, head_bytes;  // a CTA's layer block and head block in the pack
   int nstage;         // whole-layer stages, or chunk slots
   int slot_bytes;     // 0: whole-layer stages, the head's block resident; else a chunk slot
@@ -592,7 +616,8 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   constexpr bool kBf16 = !std::is_same<W, float>::value;
   cgr::cluster_group cluster = cgr::this_cluster();
   unsigned char* stages = smem;
-  W* xin = reinterpret_cast<W*>(smem + p.plan.xin);   // 2 x M x xs: [taps | cond], by layer parity
+  // 2 x M x xs: [older taps | cond | newest tap], by layer parity
+  W* xin = reinterpret_cast<W*>(smem + p.plan.xin);
   W* gt = reinterpret_cast<W*>(smem + p.plan.gt);     // M x gs: gated, all CTAs' slices
   W* hx = reinterpret_cast<W*>(smem + p.plan.hx);     // M x ss: head input
   W* o1 = reinterpret_cast<W*>(smem + p.plan.o1);     // M x ss: head hidden
@@ -611,8 +636,9 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   int* l_dil = l_off + p.plan.L;                             //   dilation,
   int* l_mods = l_dil + p.plan.L;   //   t mod ((k - 1) * dilation), for even and odd steps j
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.plan.bars);
-  // bars[2 s], bars[2 s + 1]: whole-layer stage s holds its w_in slice; the
-  // rest of its block. Chunk ring: slot s is full; slot s is free again.
+  // bars[2 s]: whole-layer stage s holds its block (both parts, below,
+  // arrive on it: one wait a layer). Chunk ring: bars[2 s], bars[2 s + 1]:
+  // slot s is full; slot s is free again.
   uint64_t* bar_head = bars + 2 * p.plan.nstage;   // the head's weights have landed
   uint64_t* bar_x = bar_head + 1;    // all slices of a layer's newest tap have landed
   uint64_t* bar_g = bar_head + 2;    // ... of gated
@@ -637,6 +663,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
   const int Gq = p.plan.Gq, Rq = p.plan.Rq, Sq = p.plan.Sq, Rp = CS * Rq, Cq = p.plan.Cq;
   const bool split = p.plan.head == 0;
   const int xs = p.plan.xs, gs = p.plan.gs, ss = p.plan.ss;
+  const int cond_at = p.plan.cond_at, new_at = p.plan.new_at, ks_new = p.plan.ks_new;
   const int NA = 2 * Gq, NB = Rq + Sq;
   const W* w_first = static_cast<const W*>(p.w_first);
   const unsigned char* wl = p.wl + (size_t)rank * L * p.plan.stage_bytes;
@@ -679,9 +706,12 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     for (int e = tid; e < words; e += blockDim.x) z[e] = 0u;
   }
   if (tid == 0) {
-    // a chunk slot is free again once every warp has left it
+    // a whole-layer stage holds its block once both parts have arrived; a
+    // chunk slot is free again once every warp has left it
     for (int s = 0; s < 2 * p.plan.nstage + kBars + split; ++s)
-      mbar_init(&bars[s], kChunk && s < 2 * p.plan.nstage && (s & 1) ? NW : 1);
+      mbar_init(&bars[s], s >= 2 * p.plan.nstage ? 1
+                          : (s & 1)                 ? (kChunk ? NW : 1)
+                                                    : (kChunk ? 1 : 2));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
@@ -804,7 +834,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     const size_t at = h ? win_bytes : 0, bytes = h ? p.plan.stage_bytes - win_bytes : win_bytes;
     bulk_load(stages + fill_slot[h] * p.plan.stage_stride + at,
               wl + (size_t)fill_layer[h] * p.plan.stage_bytes + at, bytes,
-              &bars[2 * fill_slot[h] + h]);
+              &bars[2 * fill_slot[h]]);
     ++issued[h];
     if (++fill_slot[h] == p.plan.nstage) fill_slot[h] = 0;
     if (++fill_layer[h] == L) fill_layer[h] = 0;
@@ -932,7 +962,8 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 
   // The older taps of a layer from the global ring: vector v = tid + u * nthr
   // is 8 channels of one tap of one stream. Where it comes from in a ring row
-  // and where it goes in a [taps | cond] buffer does not change: tables.
+  // and where it goes in an xin buffer (the older taps lead it) does not
+  // change: tables.
   const int VR = R / 8, NV = M * (k - 1) * VR;
   int tap_dst[kPre], tap_from[kPre], tap_back[kPre];   // tap_back: dilations back
   auto tap_place = [&](int v, int* dst, int* from, int* back) {
@@ -1003,8 +1034,8 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
 #pragma unroll
       for (int u = 0; u < kTiles; ++u)
         if (tid + u * nthr < M * VC) {
-          pre[u].store(xin + cond_bi[u] * xs + k * Rp + cond_c8[u] * 8);
-          pre[u].store(xin + (M + cond_bi[u]) * xs + k * Rp + cond_c8[u] * 8);
+          pre[u].store(xin + cond_bi[u] * xs + cond_at + cond_c8[u] * 8);
+          pre[u].store(xin + (M + cond_bi[u]) * xs + cond_at + cond_c8[u] * 8);
         }
       for (int v = tid + kTiles * nthr; v < M * VC; v += nthr) {   // what was not loaded ahead
         const int bi = v / VC, c8 = v % VC;
@@ -1013,16 +1044,16 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           x.load(cond + (size_t)(base + bi) * p.cond_sb + (size_t)j * cin + c8 * 8);
         else
           x.zero();
-        x.store(xin + bi * xs + k * Rp + c8 * 8);
-        x.store(xin + (M + bi) * xs + k * Rp + c8 * 8);
+        x.store(xin + bi * xs + cond_at + c8 * 8);
+        x.store(xin + (M + bi) * xs + cond_at + c8 * 8);
       }
     } else {
       for (int e = tid; e < M * cin; e += nthr) {
         const int bi = e / cin, i = e % cin;
         if (bi < nvalid) {
           const W cv = cond[(size_t)(base + bi) * p.cond_sb + (size_t)j * cin + i];
-          xin[bi * xs + k * Rp + i] = cv;
-          xin[(M + bi) * xs + k * Rp + i] = cv;
+          xin[bi * xs + cond_at + i] = cv;
+          xin[(M + bi) * xs + cond_at + i] = cv;
         }
       }
     }
@@ -1071,7 +1102,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           }
           xv.set(i, v[i]);
         }
-        xv.store(xin + bi * xs + (k - 1) * Rp + ch0);
+        xv.store(xin + bi * xs + new_at + ch0);
         const int c = ch0 - rank * Rq;
         if (c >= 0 && c < Rq) {
           float4* h = reinterpret_cast<float4*>(hbf + bi * Rq + c);
@@ -1092,7 +1123,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           }
           v += first_b[ch];
         }
-        xin[bi * xs + (k - 1) * Rp + ch] = from_f<W>(v);
+        xin[bi * xs + new_at + ch] = from_f<W>(v);
         const int c = ch - rank * Rq;
         if (c >= 0 && c < Rq) hbf[bi * Rq + c] = v;
       }
@@ -1118,7 +1149,6 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       if constexpr (!kChunk) {
         const uint32_t parity = resident ? 0u : use_parity;
         mbar_wait(&bars[2 * use_slot], parity);
-        mbar_wait(&bars[2 * use_slot + 1], parity);
         const unsigned char* wst = stages + use_slot * p.plan.stage_stride;
         if (++use_slot == p.plan.nstage) {
           use_slot = 0;
@@ -1131,16 +1161,25 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       }
       const float* gg = p.g_gate == nullptr ? nullptr : p.g_gate + ((size_t)l * p.B + base) * G;
 
-      // ---- [taps | cond] @ w_in slice + b_in (+ global gate), GLU; own gate
-      // channels go to every CTA. The newest tap came from the cluster (layer
-      // 0: from the first conv, above); the older taps of the layer after the
-      // next start their way from the global ring.
-      if (l > 0) {
-        mbar_wait(bar_x, x_round & 1);
-        ++x_round;
-        if (tid == 0) mbar_expect_tx(bar_x, x_bytes);
-      }
-      WN_STAMP(2 + 4 * l);
+      // ---- [older taps | cond | newest tap] @ w_in slice + b_in (+ global
+      // gate), GLU; own gate channels go to every CTA. The older taps of the
+      // layer after the next start their way from the global ring. The
+      // newest tap comes from the cluster (layer 0: from the first conv,
+      // above): a warp waits for it once (two row tiles: where the walk
+      // first reads it; else before the walk), thread 0 then re-arming its
+      // mbarrier.
+      WN_STAMP(2 + 6 * l);
+      bool x_due = true;
+      auto wait_x = [&]() {
+        if (!x_due) return;
+        x_due = false;
+        WN_STAMP(3 + 6 * l);
+        if (l > 0) {
+          mbar_wait(bar_x, x_round & 1);
+          if (tid == 0) mbar_expect_tx(bar_x, x_bytes);
+        }
+        WN_STAMP(4 + 6 * l);
+      };
       Vec8<W> pre[kPre];
       int off2 = 0, dil2 = 1, mod2 = 0;
       if (l + 2 < L) {
@@ -1175,6 +1214,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
         if constexpr (kChunk) {
           // pass by pass, up to kUnits of the warp's items through every
           // chunk
+          wait_x();
           for (int pass = 0; pass < p.plan.passes[0]; ++pass) {
             float acc[kUnits][2][4], odd[kUnits][2][4];
             int nt[kUnits][2], sp[kUnits];
@@ -1217,18 +1257,31 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
             }
           }
         } else {
+          // Two row tiles run the k-steps they hold before they wait for
+          // the newest tap; one row tile waits first, since there the tap
+          // has landed by the time a layer starts and a walk cut in two
+          // costs more than the wait (the header's note).
+          if constexpr (kTiles == 1) wait_x();
           Walk w = walk_w;
           for (int item = warp; item < pairs * kParts; item += NW, w.next()) {
             const int nt[2] = {w.col, pairs + w.col};
             float acc[2 * kTiles][4];
-            if constexpr (kTiles == 1)
+            if constexpr (kTiles == 1) {
               mma_chain<2>(w_in, p.plan.Kin, NA, w.row, kSplitIn, nt, xb, xs, acc);
-            else
-              mma_run<2, kTiles>(w_in, p.plan.Kin, NA, w.row, kParts, nt, xb, xs, acc);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 2 * kTiles; ++i)
+#pragma unroll
+                for (int v = 0; v < 4; ++v) acc[i][v] = 0.0f;
+              mma_run<2, kTiles>(w_in, w.row, 0, ks_new, kParts, NA, nt, xb, xs, acc);
+              wait_x();
+              mma_run<2, kTiles>(w_in, w.row, ks_new, KSin, kParts, NA, nt, xb, xs, acc);
+            }
             put_part(w.row, w.col, acc);
           }
         }
       } else {
+        wait_x();
         if constexpr (kChunk) {
           for (int pass = 0; pass < p.plan.passes[0]; ++pass) {
             float acc[kUnits][2];
@@ -1266,6 +1319,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           }
         }
       }
+      if (l > 0) ++x_round;
       sync();
       // Every thread is past this layer's w_in slice and, since the layer
       // before, past the rest of that layer's block.
@@ -1306,7 +1360,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
           send(CS, gt, row * gs + ch, glu<W>(za, zg), bar_g);
         }
       }
-      WN_STAMP(3 + 4 * l);
+      WN_STAMP(5 + 6 * l);
 
       // ---- gated @ [w_out | w_skip] slice -> own residual and skip columns.
       // Ring rows are written here: every CTA has consumed the rows they evict
@@ -1315,7 +1369,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       mbar_wait(bar_g, g_round & 1);
       ++g_round;
       if (tid == 0) mbar_expect_tx(bar_g, g_bytes);
-      WN_STAMP(4 + 4 * l);
+      WN_STAMP(6 + 6 * l);
       W* row0 = ring + (size_t)l_mod[0] * ring_row + (size_t)base * R;
       W* rown = last ? nullptr
                      : ring + (size_t)(l_off[l + 1] + l_mod[l + 1]) * ring_row + (size_t)base * R;
@@ -1349,7 +1403,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
                       __floats2bfloat162_rn(v[i], v[i + 1]);
               }
             }
-            if (!last) send_tile(CS, xn + r0 * xs + (k - 1) * Rp, xs, rank * Rq + col0, v, bar_x);
+            if (!last) send_tile(CS, xn + r0 * xs + new_at, xs, rank * Rq + col0, v, bar_x);
           } else {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -1384,7 +1438,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
               if (l == 0) row0[(size_t)row * R + ch] = from_f<W>(h0);
               if (!last) rown[(size_t)row * R + ch] = from_f<W>(h1);
             }
-            if (!last) send(CS, xn, row * xs + (k - 1) * Rp + ch, h1, bar_x);
+            if (!last) send(CS, xn, row * xs + new_at + ch, h1, bar_x);
           } else {
             const float s = sk[row * Sq + c - Rq] + acc + bias[c];
             sk[row * Sq + c - Rq] = s;
@@ -1408,7 +1462,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       // this layer's buffer was read out before the block barrier above: the
       // older taps of the layer after the next go where its own were
       if (l + 2 < L) taps_store(pre, off2, dil2, mod2, xb);
-      WN_STAMP(5 + 4 * l);
+      WN_STAMP(7 + 6 * l);
     }
     // all of this step's ring writes are issued: the cluster barrier's first half
     cluster_arrive();
@@ -1464,7 +1518,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
     sync();
     // the rest of the last layer's block is read out too
     if (filler && refill && issued[1] < total_layers) fill(1);
-    WN_STAMP(2 + 4 * L);
+    WN_STAMP(2 + 6 * L);
     // The barrier's second half: every CTA's ring writes of this step are
     // visible. What the next step's first two layers need starts its way.
     cluster_wait();
@@ -1511,7 +1565,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       }
     }
     sync();
-    WN_STAMP(3 + 4 * L);
+    WN_STAMP(3 + 6 * L);
     // ---- sampling, SL lanes a stream: a warp for one row tile, for two a
     // group of 8 lanes (four streams a warp at once). Categorical: each
     // CTA's best of its classes to every CTA, then the reduction over the
@@ -1613,7 +1667,7 @@ __global__ void __launch_bounds__(kThreads + (kChunk ? kFillThreads : 0), 1)
       }
     }
     sync();
-    WN_STAMP(4 + 4 * L);
+    WN_STAMP(4 + 6 * L);
   }
 
   // the last input: x_cur, for the categorical head the one-hot rows of its codes
@@ -1704,7 +1758,7 @@ cudaError_t launch(const Params& p, int* info, cudaStream_t stream) {
 }  // namespace
 
 // plan: a struct Plan (host memory, ops/cuda_generate.py Plan.struct). trace:
-// device buffer of 4 L + 5 clock stamps, or null. info: 5 host ints or null.
+// device buffer of 6 L + 5 clock stamps, or null. info: 5 host ints or null.
 extern "C" int wn_generate(const void* w_first, const void* b_first, const void* wl,
                            const void* wh, const void* cond, long long cond_sb,
                            const void* g_gate, void* ring, void* x_cur, void* out,

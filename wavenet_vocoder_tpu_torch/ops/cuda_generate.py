@@ -298,19 +298,32 @@ def split_head(spec: WaveNetSpec) -> bool:
     return head_code(spec) == 0
 
 
-def _kernel_dims(spec: WaveNetSpec, cluster_size: int) -> Dict[str, int]:
-    """Widths, depths and strides of the kernel-side pack (see KernelPack).
-    ``Cq``: the output columns of the head a CTA holds, C_out padded to 8,
-    or for a split head its 1/CS share of them, padded to 8."""
+def _kernel_dims(spec: WaveNetSpec, cluster_size: int,
+                 dtype=torch.bfloat16) -> Dict[str, int]:
+    """Widths, depths and strides of the kernel-side pack (see KernelPack)
+    of a pack dtype. ``Cq``: the output columns of the head a CTA holds,
+    C_out padded to 8, or for a split head its 1/CS share of them, padded
+    to 8. ``cond_at`` and ``new_at`` are the rows of w_in's depth where the
+    conditioning and the newest tap start (multiples of 8), ``ks_new`` the
+    first k-step of 16 rows that holds a newest-tap row: bf16 [older taps |
+    cond | newest tap], so that the tap the cluster sends comes last; f32
+    the plain version's [taps | cond], whose sums (and so its codes) stay
+    the plain version's."""
     CS, k = cluster_size, spec.kernel_size
     cin = spec.cin_channels if spec.has_local_conditioning else 0
     Gq, Rq, Sq = (_up(-(-w // CS), 8) for w in (
         spec.gate_channels // 2, spec.residual_channels, spec.skip_out_channels))
     Kin, Kog, Ksk = _up(k * CS * Rq + cin, 16), _up(CS * Gq, 16), _up(CS * Sq, 16)
+    if dtype == torch.bfloat16:
+        cond_at = (k - 1) * CS * Rq
+        new_at = cond_at + _up(cin, 8)
+    else:
+        new_at, cond_at = (k - 1) * CS * Rq, k * CS * Rq
     C = spec.out_channels
     return dict(Gq=Gq, Rq=Rq, Sq=Sq, Kin=Kin, Kog=Kog, Ksk=Ksk,
                 Cq=_up(-(-C // CS) if split_head(spec) else C, 8),
-                xs=_row_stride(Kin), gs=_row_stride(Kog), ss=_row_stride(Ksk))
+                xs=_row_stride(Kin), gs=_row_stride(Kog), ss=_row_stride(Ksk),
+                cond_at=cond_at, new_at=new_at, ks_new=new_at // 16)
 
 
 def smem_layout(spec: WaveNetSpec, dtype, cluster_size: int, tiles: int = 1,
@@ -322,7 +335,7 @@ def smem_layout(spec: WaveNetSpec, dtype, cluster_size: int, tiles: int = 1,
     and head block in the kernel-side pack (``stage_bytes``, ``head_bytes``).
     ``nstage`` whole layer blocks (``slot_bytes`` None) with the head's block
     resident, or chunk slots of ``slot_bytes``, ``stage_stride`` apart at 0."""
-    d = _kernel_dims(spec, cluster_size)
+    d = _kernel_dims(spec, cluster_size, dtype)
     elt = 2 if dtype == torch.bfloat16 else 4
     M, split, chunked = TILE_ROWS * tiles, split_head(spec), slot_bytes is not None
     NA, NB, Sq, Cq = 2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"]
@@ -331,7 +344,7 @@ def smem_layout(spec: WaveNetSpec, dtype, cluster_size: int, tiles: int = 1,
     at["stage_stride"] = _up(slot_bytes if chunked else at["stage_bytes"], 128)
     buffers = (
         ("headw", 0 if chunked else at["head_bytes"]),
-        ("xin", 2 * M * d["xs"] * elt),     # [taps | cond], by layer parity
+        ("xin", 2 * M * d["xs"] * elt),     # w_in's operand, by layer parity
         ("gt", M * d["gs"] * elt),          # gated, every CTA's slice
         ("hx", M * d["ss"] * elt),          # the head's input
         ("o1", M * d["ss"] * elt),          # the head's hidden layer
@@ -358,8 +371,9 @@ def smem_layout(spec: WaveNetSpec, dtype, cluster_size: int, tiles: int = 1,
 
 
 class Plan(collections.namedtuple("Plan", (
-        "L lps k R G C_in C_out cin head bf16 CS spc tiles Gq Rq Sq Kin Kog Ksk "
-        "Cq xs gs ss stage_bytes head_bytes nstage slot_bytes ck passes head_res "
+        "L lps k R G C_in C_out cin head bf16 CS spc tiles Gq Rq Sq Kin Kog "
+        "Ksk Cq xs gs ss cond_at new_at ks_new stage_bytes head_bytes nstage "
+        "slot_bytes ck passes head_res "
         "stage_stride headw xin gt hx o1 part bst hbf sk lo xc cand first code "
         "ltab bars total"))):
     """One launch of ``csrc/generate.cu`` as ``plan_launch`` lays it out: the
@@ -399,7 +413,7 @@ def ring_products(spec: WaveNetSpec, cluster_size: int, dtype):
     (bf16, an mma's depth) or one row (f32). A unit is a pair of n-tiles over
     one of SPLIT_IN parts of the k-steps (bf16 w_in), an n-tile (bf16), or
     one stream's output (f32: a gate channel's pair of columns for w_in)."""
-    d = _kernel_dims(spec, cluster_size)
+    d = _kernel_dims(spec, cluster_size, dtype)
     M, NW = TILE_ROWS, KERNEL_THREADS // 32
     cols = (2 * d["Gq"], d["Rq"] + d["Sq"], d["Sq"], d["Cq"])
     depth = (d["Kin"], d["Kog"], d["Ksk"], d["Ksk"])
@@ -459,7 +473,7 @@ def _plan(spec: WaveNetSpec, dtype, cluster_size: int, streams: int,
                 cin=spec.cin_channels if spec.has_local_conditioning else 0,
                 head=head_code(spec), bf16=int(dtype == torch.bfloat16),
                 CS=cluster_size, spc=streams, tiles=tiles,
-                **_kernel_dims(spec, cluster_size), **ring,
+                **_kernel_dims(spec, cluster_size, dtype), **ring,
                 head_res=int(not ring["slot_bytes"]), **at)
 
 
@@ -607,9 +621,13 @@ class KernelPack:
     both GLU halves of its gate channels, [a | b]. w_h2 is cut into blocks
     of ``Cq`` classes for a split head (``split_head``), and whole (``Cq``
     = C_out padded) in every CTA otherwise. Depths are padded with zero rows
-    to multiples of 16: ``Kin`` = k taps of ``CS*Rq`` channels, then cond;
-    ``Kog`` and ``Ksk`` the padded gate and skip widths. bf16 slices are in
-    mma fragment order, f32 slices row-major."""
+    to multiples of 16: ``Kin`` = bf16: the k - 1 older taps of ``CS*Rq``
+    channels, oldest first, then cond (padded to 8 rows), then the newest
+    tap, the one the cluster sends (two row tiles run the rows they hold
+    before it); f32: the k taps, then cond (``_kernel_dims``' ``cond_at``,
+    ``new_at``). ``Kog`` and ``Ksk`` the
+    padded gate and skip widths. bf16 slices are in mma fragment order, f32
+    slices row-major."""
 
     def __init__(self, packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
                  cluster_size: int):
@@ -619,7 +637,7 @@ class KernelPack:
         L, k, R = spec.layers, spec.kernel_size, spec.residual_channels
         G2, S, C = spec.gate_channels // 2, spec.skip_out_channels, spec.out_channels
         cin = spec.cin_channels if spec.has_local_conditioning else 0
-        d = self.dims = _kernel_dims(spec, CS)
+        d = self.dims = _kernel_dims(spec, CS, dtype)
         Gq, Rq, Sq, Kin, Kog, Ksk, Cq = (d[n] for n in (
             "Gq", "Rq", "Sq", "Kin", "Kog", "Ksk", "Cq"))
         Gp, Rp, Sp = CS * Gq, CS * Rq, CS * Sq
@@ -627,14 +645,13 @@ class KernelPack:
         zeros = lambda *shape: torch.zeros(*shape, dtype=dtype, device=dev)
 
         w_in = zeros(L, Kin, 2, Gp)
-        for tap in range(k):
-            rows = packed["w_in"][:, tap * R:(tap + 1) * R]
-            w_in[:, tap * Rp:tap * Rp + R, 0, :G2] = rows[..., :G2]
-            w_in[:, tap * Rp:tap * Rp + R, 1, :G2] = rows[..., G2:]
-        if cin:
-            rows = packed["w_in"][:, k * R:]
-            w_in[:, k * Rp:k * Rp + cin, 0, :G2] = rows[..., :G2]
-            w_in[:, k * Rp:k * Rp + cin, 1, :G2] = rows[..., G2:]
+        # (first public row, rows, first kernel-side row) of each block
+        blocks = [(tap * R, R, tap * Rp) for tap in range(k - 1)]
+        blocks += [(k * R, cin, d["cond_at"]), ((k - 1) * R, R, d["new_at"])]
+        for src, n, dst in blocks:
+            rows = packed["w_in"][:, src:src + n]
+            w_in[:, dst:dst + n, 0, :G2] = rows[..., :G2]
+            w_in[:, dst:dst + n, 1, :G2] = rows[..., G2:]
         w_in = w_in.reshape(L, Kin, 2, CS, Gq).permute(3, 0, 1, 2, 4) \
             .reshape(CS, L, Kin, 2 * Gq)
         res, skip = zeros(L, Kog, Rp), zeros(L, Kog, Sp)
@@ -782,12 +799,15 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
     over the cluster (``split_head``: categorical, its x_cur rows one-hot or
     zero, unchecked here), ``generate.wide_cluster_launches`` those whose
     clusters own two row tiles, ``generate.gaussian_launches`` those whose
-    head is the Gaussian (``head_code`` 2: the Box-Muller sampler). For
+    head is the Gaussian (``head_code`` 2: the Box-Muller sampler),
+    ``generate.tap_last_launches`` those whose w_in walk takes the newest
+    tap last (bf16 packs; two row tiles also run the k-steps they hold
+    before they wait for it). For
     sweeps and tests, where no ``plan`` is given: ``_cluster`` = (CTAs per
     cluster, streams per cluster) overrides ``pick_cluster``; ``_max_stages`` caps the whole layer blocks held in
     shared memory (0: the chunk ring); ``_defines`` launches a variant build (``NO_PRODUCTS``:
     a timing aid, outputs mean nothing; ``TRACE``: clock stamps of the last
-    step of cluster 0 go to ``_trace``, an int64 tensor of 4 L + 5 values);
+    step of cluster 0 go to ``_trace``, an int64 tensor of 6 L + 5 values);
     ``_info`` receives [stages or chunk slots, head weights resident,
     shared bytes, clusters the card holds at once, chunk ring].
     """
@@ -872,6 +892,8 @@ def generate_steps(packed: Dict[str, torch.Tensor], spec: WaveNetSpec,
         profiling.count("generate.wide_cluster_launches")
     if plan.head == 2:
         profiling.count("generate.gaussian_launches")
+    if plan.bf16:
+        profiling.count("generate.tap_last_launches")
 
 
 # ----------------------------------------------------------------------

@@ -15,7 +15,9 @@ stream their weights through the chunk ring,
 ``generate.split_head_launches`` for those that split a categorical head
 over the cluster, ``generate.wide_cluster_launches`` for those whose
 clusters own more than 16 streams, ``generate.gaussian_launches`` for
-those whose head is a single Gaussian, ``train_fwd.launches``,
+those whose head is a single Gaussian, ``generate.tap_last_launches`` for
+those whose w_in walk takes the newest tap last (bf16),
+``train_fwd.launches``,
 ``train_fwd.tc_launches``,
 ``train_fwd.fma_launches``, the same three of ``train_bwd``,
 ``mel.launches``), and batched synthesis its segments (``synth.segments``,
